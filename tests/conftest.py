@@ -28,3 +28,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running soak/stress tests, excluded from the tier-1 "
         "suite (-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (hand-written kernels of windflow_tpu_torch);"
+        " skips itself when torch.cuda.is_available() is false")

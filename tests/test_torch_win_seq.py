@@ -1,0 +1,169 @@
+"""Whole pipelines through both packages on the same streams: the JAX
+package's WinSeqTPU(..., use_pallas=True) (the Pallas kernel in interpret
+mode) against the port's WinSeqGPU(..., use_reduce_kernel=True,
+device="cpu") (the kernel's plain version).  Integer streams: results must
+be identical, per-key order included.  Also: routing, device resolution,
+and carrying a JAX core's window state into the port mid-stream."""
+
+import warnings
+
+import numpy as np
+import pytest
+
+from windflow_tpu.core.windows import WindowSpec as JaxWindowSpec
+from windflow_tpu.core.windows import WinType as JaxWinType
+from windflow_tpu.ops.functions import Reducer as JaxReducer
+from windflow_tpu.patterns.win_seq_tpu import WinSeqTPU
+from windflow_tpu.patterns.win_seq_tpu import make_core_for as jax_make_core
+import windflow_tpu_torch as wt
+from windflow_tpu_torch.core.windows import WindowSpec
+from windflow_tpu_torch.interop import carry_core_state
+from windflow_tpu_torch.patterns.win_seq_gpu import (DeviceWinSeqCore,
+                                                     make_core_for)
+
+from test_farms import cb_stream_batches, run_windowed, tb_stream_batches
+
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:device path downcasts int64:UserWarning")
+
+
+def run_port(pattern, batches):
+    """Source -> pattern -> Sink through the port; per-key ordered
+    (id, ts, value) results, the shape test_farms.run_windowed returns."""
+    per_key = {}
+
+    def snk(row):
+        if row is not None:
+            per_key.setdefault(int(row["key"]), []).append(
+                (int(row["id"]), int(row["ts"]), int(row["value"])))
+
+    schema = wt.Schema(value=np.int64)
+    df = wt.Dataflow()
+    wt.build_pipeline(df, [wt.Source(batches=iter(batches), schema=schema),
+                           pattern, wt.Sink(snk)])
+    df.run_and_wait_end()
+    return per_key
+
+
+def both(op, win, slide, wt_name, batches, batch_len):
+    jax_got = run_windowed(
+        WinSeqTPU(JaxReducer(op), win, slide, getattr(JaxWinType, wt_name),
+                  batch_len=batch_len, use_pallas=True), batches)
+    port_got = run_port(
+        wt.WinSeqGPU(wt.Reducer(op), win, slide, getattr(wt.WinType, wt_name),
+                     batch_len=batch_len, use_reduce_kernel=True,
+                     device="cpu"), batches)
+    return port_got, jax_got
+
+
+@pytest.mark.parametrize("win,slide", [(8, 3), (8, 8), (3, 8), (16, 7)])
+@pytest.mark.parametrize("batch_len", [1, 7, 64, 100000])
+def test_cb_matches_jax(win, slide, batch_len):
+    port_got, jax_got = both("sum", win, slide, "CB",
+                             cb_stream_batches(3, 150), batch_len)
+    assert port_got == jax_got and len(port_got) == 3
+
+
+@pytest.mark.parametrize("win,slide", [(40, 15), (30, 30), (15, 40)])
+def test_tb_ragged_matches_jax(win, slide):
+    port_got, jax_got = both("sum", win, slide, "TB",
+                             tb_stream_batches(2, 160), 32)
+    assert port_got == jax_got
+
+
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max", "prod"])
+def test_builtin_ops_match_jax(op):
+    batches = cb_stream_batches(2, 100)
+    port_got, jax_got = both(op, 10, 4, "CB", batches, 16)
+    assert port_got == jax_got
+    if op != "prod":   # the device path's int32 products wrap; the host's
+        host = run_port(wt.WinSeq(wt.Reducer(op), 10, 4, wt.WinType.CB),
+                        batches)   # int64 ones do not
+        assert port_got == host
+
+
+def sum_test_stream(n_keys=8, per_key=600, chunk_rows=512, seed=7):
+    """bench.py's make_stream shape at a small size: per-key ordered ids,
+    values 0..99 from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    step = chunk_rows // n_keys
+    out = []
+    for lo in range(0, per_key, step):
+        m = min(step, per_key - lo)
+        ids = np.repeat(np.arange(lo, lo + m), n_keys)
+        keys = np.tile(np.arange(n_keys), m)
+        vals = rng.integers(0, 100, size=m * n_keys).astype(np.int64)
+        out.append(wt.batch_from_columns(wt.Schema(value=np.int64), key=keys,
+                                         id=ids, ts=ids, value=vals))
+    return out
+
+
+def test_sum_test_shaped_stream_matches_jax():
+    port_got, jax_got = both("sum", 16, 4, "CB", sum_test_stream(), 64)
+    assert port_got == jax_got and len(port_got) == 8
+    # every opened window fires: (600 - 1) // 4 + 1 per key
+    assert all(len(v) == 150 for v in port_got.values())
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wt.WinSeqGPU(wt.Reducer("sum"), 4, 2, use_reduce_kernel=True
+                     ).make_core()
+
+
+def test_routing_keeps_jax_decisions():
+    spec = WindowSpec(16, 4, wt.WinType.CB)
+    # host-free count goes to the host core, as in the JAX package
+    assert not isinstance(make_core_for(spec, wt.Reducer("count"),
+                                        device="cpu"), DeviceWinSeqCore)
+    # the kernel switch pins a Reducer to the restaging core
+    assert isinstance(make_core_for(spec, wt.Reducer("sum"), device="cpu",
+                                    use_reduce_kernel=True), DeviceWinSeqCore)
+    # float sums stay on the restaging core without the switch
+    assert isinstance(make_core_for(spec, wt.Reducer("sum", dtype=np.float64),
+                                    device="cpu"), DeviceWinSeqCore)
+    # the resident route is a later slice
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_core_for(spec, wt.Reducer("sum"), device="cpu")
+    with pytest.raises(TypeError, match="cannot be staged"):
+        make_core_for(spec, lambda k, g, rows: 0, device="cpu",
+                      use_reduce_kernel=True)
+
+
+def per_key(arrays):
+    out = {}
+    for a in arrays:
+        for r in a:
+            out.setdefault(int(r["key"]), []).append(
+                (int(r["id"]), int(r["ts"]), int(r["value"])))
+    return out
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_carry_core_state_continues_jax_run(op):
+    """Half the stream through the JAX core, a post-drain snapshot carried
+    into the port, the rest through the port: the same output as the JAX
+    core over the whole stream."""
+    batches = sum_test_stream(n_keys=4, per_key=400, chunk_rows=64)
+    half = len(batches) // 2
+    kw = dict(batch_len=32)
+    jspec = JaxWindowSpec(16, 4, JaxWinType.CB)
+
+    ref = jax_make_core(jspec, JaxReducer(op), use_pallas=True, **kw)
+    want = [ref.process(b) for b in batches] + [ref.flush()]
+
+    jcore = jax_make_core(jspec, JaxReducer(op), use_pallas=True, **kw)
+    got = [jcore.process(b) for b in batches[:half]]
+    got += jcore.checkpoint_drain_batches()
+    snap = jcore.state_snapshot()
+
+    pcore = make_core_for(WindowSpec(16, 4, wt.WinType.CB), wt.Reducer(op),
+                          device="cpu", use_reduce_kernel=True, **kw)
+    pcore.state_restore(carry_core_state(snap))
+    assert type(next(iter(pcore._keys.values()))).__module__.startswith(
+        "windflow_tpu_torch.")
+    got += [pcore.process(b) for b in batches[half:]] + [pcore.flush()]
+    assert per_key(got) == per_key(want)
+    assert sum(len(v) for v in per_key(got).values()) == 4 * 100
