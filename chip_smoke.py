@@ -4,20 +4,40 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure exits non-zero):
+Phases, each printing JSON lines (any failure exits non-zero; no phase
+catches its own failure):
 
 1. environment: torch version and the card's name and power limit;
-2. build: compiles the hand-written windowed-reduce kernel with nvcc from
-   windflow_tpu_torch/ops/csrc/ and reports the build time;
-3. kernel: the kernel against its plain PyTorch version on the card, for
-   sum/count/min/max/prod over int32 and float32, at the shape the main path
-   gives it (32768 windows of 256 rows over a ~2.1M-row flat buffer) and at
-   edge cases (B of 1/7/8, empty and full windows, int32 wrap, NaN), with
-   CUDA-event timings beside the least time the card could take;
-4. end to end: the sum_test pipeline (Source -> WinSeqGPU(Reducer("sum"),
+2. build: compiles both kernel sources of windflow_tpu_torch/ops/csrc/ with
+   nvcc and the native host library with make, all three at once, and
+   reports each build time;
+3. kernel: the windowed-reduce kernel against its plain PyTorch version on
+   the card, for sum/count/min/max/prod over int32 and float32, at the
+   restaging path's shape (32768 windows of 256 rows over a ~2.1M-row flat
+   buffer) and at edge cases, with CUDA-graph timings beside the least time
+   the card could take;
+4. ring_kernel: ring_append and regular_window_sum against their plain
+   versions at the resident path's shape (a 64 x 262144 int32 ring, a
+   64 x 8192 int8 rectangle, 128 windows of 256 rows per key, slide 64) and
+   at edge cases (every wire x accumulate dtype, keys fewer than ring rows,
+   rows without windows, zero lengths, starts clipped at 0 and at cap, an
+   int32 wrap, offsets at cap - Rb), with timings; and the windowed-reduce
+   kernel on the ring's flat view (the irregular evaluation) against the
+   plain transcription of the JAX package's _ring_eval;
+5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
    256, 64, CB, use_reduce_kernel=True) -> Sink) over 16M tuples of 64 keys,
    held against a numpy oracle, with the kernel's launch count read around
-   that run, and a 1M-tuple prefix held against the port's host core.
+   that run, and a 1M-tuple prefix held against the port's host core;
+6. end_to_end_resident: the same pipeline through the default route,
+   WinSeqGPU(Reducer("sum", value_range=(0, 100)), 256, 64, CB,
+   batch_len=32768, flush_rows=2**19, depth=48, shards=1) — the C++
+   NativeResidentCore feeding the ring kernels — over 16M tuples against
+   the oracle, with the ring kernels' launch counts read around that run
+   (a 1M-tuple prefix is first held against the host core);
+7. irregular_and_python_core: Reducer("max") on the native core (irregular
+   launches: the windowed-reduce kernel on the ring) and Reducer("sum") on
+   the Python ResidentWinSeqCore, 1M tuples each, byte for byte against
+   the host core.
 
 Then it prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
@@ -41,12 +61,20 @@ BATCH_LEN = 1 << 15
 CHUNK = 1 << 20
 PREFIX_TUPLES = 1 << 20
 DEVICE = "cuda:0"   # one card
+# the resident path's settings (the JAX package's bench.py)
+FLUSH_ROWS = 1 << 19
+DEPTH = 48
+# the ring geometry of its steady-state launches: wf_native.cpp provisions
+# cap = bucket(2*8192 + 18*8192) on the first row-triggered flush
+KP, CAP, RB, C_WINDOWS = 64, 262144, 8192, 128
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor
 # core) operations/s; the kernel does one 32-bit combine per element
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 FLOAT_RTOL = 1e-5
+WIRES = (torch.int8, torch.int16, torch.int32, torch.float32)
+ACCS = (torch.int32, torch.float32)
 
 
 def emit(phase, **fields):
@@ -234,6 +262,266 @@ def edge_cases(wr, dev, gen):
           ("min", "max", "sum"))
 
 
+def build_all():
+    """nvcc for each kernel source and make for the native host library,
+    all started together; returns {name: (result, seconds)}.  A failed
+    build raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from windflow_tpu_torch import native
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    jobs = {"windowed_reduce.cu": wr.build, "resident.cu": rk.build,
+            "libwfnative.so": native.load}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        done = {name: f.result() for name, f in futs.items()}
+    if done["libwfnative.so"][0] is None:
+        raise RuntimeError("the native host library did not build "
+                           "(make -C native): the resident main path needs "
+                           "it")
+    return done
+
+
+def ring_case(gen, dev, wire, acc, edge, K=KP, cap=CAP, Rb=RB, C=C_WINDOWS,
+              slide=SLIDE, rlen=WIN):
+    """Inputs of one append + regular evaluation: a ring with earlier
+    contents, a rectangle whose rows >= K and tail columns are zero (as the
+    executor stages it), per-row offsets and regular window descriptors."""
+    KP_ = KP if cap == CAP else 8
+    if edge == "keys_lt_rows":
+        K = KP_ - 3
+    K = min(K, KP_)
+    ring = (torch.from_numpy(gen.integers(-1000, 1000, size=(KP_, cap)))
+            .to(acc))
+    if acc == torch.float32:
+        ring = torch.from_numpy(gen.uniform(-100, 100, size=(KP_, cap))).to(
+            acc)
+    blk = torch.zeros((KP_, Rb), dtype=wire)
+    counts = gen.integers(Rb // 2, Rb + 1, size=K)
+    for r in range(K):
+        if wire == torch.float32:
+            vals = torch.from_numpy(gen.uniform(-100, 100, size=counts[r]))
+        elif edge == "int32_wrap":
+            vals = torch.full((int(counts[r]),), 2 ** 30 if wire ==
+                              torch.int32 else 100)
+        else:
+            vals = torch.from_numpy(gen.integers(0, 100, size=counts[r]))
+        blk[r, :counts[r]] = vals.to(wire)
+    offs = torch.zeros(KP_, dtype=torch.int32)
+    offs[:K] = torch.from_numpy(gen.integers(Rb, cap - Rb + 1, size=K))
+    if edge == "offs_at_end":
+        offs[:K] = cap - Rb
+    rstart0 = torch.zeros(KP_, dtype=torch.int32)
+    rlens = torch.zeros(KP_, dtype=torch.int32)
+    rstart0[:K] = (offs[:K] - (rlen - slide)).clamp(min=0)
+    rlens[:K] = rlen
+    if edge == "rows_without_windows":
+        rlens[1:K:2] = 0
+    if edge == "zero_length":
+        rlens[:K] = 0
+    if edge == "clip_low":
+        rstart0[:K] = -torch.from_numpy(gen.integers(1, 4 * slide, size=K)
+                                        ).to(torch.int32)
+    if edge == "clip_high":
+        rstart0[:K] = cap - torch.from_numpy(
+            gen.integers(-slide, 2 * slide, size=K)).to(torch.int32)
+    if edge == "int32_wrap" and acc == torch.int32:
+        ring[:] = 2 ** 30
+    return dict(ring=ring.to(dev), blk=blk.to(dev), offs=offs.to(dev),
+                rstart0=rstart0.to(dev), rlen=rlens.to(dev), C=C,
+                slide=slide)
+
+
+def run_ring(rk, case, plain):
+    ring = case["ring"].clone()
+    (rk.ring_append_reference if plain else rk.ring_append)(
+        ring, case["blk"], case["offs"])
+    out = (rk.regular_window_sum_reference if plain
+           else rk.regular_window_sum)(ring, case["rstart0"], case["rlen"],
+                                       case["C"], case["slide"])
+    return ring, out
+
+
+def window_abs_sums(ring, rstart0, rlen, C, slide):
+    """Σ|x| over each clipped regular window (float64, on the card)."""
+    cap = ring.shape[1]
+    cs = torch.zeros((ring.shape[0], cap + 1), dtype=torch.float64,
+                     device=ring.device)
+    torch.cumsum(ring.double().abs(), dim=1, out=cs[:, 1:])
+    i = torch.arange(C, device=ring.device)
+    s = (rstart0.long()[:, None] + i[None, :] * slide).clamp(0, cap)
+    e = (s + rlen.long()[:, None]).clamp(0, cap)
+    return cs.gather(1, e) - cs.gather(1, s)
+
+
+def check_ring(rk, case, name):
+    """Kernel against plain version on one case; returns (append error,
+    window-sum error).  Rings must be identical; int32 sums exact, float32
+    sums within FLOAT_RTOL of Σ|x| over the window."""
+    ring_k, out_k = run_ring(rk, case, plain=False)
+    ring_p, out_p = run_ring(rk, case, plain=True)
+    torch.cuda.synchronize()
+    if not torch.equal(ring_k, ring_p):
+        raise AssertionError(f"ring_append {name}: rings differ")
+    if out_k.dtype == torch.int32:
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"regular_window_sum {name}: sums differ")
+        return 0.0, 0.0
+    err = (out_k.double() - out_p.double()).abs()
+    scale = window_abs_sums(ring_p, case["rstart0"], case["rlen"],
+                            case["C"], case["slide"])
+    if not bool((err <= FLOAT_RTOL * scale).all()):
+        raise AssertionError(f"regular_window_sum {name}: error "
+                             f"{float(err.max())} beyond rtol {FLOAT_RTOL}")
+    return 0.0, float(err.max())
+
+
+def covered_cells(rstart0, rlen, C, slide, cap):
+    """Ring cells the regular windows cover, each counted once."""
+    n = 0
+    for s0, ln in zip(rstart0.tolist(), rlen.tolist()):
+        ivs = []
+        for i in range(C):
+            s = min(max(s0 + i * slide, 0), cap)
+            e = min(max(s + ln, 0), cap)
+            if e > s:
+                ivs.append((s, e))
+        end = -1
+        for s, e in ivs:          # starts are increasing
+            if e > max(s, end):
+                n += e - max(s, end)
+                end = e
+    return n
+
+
+def bytes_bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_kernel_phase(dev):
+    """The ring kernels against their plain versions at the resident main
+    path's shape and at edge cases; the irregular evaluation against the
+    _ring_eval transcription.  Returns the kernels-line rows."""
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    gen = np.random.default_rng(1)
+    rows = {}
+
+    # -- main-path shape: int8 wire into an int32 ring
+    case = ring_case(gen, dev, torch.int8, torch.int32, "main")
+    app_err, sum_err = check_ring(rk, case, "main_shape")
+    ring = case["ring"].clone()
+    blk, offs = case["blk"], case["offs"]
+    rs0, rln = case["rstart0"], case["rlen"]
+    a_ms = kernel_ms(lambda: rk.ring_append(ring, blk, offs))
+    a_plain = call_ms(lambda: rk.ring_append_reference(ring, blk, offs))
+    idx = offs.long()[:, None] + torch.arange(RB, device=dev)[None, :]
+    a_lib = call_ms(lambda: ring.scatter_(1, idx, blk.to(torch.int32)))
+    a_bound = bytes_bound(blk.numel() * (1 + 4) + 4 * KP, blk.numel())
+    s_ms = kernel_ms(lambda: rk.regular_window_sum(ring, rs0, rln,
+                                                   C_WINDOWS, SLIDE))
+    s_plain = call_ms(lambda: rk.regular_window_sum_reference(
+        ring, rs0, rln, C_WINDOWS, SLIDE))
+
+    def jax_design():
+        cs = torch.nn.functional.pad(
+            torch.cumsum(ring, dim=1, dtype=torch.int32), (1, 0))
+        i = torch.arange(C_WINDOWS, device=dev)
+        st = (rs0.long()[:, None] + i[None, :] * SLIDE).clamp(0, CAP)
+        en = (st + rln.long()[:, None]).clamp(0, CAP)
+        return cs.gather(1, en) - cs.gather(1, st)
+
+    s_jax = call_ms(jax_design)
+    cells = covered_cells(rs0.cpu(), rln.cpu(), C_WINDOWS, SLIDE, CAP)
+    s_bound = bytes_bound(4 * cells + 8 * KP + 4 * KP * C_WINDOWS,
+                          int(rln.long().sum()) * C_WINDOWS)
+    emit("ring_kernel", kernel="ring_append", case="main_shape", KP=KP,
+         cap=CAP, Rb=RB, wire="int8", acc="int32", max_abs_err=app_err,
+         kernel_ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
+         library="ring.scatter_(1, idx, blk.to(int32))",
+         bound_ms=a_bound[0], bound_by=a_bound[1])
+    emit("ring_kernel", kernel="regular_window_sum", case="main_shape",
+         KP=KP, cap=CAP, C=C_WINDOWS, slide=SLIDE, rlen=WIN,
+         covered_cells=cells, max_abs_err=sum_err, kernel_ms=s_ms,
+         plain_ms=s_plain, library_ms=None,
+         library_none_because="no single torch call sums clipped "
+                              "overlapping windows",
+         jax_design_ms=s_jax, bound_ms=s_bound[0], bound_by=s_bound[1])
+    rows["ring_append"] = dict(max_abs_err=app_err, ms=a_ms,
+                               plain_ms=a_plain, bound_ms=a_bound[0],
+                               bound_by=a_bound[1], library_ms=a_lib)
+    rows["regular_window_sum"] = dict(max_abs_err=sum_err, ms=s_ms,
+                                      plain_ms=s_plain, bound_ms=s_bound[0],
+                                      bound_by=s_bound[1], library_ms=None)
+
+    # -- edge cases, every wire x accumulate dtype, at a small ring
+    edges = ("plain", "keys_lt_rows", "rows_without_windows", "zero_length",
+             "clip_low", "clip_high", "int32_wrap", "offs_at_end")
+    for wire in WIRES:
+        for acc in ACCS:
+            for edge in edges:
+                case = ring_case(gen, dev, wire, acc, edge, cap=4096, Rb=512,
+                                 C=16, slide=24, rlen=40)
+                a, b = check_ring(rk, case, f"{wire}->{acc} {edge}")
+                rows["ring_append"]["max_abs_err"] = max(
+                    rows["ring_append"]["max_abs_err"], a)
+                rows["regular_window_sum"]["max_abs_err"] = max(
+                    rows["regular_window_sum"]["max_abs_err"], b)
+            emit("ring_kernel", case="edges", wire=str(wire), acc=str(acc),
+                 edges=list(edges), ok=True)
+
+    # -- the irregular evaluation: windowed_reduce on the ring's flat view
+    for acc in ACCS:
+        ring = (torch.from_numpy(gen.integers(0, 100, size=(KP, CAP)))
+                .to(dev, acc))
+        B = BATCH_LEN
+        rows_ = torch.from_numpy(gen.integers(0, KP, size=B)).to(dev,
+                                                                 torch.int32)
+        lens = torch.from_numpy(gen.integers(0, WIN + 1, size=B)).to(
+            dev, torch.int32)
+        starts = torch.from_numpy(gen.integers(0, CAP - WIN, size=B)).to(
+            dev, torch.int32)
+        flat_starts = (rows_.long() * CAP + starts).to(torch.int32)
+        for op in ("sum", "min", "max", "prod"):
+            r = ring
+            if op == "prod":
+                r = (torch.from_numpy(gen.uniform(0.99, 1.01, size=(KP, CAP)))
+                     .to(dev, acc) if acc == torch.float32
+                     else torch.from_numpy(gen.integers(-2, 3, size=(KP, CAP)))
+                     .to(dev, acc))
+            got = wr.windowed_reduce(r.view(-1), flat_starts, lens, WIN, op)
+            want = rk.ring_eval_reference(op, r, rows_, starts, lens, WIN)
+            torch.cuda.synchronize()
+            err = compare(got, want, r.view(-1), flat_starts, lens, op)
+            emit("ring_kernel", kernel="windowed_reduce",
+                 case="ring_flat_view", op=op, acc=str(acc), B=B, pad=WIN, max_abs_err=err,
+                 kernel_ms=kernel_ms(lambda: wr.windowed_reduce(
+                     r.view(-1), flat_starts, lens, WIN, op)))
+    return rows
+
+
+def stage_with_core(make_stage, cores):
+    """A pattern whose make_core() also records the core it built."""
+    stage = make_stage()
+    orig = stage.make_core
+
+    def recording():
+        core = orig()
+        cores.append(core)
+        return core
+    stage.make_core = recording
+    return stage
+
+
 def make_stream(schema, n_tuples):
     """Deterministic per-key-ordered integer stream (bench.py:make_stream)."""
     from windflow_tpu_torch import batch_from_columns
@@ -332,31 +620,161 @@ def end_to_end(wr):
     return launches
 
 
+def resident_stage(wt, reducer=None):
+    """The JAX package's bench.py stage, through the port's entry point:
+    the default route of a builtin sum is the resident path."""
+    return wt.WinSeqGPU(reducer or wt.Reducer("sum", value_range=(0, 100)),
+                        WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
+                        flush_rows=FLUSH_ROWS, depth=DEPTH, shards=1,
+                        device=DEVICE)
+
+
+def host_rows(wt, reducer, batches, schema):
+    host = wt.WinSeq(reducer, WIN, SLIDE, wt.WinType.CB)
+    return run_pipeline(host, batches, schema, keep=True)
+
+
+def end_to_end_resident(wr, rk):
+    """sum_test, 16M tuples, through NativeResidentCore and the ring
+    kernels; returns the ring kernels' launch counts in that run."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.ops import resident
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    schema = wt.Schema(value=np.int64)
+
+    # warm-up on a 1M-tuple prefix, held byte for byte against the host core
+    prefix = make_stream(schema, PREFIX_TUPLES)
+    _, n_dev, _, dev_rows = run_pipeline(resident_stage(wt), prefix, schema,
+                                         True)
+    _, n_host, _, want_rows = host_rows(wt, wt.Reducer("sum"), prefix,
+                                        schema)
+    if n_dev != n_host or by_key(dev_rows) != by_key(want_rows):
+        raise AssertionError("1M-tuple prefix: the resident path differs "
+                             "from the host core")
+    emit("resident_prefix_vs_host_core", tuples=PREFIX_TUPLES,
+         windows=n_dev, identical=True)
+
+    batches = make_stream(schema, N_TUPLES)
+    want = expected_total(batches)
+    cores = []
+    stage = stage_with_core(lambda: resident_stage(wt), cores)
+    torch.cuda.reset_peak_memory_stats()
+    resident.stats_snapshot(reset=True)
+    wr.windowed_reduce.launches = 0
+    rk.ring_append.launches = 0
+    rk.regular_window_sum.launches = 0
+    dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
+    launches = {"ring_append": rk.ring_append.launches,
+                "regular_window_sum": rk.regular_window_sum.launches,
+                "windowed_reduce": wr.windowed_reduce.launches}
+    stats = resident.stats_snapshot(reset=True)
+    if not (len(cores) == 1 and isinstance(cores[0], NativeResidentCore)):
+        raise AssertionError(f"the stage's core is {cores}, not the port's "
+                             "NativeResidentCore")
+    if cores[0]._delegate is not None:
+        raise AssertionError("NativeResidentCore fell back to the Python "
+                             "core")
+    if total != want:
+        raise AssertionError(f"windowed-sum total {total} != oracle {want}")
+    if not (launches["ring_append"] > 0
+            and launches["regular_window_sum"] > 0):
+        raise AssertionError(f"the resident path launched {launches}")
+    emit("end_to_end_resident",
+         workload="sum_test CB win=256 slide=64 keys=64 resident",
+         tuples=N_TUPLES, seconds=dt, tuples_per_s=N_TUPLES / dt,
+         windows=n_windows, total=total, oracle=want, launches=launches,
+         stats=stats, max_memory_allocated=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def irregular_and_python_core(wr, rk):
+    """Reducer("max") on the native core (irregular launches: the
+    windowed-reduce kernel on the ring) and Reducer("sum") on the Python
+    resident core, each byte for byte against the host core."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.core.windows import WindowSpec
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    from windflow_tpu_torch.patterns.win_seq_gpu import ResidentWinSeqCore
+    schema = wt.Schema(value=np.int64)
+    prefix = make_stream(schema, PREFIX_TUPLES)
+    spec = WindowSpec(WIN, SLIDE, wt.WinType.CB)
+
+    def python_core_stage():
+        stage = resident_stage(wt)
+        stage.make_core = lambda: ResidentWinSeqCore(
+            spec, wt.Reducer("sum", value_range=(0, 100)),
+            batch_len=BATCH_LEN, flush_rows=FLUSH_ROWS, device=DEVICE,
+            depth=DEPTH)
+        return stage
+
+    runs = (("max", "native", lambda: resident_stage(
+                 wt, wt.Reducer("max", value_range=(0, 100))),
+             NativeResidentCore),
+            ("sum", "python", python_core_stage, ResidentWinSeqCore))
+    for op, name, make, cls in runs:
+        cores = []
+        stage = stage_with_core(make, cores)
+        counts = (wr.windowed_reduce.launches, rk.ring_append.launches,
+                  rk.regular_window_sum.launches)
+        _, n_dev, _, dev_rows = run_pipeline(stage, prefix, schema, True)
+        counts = [b - a for a, b in zip(counts, (
+            wr.windowed_reduce.launches, rk.ring_append.launches,
+            rk.regular_window_sum.launches))]
+        if not (len(cores) == 1 and type(cores[0]) is cls
+                and getattr(cores[0], "_delegate", None) is None):
+            raise AssertionError(f"{op}/{name}: the stage's core is {cores}")
+        if counts[0] == 0 or counts[1] == 0:
+            raise AssertionError(f"{op}/{name}: launches {counts}")
+        _, n_host, _, want_rows = host_rows(wt, wt.Reducer(op), prefix,
+                                            schema)
+        if n_dev != n_host or by_key(dev_rows) != by_key(want_rows):
+            raise AssertionError(f"{op}/{name}: the resident path differs "
+                                 "from the host core")
+        emit("irregular_and_python_core", op=op, core=cls.__name__,
+             tuples=PREFIX_TUPLES, windows=n_dev, identical=True,
+             launches={"windowed_reduce": counts[0],
+                       "ring_append": counts[1],
+                       "regular_window_sum": counts[2]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
         return 2
+    from windflow_tpu_torch.ops import ring as rk
     from windflow_tpu_torch.ops import windowed_reduce as wr
 
     smi = nvidia_smi_line()
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    t0 = time.perf_counter()
-    so = wr.build()
-    emit("build", library=so, seconds=time.perf_counter() - t0)
+    for name, (out, sec) in build_all().items():
+        emit("build", source=name, seconds=sec,
+             library=out if isinstance(out, str) else out._name)
 
-    row = kernel_phase(wr, torch.device(DEVICE))
-    launches = end_to_end(wr)
+    dev = torch.device(DEVICE)
+    row = kernel_phase(wr, dev)
+    rows = ring_kernel_phase(dev)
+    restaging_launches = end_to_end(wr)
+    resident_launches = end_to_end_resident(wr, rk)
+    irregular_and_python_core(wr, rk)
 
-    print(json.dumps({"kernels": [{
-        "name": "windowed_reduce", "route": "cuda",
-        "source": "windflow_tpu_torch/ops/csrc/windowed_reduce.cu",
-        "replaces": "windflow_tpu/ops/pallas_kernels.py:49",
-        "launches": launches, "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None}]}))
+    kernels = [dict(
+        name="windowed_reduce", route="cuda",
+        source="windflow_tpu_torch/ops/csrc/windowed_reduce.cu",
+        replaces="windflow_tpu/ops/pallas_kernels.py:49",
+        launches=restaging_launches, max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None)]
+    for name, replaces in (("ring_append", "windflow_tpu/ops/resident.py:234"),
+                           ("regular_window_sum",
+                            "windflow_tpu/ops/resident.py:183")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="windflow_tpu_torch/ops/csrc/resident.cu",
+            replaces=replaces, launches=resident_launches[name],
+            **rows[name]))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

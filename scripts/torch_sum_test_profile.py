@@ -1,13 +1,22 @@
 """Where the time goes in the port's sum_test run on one GPU.
 
 Runs the chip_smoke.py workload (16M tuples, 64 keys, CB 256/64, batch_len
-32768) three ways and prints one JSON line each:
+32768) through both device paths and the host core, printing one JSON line
+per run:
 
-* ``gpu``: WinSeqGPU(..., use_reduce_kernel=True) on cuda:0, end to end;
-* ``gpu_profiled``: the same under torch.profiler, with the device's busy
-  time per activity (kernels, copies) against the run's wall time;
-* ``host_core``: the port's host WinSeq core on the same stream — the
-  floor the Python window bookkeeping sets without any device work.
+* ``restaging`` (5 runs): WinSeqGPU(..., use_reduce_kernel=True) on
+  cuda:0, end to end;
+* ``restaging_profiled``: the same under torch.profiler, with the device's
+  busy time per activity (kernels, copies) against the run's wall time;
+* ``resident`` (5 runs) and ``resident_profiled``: the same for the
+  default route, WinSeqGPU(Reducer("sum", value_range=(0, 100)), ...,
+  flush_rows=2**19, depth=48, shards=1) — NativeResidentCore and the ring
+  kernels;
+* ``resident_phases``: one more resident run with the ship path's phase
+  timers on (utils/profile.py: C++ bookkeeping, staging, dispatch, harvest
+  wait, backpressure), host seconds per phase;
+* ``host_core``: the port's host WinSeq core on the same stream — the floor
+  the Python window bookkeeping sets without any device work.
 
 Usage, from the repository root on a machine with a CUDA card:
 
@@ -24,13 +33,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as cs  # noqa: E402  (the workload's one definition)
 import windflow_tpu_torch as wt  # noqa: E402
-from windflow_tpu_torch.ops import windowed_reduce as wr  # noqa: E402
+from windflow_tpu_torch.ops import resident  # noqa: E402
+from windflow_tpu_torch.utils import profile as phases  # noqa: E402
 
 
-def gpu_stage():
+def restaging_stage():
     return wt.WinSeqGPU(wt.Reducer("sum"), cs.WIN, cs.SLIDE, wt.WinType.CB,
                         batch_len=cs.BATCH_LEN, use_reduce_kernel=True,
                         device="cuda:0")
+
+
+def resident_stage():
+    return cs.resident_stage(wt)
 
 
 def device_busy(prof):
@@ -43,6 +57,23 @@ def device_busy(prof):
     return busy
 
 
+def split(busy):
+    """Device ms as host-to-device copies, kernels and device-to-host
+    copies (other device work, e.g. memsets, separately)."""
+    out = {"h2d_ms": 0.0, "kernel_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
+    for name, ms in busy.items():
+        low = name.lower()
+        if "htod" in low:
+            out["h2d_ms"] += ms
+        elif "dtoh" in low:
+            out["d2h_ms"] += ms
+        elif "memcpy" in low or "memset" in low:
+            out["other_ms"] += ms
+        else:
+            out["kernel_ms"] += ms
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
@@ -52,28 +83,44 @@ def main():
     want = cs.expected_total(batches)
     device = torch.cuda.get_device_name(0)
     smi = cs.nvidia_smi_line()
-    cs.run_pipeline(gpu_stage(), cs.make_stream(schema, cs.PREFIX_TUPLES),
-                    schema)   # warm-up: kernel build, CUDA context, pinned pool
+    prefix = cs.make_stream(schema, cs.PREFIX_TUPLES)
+    for make in (restaging_stage, resident_stage):
+        # warm-up: kernel build, CUDA context, pinned pool, native library
+        cs.run_pipeline(make(), prefix, schema)
 
-    for label in ("gpu", "gpu"):
-        wr.windowed_reduce.launches = 0
-        dt, n, total, _ = cs.run_pipeline(gpu_stage(), batches, schema)
+    for label, make in (("restaging", restaging_stage),
+                        ("resident", resident_stage)):
+        for _ in range(5):
+            resident.stats_snapshot(reset=True)
+            dt, n, total, _ = cs.run_pipeline(make(), batches, schema)
+            assert total == want, (total, want)
+            print(json.dumps({"run": label, "tuples_per_s": cs.N_TUPLES / dt,
+                              "seconds": dt, "windows": n,
+                              "stats": resident.stats_snapshot(reset=True),
+                              "device": device, "nvidia_smi": smi}),
+                  flush=True)
+
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dt, n, total, _ = cs.run_pipeline(make(), batches, schema)
         assert total == want, (total, want)
-        print(json.dumps({"run": label, "tuples_per_s": cs.N_TUPLES / dt,
-                          "seconds": dt, "windows": n,
-                          "launches": wr.windowed_reduce.launches,
+        busy = device_busy(prof)
+        print(json.dumps({"run": f"{label}_profiled", "seconds": dt,
+                          "device_busy_ms": sum(busy.values()),
+                          "device_busy_share": sum(busy.values())
+                          / (dt * 1e3),
+                          **split(busy), "by_activity_ms": busy,
                           "device": device, "nvidia_smi": smi}), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dt, n, total, _ = cs.run_pipeline(gpu_stage(), batches, schema)
+    phases.reset()
+    phases.enable()
+    dt, n, total, _ = cs.run_pipeline(resident_stage(), batches, schema)
+    phases.auto()
     assert total == want, (total, want)
-    busy = device_busy(prof)
-    print(json.dumps({"run": "gpu_profiled", "seconds": dt,
-                      "device_busy_ms": sum(busy.values()),
-                      "device_busy_share": sum(busy.values()) / (dt * 1e3),
-                      "by_activity_ms": busy, "device": device,
+    print(json.dumps({"run": "resident_phases", "seconds": dt,
+                      "phases_s_calls": phases.report(),
+                      "counters": phases.counters(), "device": device,
                       "nvidia_smi": smi}), flush=True)
 
     host = wt.WinSeq(wt.Reducer("sum"), cs.WIN, cs.SLIDE, wt.WinType.CB)

@@ -42,11 +42,38 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import json, sys\n"
         "import windflow_tpu_torch\n"
         "from windflow_tpu_torch.interop import carry_core_state\n"
-        "from windflow_tpu_torch.ops import windowed_reduce\n"
+        "from windflow_tpu_torch.interop import carry_resident_state\n"
+        "from windflow_tpu_torch.ops import resident, ring, windowed_reduce\n"
+        "from windflow_tpu_torch.patterns import native_core\n"
+        "from windflow_tpu_torch.utils import profile\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
-    assert "windflow_tpu_torch.patterns.win_seq_gpu" in mods
+    for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
+              "ops.ring", "utils.profile"):
+        assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
+
+
+def test_import_and_plain_versions_run_no_nvcc(tmp_path):
+    """Importing the kernel modules, and running their plain versions on
+    CPU tensors, starts no nvcc: the build happens at a kernel's first
+    launch on a card.  A stand-in nvcc that records its calls proves it."""
+    marker = tmp_path / "nvcc_called"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    nvcc.chmod(0o755)
+    run_isolated(
+        "import torch\n"
+        "from windflow_tpu_torch.ops import ring, resident, windowed_reduce\n"
+        "r = torch.zeros((2, 8), dtype=torch.int32)\n"
+        "z = torch.zeros(2, dtype=torch.int32)\n"
+        "ring.ring_append(r, torch.ones((2, 4), dtype=torch.int8), z)\n"
+        "ring.regular_window_sum(r, z, z + 3, 2, 1)\n"
+        "windowed_reduce.windowed_reduce(r.view(-1), z, z + 2, 8, 'max')\n"
+        "assert ring._lib is None and windowed_reduce._lib is None\n",
+        CUDA_HOME=str(tmp_path), PATH=f"{nvcc.parent}:{os.environ['PATH']}")
+    assert not marker.exists()
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -23,8 +23,11 @@ from windflow_tpu_torch.patterns.win_seq_gpu import (DeviceWinSeqCore,
 
 from test_farms import cb_stream_batches, run_windowed, tb_stream_batches
 
-pytestmark = pytest.mark.filterwarnings(
-    "ignore:device path downcasts int64:UserWarning")
+pytestmark = [
+    pytest.mark.filterwarnings(
+        "ignore:device path downcasts int64:UserWarning"),
+    pytest.mark.filterwarnings(
+        "ignore:resident device path accumulates:UserWarning")]
 
 
 def run_port(pattern, batches):
@@ -124,9 +127,13 @@ def test_routing_keeps_jax_decisions():
     # float sums stay on the restaging core without the switch
     assert isinstance(make_core_for(spec, wt.Reducer("sum", dtype=np.float64),
                                     device="cpu"), DeviceWinSeqCore)
-    # the resident route is a later slice
+    # a builtin sum takes the resident route by default, as in the JAX
+    # package (the C++ core when the native library loads)
+    assert isinstance(make_core_for(spec, wt.Reducer("sum"), device="cpu"),
+                      (wt.NativeResidentCore, wt.ResidentWinSeqCore))
+    # meshes are a later slice
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_core_for(spec, wt.Reducer("sum"), device="cpu")
+        make_core_for(spec, wt.Reducer("sum"), device="cpu", mesh=object())
     with pytest.raises(TypeError, match="cannot be staged"):
         make_core_for(spec, lambda k, g, rows: 0, device="cpu",
                       use_reduce_kernel=True)

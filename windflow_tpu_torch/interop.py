@@ -7,6 +7,11 @@ holding a ``KeyArchive`` of in-flight rows and the window counters.  A JAX
 rebuilds it from the port's own classes so that a port core continues the
 stream with ``state_restore`` where the JAX core left off.
 
+A JAX ``ResidentWinSeqCore.state_snapshot()`` adds the ring cursors and
+a ``RingSnapshot`` of the device ring; :func:`carry_resident_state` carries
+those too.  (``NativeResidentCore`` state blobs come from the same C++
+library in both packages and carry across as bytes.)
+
 The source objects are read by attribute name only (duck typing): nothing
 here imports the JAX package.
 """
@@ -47,3 +52,20 @@ def carry_core_state(snapshot: dict) -> dict:
     return {"_keys": {key: _carry_key_state(st)
                       for key, st in snapshot["_keys"].items()},
             "_in_dtype": snapshot["_in_dtype"]}
+
+
+def carry_resident_state(snapshot: dict) -> dict:
+    """A JAX ``ResidentWinSeqCore.state_snapshot()`` rebuilt for the port's
+    ``ResidentWinSeqCore.state_restore``: the host bookkeeping through
+    :func:`carry_core_state`, the ring cursors deep-copied, and the ring
+    as numpy arrays from the snapshot's ``resolve()``."""
+    out = carry_core_state(snapshot)
+    out["resident"] = copy.deepcopy(snapshot["resident"])
+    ring = snapshot.get("ring")
+    if ring is not None:
+        data = ring.resolve() if hasattr(ring, "resolve") else ring
+        rings = data["rings"]
+        out["ring"] = {"rings": (None if rings is None else
+                                 tuple(np.array(r, copy=True) for r in rings)),
+                       "KP": int(data["KP"]), "cap": int(data["cap"])}
+    return out

@@ -34,6 +34,17 @@ import torch
 from .windowed_reduce import windowed_reduce
 
 
+def _bucket(n: int, lo: int = 8) -> int:
+    """Next power of two >= n.  The restaging executor does not bucket; the
+    resident ring's geometry (KP, cap, Rb, C) stays on this ladder because
+    the native core (wf_native.cpp ``bucket``) hands over bucketed KP and
+    cap, and the host rebase rules are written against it."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
 def canonical_dtype(dtype: np.dtype) -> np.dtype:
     """The dtype a value column is reduced in on the device: the 32-bit
     width of its kind, as the JAX package gets it from ``jax.device_put``

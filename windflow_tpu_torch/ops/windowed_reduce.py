@@ -12,22 +12,19 @@ mean to sum); no Reducer reaches it, and this port refuses it.
 
 :func:`windowed_reduce` takes the kernel for a CUDA tensor and the plain
 version for a CPU tensor; there is no fallback from one to the other.  The
-kernel is compiled with ``nvcc`` into ``windflow_tpu_torch/_build/`` the
-first time it is launched and loaded with ``ctypes``.
+kernel is compiled with ``nvcc`` (ops/_nvcc.py) the first time it is
+launched and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from . import _nvcc
 from .monoid import identity
 
 #: op codes of the C launcher (enum Op in the .cu source)
@@ -35,46 +32,14 @@ _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4}
 #: value dtypes the kernel is instantiated for (enum Dtype)
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "ops", "csrc", "windowed_reduce.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
 _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH) — the windowed_reduce kernel cannot be "
-                           "built")
-    return found
-
-
 def build() -> str:
     """Compile the kernel library if this source has not been built yet;
-    returns the path of the shared library.  The file name carries a hash of
-    the source and flags, so an edited source is never served stale."""
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"libwindowed_reduce-{tag.hexdigest()[:12]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    returns the path of the shared library (ops/_nvcc.py)."""
+    return _nvcc.build("windowed_reduce.cu")
 
 
 def _load():

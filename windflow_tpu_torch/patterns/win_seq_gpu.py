@@ -12,11 +12,14 @@ pre-fills ``host_results[i].setInfo(...)`` before the kernel
 (win_seq_gpu.hpp:447-449).  Launches are asynchronous with bounded depth;
 results are emitted in launch order, so per-key result order is preserved.
 
-This module holds the restaging path only.  The routes that the JAX package
-sends to its resident, native-resident and mesh cores raise
-``NotImplementedError`` naming the ROADMAP.md slice that brings them; user
-window functions over the device batch (``JaxWindowFunction``) and the
-device farms come in later slices too.
+Two device cores live here, as in the JAX package: the restaging core
+(``DeviceWinSeqCore``, the windowed-reduce kernel over each fired batch's
+archive segment) and the resident core (``ResidentWinSeqCore``: every row
+is copied once into a per-key ring on the card, ops/resident.py; the C++
+twin is patterns/native_core.py).  ``make_core_for`` routes between them
+and the host core with the JAX package's rules.  Per-field rings and user
+window functions, device farms and meshes are later slices (ROADMAP.md) and
+raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ from ..runtime.node import RuntimeContext
 from .basic import _Pattern
 from .win_seq import WinSeqNode
 
-_RESIDENT_SLICE = ("the resident device path (ops/resident.py, "
-                   "patterns/native_core.py) is ROADMAP.md Queue 1 slice 2, "
-                   "not ported yet")
+_FN_SLICE = ("user window functions on the device path are ROADMAP.md "
+             "Queue 1 slice 3, not ported yet")
+_MULTI_FIELD_SLICE = ("per-field resident rings (stats over several fields) "
+                      "are ROADMAP.md Queue 1 slice 4, not ported yet")
+_MESH_SLICE = ("mesh execution: multi-GPU is ROADMAP.md Queue 1 slice 8, not "
+               "ported yet")
 
 
 def resolve_worker_device(device, i: int) -> torch.device:
@@ -63,13 +69,12 @@ def resolve_worker_device(device, i: int) -> torch.device:
 def _host_standin(winfunc):
     """Host-side function object carrying the result schema for the
     core/farm template plumbing (the device path never calls it)."""
-    if isinstance(winfunc, Reducer):
+    if isinstance(winfunc, (Reducer, MultiReducer)):
         return winfunc
     raise TypeError(
-        "the device path needs a builtin Reducer (host Python functions "
-        "cannot be staged to the GPU — same restriction as the reference's "
-        "__device__ functor contract; user device functions are not ported "
-        "yet)")
+        "the device path needs a builtin Reducer or MultiReducer (host "
+        "Python functions cannot be staged to the GPU — same restriction as "
+        f"the reference's __device__ functor contract; {_FN_SLICE})")
 
 
 class _AsyncLaunchRecovery:
@@ -241,9 +246,451 @@ class DeviceWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                         "(win_seq_gpu.hpp supports NIC device functors)")
 
 
-#: reducer ops the JAX package evaluates on its resident path (count
-#: carries no device work and routes to the HOST core via _host_free)
+#: (op, result-dtype, acc-dtype) combinations already warned about —
+#: resident cores are built per farm worker / per run, and repeating the
+#: same narrowing warning for each of them is noise
+_ACC_WARNED = set()
+
+
+def _acc_range_safe(reducer: Reducer, acc: np.dtype, spec) -> bool:
+    """True when the reducer's declared ``value_range`` proves its window
+    results cannot exceed ``acc``'s range: min/max never leave the input
+    range; a CB window's sum is bounded by win_len * max|value| (a TB
+    window's row count is unbounded, so sums stay unprovable there)."""
+    vr = getattr(reducer, "value_range", None)
+    if vr is None or acc.kind == "f":
+        return False
+    m = max(abs(int(vr[0])), abs(int(vr[1])))
+    if reducer.op in ("min", "max"):
+        bound = m
+    elif (reducer.op == "sum" and spec is not None
+          and spec.win_type is WinType.CB):
+        bound = m * int(spec.win_len)
+    else:
+        return False
+    info = np.iinfo(acc)
+    return -bound >= info.min and bound <= info.max
+
+
+def select_acc_dtype(reducer: Reducer, compute_dtype,
+                     spec: WindowSpec = None) -> np.dtype:
+    """Accumulate dtype for the resident device path: int32/float32 by
+    default, overridable via ``compute_dtype``.  Warns when the reducer's
+    result dtype exceeds the accumulate range — unless the reducer's
+    declared ``value_range`` plus the window shape prove the results fit.
+    A 64-bit ``compute_dtype`` raises ``ValueError``: the ring kernels
+    accumulate in 32 bits (the JAX package raises too under its default
+    config, x64 off)."""
+    if compute_dtype is not None:
+        acc = np.dtype(compute_dtype)
+    elif np.issubdtype(reducer.dtype, np.floating):
+        acc = np.dtype(np.float32)
+    else:
+        acc = np.dtype(np.int32)
+    if acc.itemsize >= 8:
+        raise ValueError(
+            f"compute_dtype={acc}: the resident ring kernels accumulate in "
+            "int32 or float32 only (no 64-bit ring)")
+    if (reducer.dtype.itemsize > acc.itemsize
+            and not _acc_range_safe(reducer, acc, spec)):
+        key = (reducer.op, reducer.dtype.str, acc.str)
+        if key not in _ACC_WARNED:
+            _ACC_WARNED.add(key)
+            import warnings
+            warnings.warn(
+                f"resident device path accumulates in {acc}; {reducer.op} "
+                "results beyond its range will wrap — pass compute_dtype "
+                "for wide ranges, or declare the field's value_range on "
+                "the Reducer to prove the fit (warned once per "
+                "configuration)",
+                stacklevel=4)
+    return acc
+
+
+def finalize_window_values(reducer: Reducer, vals: np.ndarray,
+                           lens: np.ndarray) -> np.ndarray:
+    """Shared harvest step: cast device outputs to the reducer's result
+    dtype and write the host identity over empty windows (min/max/prod
+    identities exceed narrow accumulate dtypes; sum's identity 0 is what
+    an empty window sum already yields)."""
+    owned = vals.dtype != reducer.dtype
+    if owned:
+        vals = vals.astype(reducer.dtype)
+    if (reducer.op in ("min", "max", "prod") and len(lens)
+            and (lens == 0).any()):
+        if not owned:
+            vals = vals.copy()
+        vals[lens == 0] = reducer._identity()
+    return vals
+
+
+class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
+    """Window core whose archive lives in device memory (ops/resident.py).
+
+    Host-side it is the same Win_Seq bookkeeping as every other core; the
+    differences from :class:`DeviceWinSeqCore` (which restages each fired
+    window's rows per batch, like the reference's per-batch H2D memcpy,
+    win_seq_gpu.hpp:451-476) are:
+
+    * appended rows are mirrored once into the device ring archive, in the
+      narrowest dtype holding their range — each row is copied once;
+    * fired windows are described by (ring row, start, len) only; append and
+      evaluation go to the card as one dispatch per flush;
+    * the host archive's purge is deferred to flush time so a rebase (ring
+      compaction) can always rebuild the ring from host-live rows.
+
+    It serves a ``Reducer``, or a ``MultiReducer`` whose device stats share
+    one field (one ring, several ops).
+    """
+
+    #: control-plane live rescale declined (docs/CONTROL.md): a key's
+    #: rows are mirrored into THIS worker's device ring archive — the
+    #: inherited host-dict hooks cannot move that half
+    keyed_migratable = False
+
+    def __init__(self, spec: WindowSpec, reducer, batch_len: int = 8192,
+                 flush_rows: int = 1 << 20, config: PatternConfig = None,
+                 role: Role = Role.SEQ, map_indexes=(0, 1),
+                 result_ts_slide=None, device=None, depth: int = 8,
+                 compute_dtype=None, worker_index: int = 0, mesh=None,
+                 max_delay_ms=None):
+        from ..ops.resident import ResidentWindowExecutor
+        if mesh is not None:
+            raise NotImplementedError(_MESH_SLICE)
+        self._pos_max_parts = []
+        if isinstance(reducer, MultiReducer):
+            # multi-stat: counts come free from window lengths, and MAX/MIN
+            # over the POSITION field (ts for TB, id for CB) from the
+            # position-ordered host archive — so e.g. COUNT + MAX(ts) +
+            # SUM(revenue) ships only the revenue column
+            self._device_parts, self._pos_max_parts = \
+                split_pos_max(spec, reducer)
+            self._count_parts = reducer.count_parts
+            if not self._device_parts:
+                # an entirely host-free aggregate forced onto the device
+                # (use_resident=True): ship the position column after all
+                self._device_parts, self._pos_max_parts = \
+                    self._pos_max_parts, []
+            if not self._device_parts:
+                raise ValueError(
+                    "resident MultiReducer needs >=1 non-count stat "
+                    "(use Reducer('count') for pure counts)")
+            if len({p.field for p in self._device_parts}) > 1:
+                raise NotImplementedError(_MULTI_FIELD_SLICE)
+        elif isinstance(reducer, Reducer):
+            self._device_parts = [reducer]
+            self._count_parts = []
+        else:
+            raise TypeError("resident device path needs a builtin Reducer "
+                            f"or MultiReducer; {_FN_SLICE}")
+        host_fn = _host_standin(reducer)
+        super().__init__(spec, host_fn, config=config, role=role,
+                         map_indexes=map_indexes,
+                         result_ts_slide=result_ts_slide)
+        self.reducer = reducer
+        self.field = self._device_parts[0].field
+        self._ship_fields = (self.field,)
+        accs = [select_acc_dtype(p, compute_dtype, spec)
+                for p in self._device_parts]
+        if len({d.kind for d in accs}) > 1:
+            # one shared ring, one accumulate dtype: a float ring would
+            # silently round sibling integer sums (float32 spacing > 1
+            # above 2^24) — refuse instead
+            raise ValueError(
+                "multi-stat parts disagree on accumulate kind "
+                f"({sorted(str(a) for a in accs)}): split the stats or "
+                "pass an explicit compute_dtype")
+        acc = max(accs, key=lambda d: d.itemsize)
+        ops = tuple(p.op for p in self._device_parts)
+        self.executor = ResidentWindowExecutor(
+            ops[0] if len(ops) == 1 else ops,
+            device=resolve_worker_device(device, worker_index),
+            depth=depth, acc_dtype=acc)
+        self.batch_len = batch_len
+        self.flush_rows = flush_rows
+        # latency bound: ship pending windows/rows after this many ms even
+        # when neither batch_len nor flush_rows is reached (checked per
+        # process() call — the trigger cadence is the chunk cadence)
+        self.max_delay_s = (None if max_delay_ms is None
+                            else max_delay_ms / 1e3)
+        self._last_flush_t = None
+        self._rowmap = {}     # key -> dense ring row
+        self._appended = {}   # key -> rows ever archived (abs row domain)
+        self._launched = {}   # key -> rows already shipped to the ring
+        self._base = {}       # key -> abs row index of ring column 0
+        self._pend_cols = {}  # key -> [column arrays not yet shipped]
+        self._pend_rows = 0
+        self._wdesc = []      # (key, abs_lo array, len array)
+        self._hdr = []        # (key, ids, ts, lens, pos extrema) per fire
+        self._n_wins = 0
+        self._purge_pos = {}  # key -> purge threshold deferred to flush
+
+    # ------------------------------------------------------------ bookkeeping
+
+    def _on_append(self, key, st, rows):
+        self._rowmap.setdefault(key, len(self._rowmap))
+        self._pend_cols.setdefault(key, []).append(
+            np.asarray(rows[self.field]))
+        self._appended[key] = self._appended.get(key, 0) + len(rows)
+        self._pend_rows += len(rows)
+        if self._pend_rows >= self.flush_rows:
+            self._flush_batch()
+
+    def _emit_windows(self, key, st, lwids, eos: bool):
+        spec = self.spec
+        self._rowmap.setdefault(key, len(self._rowmap))
+        gwids = st.first_gwid + lwids * self.config.gwid_stride()
+        ts = self._result_ts(st, lwids, gwids)
+        ids = self._renumber_ids(key, st, gwids)
+        starts_abs = spec.win_start(lwids) + st.initial_id
+        ends_abs = spec.win_end(lwids) + st.initial_id
+        p = st.archive.positions
+        lo = np.searchsorted(p, starts_abs, side="left")
+        hi = (np.full(len(lwids), len(p), dtype=np.int64) if eos
+              else np.searchsorted(p, ends_abs, side="left"))
+        live_start = self._appended.get(key, 0) - len(p)
+        self._wdesc.append((key, lo + live_start, (hi - lo).astype(np.int64)))
+        if self._pos_max_parts and len(p):
+            # MAX/MIN over the position field, free from the ordered
+            # archive: the window's last row holds the max and its first
+            # row the min (empty windows fixed up to the identity at
+            # harvest, finalize_window_values)
+            pm = (p[np.minimum(np.maximum(hi - 1, 0), len(p) - 1)],
+                  p[np.minimum(lo, len(p) - 1)])
+        else:
+            z = np.zeros(len(lwids), dtype=np.int64)
+            pm = (z, z)
+        self._hdr.append((key, ids, ts, (hi - lo).astype(np.int64), pm))
+        self._n_wins += len(lwids)
+        if not eos and len(lwids):
+            # defer the purge so a flush-time rebase can rebuild the ring
+            # from host-live rows (win_seq.hpp:390-392 purges at fire time)
+            self._purge_pos[key] = max(self._purge_pos.get(key, -2 ** 62),
+                                       int(starts_abs[-1]))
+        if self._n_wins >= self.batch_len:
+            self._flush_batch()
+        return None
+
+    # ------------------------------------------------------------------ flush
+
+    def _flush_batch(self):
+        if not self._wdesc and not self._pend_rows:
+            return
+        from ..ops.device import _bucket
+        ex = self.executor
+        rowmap = self._rowmap
+        K = len(rowmap)
+        # --- decide append vs rebase ---
+        rebase = ex.cap == 0 or ex.KP < max(K, 1)
+        if not rebase:
+            # the append rectangle is (K, Rb) with one global padded width,
+            # so every key needs fill + Rb columns of room
+            maxpend = max((self._appended.get(key, 0)
+                           - self._launched.get(key, 0) for key in rowmap),
+                          default=0)
+            Rb = _bucket(max(maxpend, 1))
+            for key in rowmap:
+                fill = self._launched.get(key, 0) - self._base.get(key, 0)
+                if fill + Rb > ex.cap:
+                    rebase = True
+                    break
+        if rebase:
+            counts = {}
+            maxlive = 0
+            for key in rowmap:
+                st = self._keys.get(key)
+                counts[key] = len(st.archive) if st is not None else 0
+                maxlive = max(maxlive, counts[key])
+            per_key_slack = max(self.flush_rows // max(K, 1), 64)
+            ex.reset(K, _bucket(2 * maxlive + 2 * per_key_slack))
+            R = maxlive
+            srcs = {key: ([np.asarray(self._keys[key].archive.rows[
+                self.field])] if key in self._keys else [])
+                for key in rowmap}
+            for key in rowmap:
+                self._base[key] = self._appended.get(key, 0) - counts[key]
+                self._launched[key] = self._base[key]
+            offs = np.zeros(ex.KP, dtype=np.int64)
+        else:
+            srcs = self._pend_cols
+            counts = {key: self._appended.get(key, 0)
+                      - self._launched.get(key, 0) for key in rowmap}
+            R = max(counts.values(), default=0)
+            offs = np.zeros(ex.KP, dtype=np.int64)
+            for key, r in rowmap.items():
+                offs[r] = self._launched.get(key, 0) - self._base.get(key, 0)
+        # --- the rectangle in the narrowest wire dtype ---
+        arrays = [a for key in rowmap for a in srcs.get(key, []) if len(a)]
+        if arrays:
+            lo = min(a.min() for a in arrays)
+            hi = max(a.max() for a in arrays)
+            probe = np.array([lo, hi], dtype=arrays[0].dtype)
+        else:
+            probe = np.zeros(0, dtype=np.int64)
+        blk = np.zeros((K, max(R, 1)), dtype=ex.narrow(probe))
+        for key, r in rowmap.items():
+            c = 0
+            for a in srcs.get(key, []):
+                blk[r, c:c + len(a)] = a
+                c += len(a)
+        # --- window descriptors in ring coordinates ---
+        if self._wdesc:
+            wrows = np.concatenate([
+                np.full(len(lens), rowmap[key], dtype=np.int64)
+                for key, _, lens in self._wdesc])
+            wstarts = np.concatenate([
+                abs_lo - self._base.get(key, 0)
+                for key, abs_lo, _l in self._wdesc])
+            wlens = np.concatenate([lens for _k, _a, lens in self._wdesc])
+        else:
+            wrows = wstarts = wlens = np.zeros(0, dtype=np.int64)
+        ex.launch(self._hdr, blk, offs[:K], wrows, wstarts, wlens)
+        # --- advance cursors, apply deferred purges ---
+        for key in rowmap:
+            self._launched[key] = self._appended.get(key, 0)
+        for key, pos in self._purge_pos.items():
+            st = self._keys.get(key)
+            if st is not None:
+                st.archive.purge_below(pos)
+        self._pend_cols = {}
+        self._pend_rows = 0
+        self._wdesc, self._hdr, self._n_wins = [], [], 0
+        self._purge_pos = {}
+        if self.max_delay_s is not None:
+            # every flush (natural or forced) restarts the latency clock —
+            # otherwise a saturated stream would fragment launches at
+            # max_delay cadence despite fresh batch_len/flush_rows flushes
+            import time as _time
+            self._last_flush_t = _time.monotonic()
+
+    # ---------------------------------------------------------------- harvest
+
+    def _build_results(self, harvested):
+        outs = []
+        for hdr, out in harvested:
+            stat_arrs = out if isinstance(out, tuple) else (out,)
+            off = 0
+            for key, ids, ts, lens, pos_max in hdr:
+                n = len(ids)
+                payload = {}
+                for p, arr in zip(self._device_parts, stat_arrs):
+                    payload[p.out_field] = finalize_window_values(
+                        p, arr[off:off + n], lens)
+                for p in self._count_parts:
+                    payload[p.out_field] = lens.astype(p.dtype)
+                for p in self._pos_max_parts:
+                    payload[p.out_field] = finalize_window_values(
+                        p, pos_max[0] if p.op == "max" else pos_max[1],
+                        lens)
+                outs.append(self._make_results(key, ids, ts, payload))
+                off += n
+        return outs
+
+    def _maybe_delay_flush(self):
+        if self.max_delay_s is not None and (self._wdesc or self._pend_rows):
+            import time as _time
+            now = _time.monotonic()
+            if self._last_flush_t is None:
+                self._last_flush_t = now
+            elif now - self._last_flush_t >= self.max_delay_s:
+                self._flush_batch()
+                self._last_flush_t = now
+
+    def process(self, batch):
+        super().process(batch)  # fired windows are enqueued, not returned
+        self._maybe_delay_flush()
+        outs = self._build_results(self.executor.poll())
+        if not outs:
+            return np.zeros(0, dtype=self._result_dtype)
+        return np.concatenate(outs)
+
+    def flush(self):
+        super().flush()          # enqueue EOS leftovers
+        self._flush_batch()      # launch the partial batch
+        outs = self._build_results(self.executor.drain())
+        if not outs:
+            return np.zeros(0, dtype=self._result_dtype)
+        return np.concatenate(outs)
+
+    # -- recovery (docs/ROBUSTNESS.md): emission hooks come from
+    # _AsyncLaunchRecovery ------------------------------------------------
+
+    def _pre_poll(self):
+        self._maybe_delay_flush()
+
+    #: include the ring contents in snapshots (copied in stream order,
+    #: ops/resident.RingSnapshot); the Supervisor mirrors
+    #: RecoveryPolicy.snapshot_rings here.  False = restore by forcing a
+    #: rebase from the host-live archive rows instead.
+    snapshot_rings = True
+    #: ring/cursor bookkeeping captured alongside the host archives
+    _RES_ATTRS = ("_rowmap", "_appended", "_launched", "_base")
+
+    def state_snapshot(self):
+        if self.max_delay_s is not None:
+            # the latency-bound flush is wall-clock-triggered: replayed
+            # LAUNCH boundaries would diverge from the original run's,
+            # and with them the emission seqs — decline rather than
+            # risk duplicated/lost windows after a restart
+            from ..runtime.node import SnapshotUnsupported
+            raise SnapshotUnsupported(
+                "max_delay_ms wall-clock flushes make replay emission "
+                "boundaries nondeterministic; recovery supports "
+                "count-triggered flushes only")
+        import copy
+        snap = {
+            "_keys": copy.deepcopy(self._keys),
+            "_in_dtype": self._in_dtype,
+            "resident": copy.deepcopy(
+                {a: getattr(self, a) for a in self._RES_ATTRS}),
+        }
+        if self.snapshot_rings:
+            snap["ring"] = self.executor.ring_snapshot()
+        return snap
+
+    def state_restore(self, snap):
+        import copy
+        self._keys = copy.deepcopy(snap["_keys"])
+        self._in_dtype = snap["_in_dtype"]
+        for a, v in snap["resident"].items():
+            setattr(self, a, copy.deepcopy(v))
+        self._pend_cols = {}
+        self._pend_rows = 0
+        self._wdesc, self._hdr, self._n_wins = [], [], 0
+        self._purge_pos = {}
+        self._last_flush_t = None
+        ring = snap.get("ring")
+        if ring is not None:
+            self.executor.ring_restore(ring)
+        else:
+            # no ring in the snapshot: invalidate so the next flush
+            # rebases — the deferred-purge invariant guarantees the
+            # host archives still hold every ring-live row
+            self.executor.invalidate()
+
+    def use_incremental(self):
+        raise TypeError("the device path is non-incremental only "
+                        "(win_seq_gpu.hpp supports NIC device functors)")
+
+
+#: reducer ops the resident path evaluates on the card (count carries no
+#: device work and routes to the HOST core via _host_free, as does max or
+#: min over the position field)
 _RESIDENT_OPS = ("sum", "min", "max", "prod")
+
+
+def split_pos_max(spec: WindowSpec, reducer: MultiReducer):
+    """Partition a MultiReducer's non-count stats into (device_parts,
+    pos_extremum_parts): MAX *and MIN* over the POSITION field (ts for
+    TB, id for CB) are free from the position-ordered archive — the
+    window's last row holds the max and its FIRST row the min — so
+    neither ever ships.  Harvesters pick the per-window last/first-row
+    array by each returned part's ``op``."""
+    pos_field = "id" if spec.win_type is WinType.CB else "ts"
+    dev = reducer.device_parts
+    pos = [p for p in dev
+           if p.op in ("max", "min") and p.field == pos_field]
+    return [p for p in dev if p not in pos], pos
 
 
 def _host_free(spec: WindowSpec, winfunc) -> bool:
@@ -270,6 +717,16 @@ def _multi_resident_ok(winfunc: MultiReducer, use_reduce_kernel: bool) -> bool:
                         for p in dev))
 
 
+def _native_core_lib():
+    """The native library handle for core routing, or None — also None
+    under WF_NO_NATIVE_CORE=1, which pins the Python resident core."""
+    import os
+    if os.environ.get("WF_NO_NATIVE_CORE", "") == "1":
+        return None
+    from ..native import enabled
+    return enabled()
+
+
 def make_device_core(worker, fn, dev_kw, index=0):
     """Build the device-batched core for a prototype host worker (a WinSeq
     carrying the farm's per-worker spec/config/role plumbing); ``index`` is
@@ -283,15 +740,17 @@ def make_device_core(worker, fn, dev_kw, index=0):
 def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                   role=Role.SEQ, map_indexes=(0, 1), result_ts_slide=None,
                   device=None, depth=None, use_reduce_kernel=False,
-                  compute_dtype=None, use_resident=None, worker_index=0,
-                  mesh=None):
+                  compute_dtype=None, use_resident=None,
+                  flush_rows=1 << 20, shards=1, worker_index=0, mesh=None,
+                  max_delay_ms=None):
     """Choose the core implementation with the JAX package's routing
     (win_seq_tpu.py:make_core_for): host-free aggregates go to the host
     core; builtin monoids the resident executor evaluates go to the
-    resident core (not ported yet: raises); everything else, and any
+    resident core — the C++ ``NativeResidentCore`` when the native library
+    loads, else the Python ``ResidentWinSeqCore``; everything else, and any
     Reducer with ``use_reduce_kernel=True``, goes to the restaging core.
-    The resident path's own knobs (``flush_rows``, ``shards``,
-    ``max_delay_ms`` and its budget routing) come with that path."""
+    A latency budget (``max_delay_ms``) under twice the best recently
+    measured launch service routes to the host core."""
     def _host_core():
         from .win_seq import WinSeq
         return WinSeq(winfunc, spec.win_len, spec.slide_len,
@@ -299,8 +758,29 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                       map_indexes=map_indexes,
                       result_ts_slide=result_ts_slide).make_core()
 
+    if mesh is not None:
+        raise NotImplementedError(_MESH_SLICE)
+    if (max_delay_ms is not None and use_resident is None
+            and not use_reduce_kernel
+            and isinstance(winfunc, (Reducer, MultiReducer))
+            # a MultiReducer invalid on EVERY device path must fall
+            # through to the deterministic ValueError below — routing it
+            # host only when some earlier run seeded the weather record
+            # would make raise-vs-success depend on hidden global state
+            and not (isinstance(winfunc, MultiReducer)
+                     and not _multi_resident_ok(winfunc, use_reduce_kernel))):
+        # budget-aware routing: every device result pays at least one
+        # launch round trip, so a latency budget under ~2x the measured
+        # per-launch service FLOOR is unmeetable on the device path by
+        # construction, while the host core has no device round trip.
+        # With no observation yet the device keeps the benefit of the
+        # doubt; any explicit path pin outranks the heuristic.
+        from ..ops.resident import wire_service_floor_ms
+        floor = wire_service_floor_ms()
+        if floor is not None and max_delay_ms < 2.0 * floor:
+            return _host_core()
     if (isinstance(winfunc, (Reducer, MultiReducer))
-            and use_resident is None and mesh is None
+            and use_resident is None
             and (isinstance(winfunc, MultiReducer) or not use_reduce_kernel)
             and _host_free(spec, winfunc)):
         # every stat is answerable from host bookkeeping — shipping the
@@ -308,15 +788,33 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
         # forces the device; a Reducer with use_reduce_kernel=True keeps
         # the restaging path (benchmarking).
         return _host_core()
+    resident_kw = dict(batch_len=batch_len, flush_rows=flush_rows,
+                       config=config, role=role, map_indexes=map_indexes,
+                       result_ts_slide=result_ts_slide, device=device,
+                       depth=depth if depth is not None else 8,
+                       compute_dtype=compute_dtype,
+                       worker_index=worker_index, max_delay_ms=max_delay_ms)
     if isinstance(winfunc, MultiReducer):
-        # multi-stat windows are resident-only in the JAX package
+        # multi-stat windows are resident-only (the restaging executor has
+        # no multi-output contract)
         if use_resident is False or not _multi_resident_ok(
                 winfunc, use_reduce_kernel):
             raise ValueError(
                 "MultiReducer runs on the resident device path only: "
                 "needs >=1 non-count stat, ops in "
                 f"{_RESIDENT_OPS}, no float sum (got {winfunc.parts})")
-        raise NotImplementedError(f"MultiReducer: {_RESIDENT_SLICE}")
+        dev_parts, _pos = split_pos_max(spec, winfunc)
+        if _native_core_lib() is not None and len(dev_parts) == 1:
+            # the C++ core carries the whole hot loop; counts and position
+            # extrema come from its archive, one column ships
+            from .native_core import NativeResidentCore
+            return NativeResidentCore(spec, winfunc, shards=shards,
+                                      **resident_kw)
+        # several device stats: the JAX package hands them to the C++ core's
+        # per-field rings (slice 4); until then the Python core evaluates
+        # stats over ONE field on one shared ring, and refuses several
+        # fields
+        return ResidentWinSeqCore(spec, winfunc, **resident_kw)
     resident = use_resident
     if resident is None:
         resident = (not use_reduce_kernel and isinstance(winfunc, Reducer)
@@ -326,14 +824,12 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                     # segment-restaging path unless the user opts in
                     and not (winfunc.op == "sum"
                              and np.issubdtype(winfunc.dtype, np.floating)))
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh execution: multi-GPU is ROADMAP.md Queue 1 slice 8, not "
-            "ported yet")
     if resident:
-        raise NotImplementedError(
-            f"{_RESIDENT_SLICE}; pass use_reduce_kernel=True for the "
-            "restaging path and its windowed-reduce kernel")
+        if _native_core_lib() is not None:
+            from .native_core import NativeResidentCore
+            return NativeResidentCore(spec, winfunc, shards=shards,
+                                      **resident_kw)
+        return ResidentWinSeqCore(spec, winfunc, **resident_kw)
     return DeviceWinSeqCore(
         spec, winfunc, batch_len=batch_len, config=config, role=role,
         map_indexes=map_indexes, result_ts_slide=result_ts_slide,
@@ -346,18 +842,22 @@ class WinSeqGPU(_Pattern):
     """Sequential GPU window pattern (reference Win_Seq_GPU builder shape:
     withBatch(batch_len) replaces withBatch(batch_len, n_thread_block)).
 
-    ``use_reduce_kernel`` is the counterpart of the JAX package's
+    By default a builtin Reducer runs on the resident path (rows copied
+    once into per-key rings on the card; ``flush_rows`` rows per append,
+    ``shards`` host key shards for the C++ core, ``max_delay_ms`` a latency
+    bound).  ``use_reduce_kernel`` is the counterpart of the JAX package's
     ``use_pallas``: it pins a builtin Reducer to the restaging path, whose
     fired window batches the hand-written windowed-reduce kernel
     evaluates.  ``device=None`` places the core on ``cuda:0`` (and raises
-    without CUDA); ``device="cpu"`` runs the kernel's plain version."""
+    without CUDA); ``device="cpu"`` runs the kernels' plain versions."""
 
     def __init__(self, winfunc, win_len, slide_len, win_type=WinType.CB,
                  batch_len=512, name="win_seq_gpu",
                  config: PatternConfig = None, role: Role = Role.SEQ,
                  map_indexes=(0, 1), result_ts_slide=None, device=None,
                  depth=None, use_reduce_kernel=False, compute_dtype=None,
-                 use_resident=None, mesh=None):
+                 use_resident=None, flush_rows=1 << 20, shards=1,
+                 mesh=None, max_delay_ms=None):
         super().__init__(name, parallelism=1)
         self.spec = WindowSpec(win_len, slide_len, win_type)
         self._kw = dict(batch_len=batch_len, config=config, role=role,
@@ -365,7 +865,9 @@ class WinSeqGPU(_Pattern):
                         result_ts_slide=result_ts_slide, device=device,
                         depth=depth, use_reduce_kernel=use_reduce_kernel,
                         compute_dtype=compute_dtype,
-                        use_resident=use_resident, mesh=mesh)
+                        use_resident=use_resident, flush_rows=flush_rows,
+                        shards=shards, mesh=mesh,
+                        max_delay_ms=max_delay_ms)
         self.winfunc = winfunc
 
     def make_core(self):
