@@ -8,9 +8,9 @@ Phases, each printing JSON lines (any failure exits non-zero; no phase
 catches its own failure):
 
 1. environment: torch version and the card's name and power limit;
-2. build: compiles both kernel sources of windflow_tpu_torch/ops/csrc/ with
-   nvcc and the native host library with make, all three at once, and
-   reports each build time;
+2. build: compiles every kernel source of windflow_tpu_torch/ops/csrc/ with
+   nvcc (one nvcc per source) and the native host library with make, all
+   at once, and reports each build time;
 3. kernel: the windowed-reduce kernel against its plain PyTorch version on
    the card, for sum/count/min/max/prod over int32 and float32, at the
    restaging path's shape (32768 windows of 256 rows over a ~2.1M-row flat
@@ -37,7 +37,33 @@ catches its own failure):
 7. irregular_and_python_core: Reducer("max") on the native core (irregular
    launches: the windowed-reduce kernel on the ring) and Reducer("sum") on
    the Python ResidentWinSeqCore, 1M tuples each, byte for byte against
-   the host core.
+   the host core;
+8. gather_kernel: window_gather against its plain version at the spatial
+   shape (256 windows, pad 4096, two float32 rings of 8 x 4M cells, the
+   rings the spatial run allocates) and on int32 rings, and at edge cases
+   (length 0, starts whose start + pad passes the ring's end, B = 1, the
+   restaging one-row form); with timings;
+9. skyline_kernel: skyline_windows against its plain version at 256
+   windows of ~4,000 points (pad 4096) on the 1/256 grid (sizes and
+   checksums exact), and at edge cases (all lanes masked, n = 1, duplicate
+   points, ties on one axis, a mask with holes, unquantised coordinates:
+   sizes exact, checksums within rtol 1e-5); with timings;
+10. spatial_resident: the spatial skyline (spatial_test wf-gpu's shape:
+   TB window 4,000 points, slide 1,000, one key, pardegree 2, batch_len
+   256) over a deterministic 640,000-point stream through
+   WinFarmGPU(device_skyline(), ..., use_resident=True): every window's
+   (size, checksum) against a numpy sort-and-sweep oracle, a prefix of the
+   windows byte for byte against the port's host WinSeq(SkylineWindow()),
+   and the launch counts of ring_append, window_gather and skyline_windows
+   in that run;
+11. spatial_restaging: the same stream through the restaging route
+   (WinFarmGPU without use_resident), against the same oracle;
+12. spatial_app: apps.spatial.run("wf-gpu") at its defaults (8 s at
+   80,000 points/s, TB 50/12.5 ms, pardegree 2, chunk 2048);
+13. multi_field_native: MultiReducer(sum(a), max(b), count) over CB 256/64
+   and 64 keys, 4M tuples, through the native core's per-field rings
+   (NativeResidentCore._multi -> MultiFieldResidentExecutor), byte for
+   byte against the port's host core.
 
 Then it prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
@@ -269,6 +295,7 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from windflow_tpu_torch import native
+    from windflow_tpu_torch.ops import gather, skyline
     from windflow_tpu_torch.ops import ring as rk
     from windflow_tpu_torch.ops import windowed_reduce as wr
 
@@ -278,6 +305,7 @@ def build_all():
         return out, time.perf_counter() - t0
 
     jobs = {"windowed_reduce.cu": wr.build, "resident.cu": rk.build,
+            "gather.cu": gather.build, "skyline.cu": skyline.build,
             "libwfnative.so": native.load}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
@@ -383,22 +411,29 @@ def check_ring(rk, case, name):
     return 0.0, float(err.max())
 
 
+def covered(starts, lens, rows=None):
+    """Buffer cells the windows cover, each counted once."""
+    rows = np.zeros(len(starts), np.int64) if rows is None else rows
+    n = 0
+    for r in np.unique(rows):
+        sel = rows == r
+        s, e = starts[sel], starts[sel] + lens[sel]
+        order = np.argsort(s)
+        end = -1
+        for a, b in zip(s[order], e[order]):
+            if b > max(a, end):
+                n += b - max(a, end)
+                end = b
+    return int(n)
+
+
 def covered_cells(rstart0, rlen, C, slide, cap):
     """Ring cells the regular windows cover, each counted once."""
-    n = 0
-    for s0, ln in zip(rstart0.tolist(), rlen.tolist()):
-        ivs = []
-        for i in range(C):
-            s = min(max(s0 + i * slide, 0), cap)
-            e = min(max(s + ln, 0), cap)
-            if e > s:
-                ivs.append((s, e))
-        end = -1
-        for s, e in ivs:          # starts are increasing
-            if e > max(s, end):
-                n += e - max(s, end)
-                end = e
-    return n
+    s = np.clip(rstart0.numpy()[:, None] + np.arange(C)[None, :] * slide, 0,
+                cap)
+    e = np.clip(s + rlen.numpy()[:, None], 0, cap)
+    rows = np.repeat(np.arange(len(s)), C)
+    return covered(s.ravel(), (e - s).ravel(), rows)
 
 
 def bytes_bound(nbytes, ops):
@@ -737,6 +772,416 @@ def irregular_and_python_core(wr, rk):
                        "regular_window_sum": counts[2]})
 
 
+# spatial_test wf-gpu's shape (apps/spatial.py defaults: 80,000 points/s
+# for 8 s, TB window 50 ms, slide 12.5 ms, pardegree 2, batch_len 256,
+# chunk 2048, one key): the deterministic stream stamps point v with
+# ts = v in units of 1/80,000 s, so a window spans 4,000 points and a
+# slide 1,000
+SP_POINTS = 640_000
+SP_WIN, SP_SLIDE = 4000, 1000
+SP_CHUNK = 2048
+SP_PARDEGREE = 2
+SP_BATCH = 256
+# one launch of the spatial run: 256 windows in (B, pad) tiles, over the
+# per-field float32 rings its core allocates (8 rows, cap 2**22: the
+# rebase sizes cap for 2 * flush_rows of slack)
+SP_B, SP_PAD = 256, 4096
+SP_KP, SP_CAP = 8, 1 << 22
+SP_PREFIX_WINDOWS = 16
+GRID = 256            # coordinates on a 1/256 grid: float32 compute exact
+MULTI_TUPLES = 4_000_000
+
+
+def check_gather(g, bufs, rows, starts, lens, pad, name):
+    """Kernel against plain version: tiles and mask bit for bit."""
+    tiles, mask = g.window_gather(bufs, rows, starts, lens, pad)
+    want, want_mask = g.window_gather_reference(bufs, rows, starts, lens,
+                                                pad)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, want_mask):
+        raise AssertionError(f"window_gather {name}: masks differ")
+    for t, w in zip(tiles, want):
+        if not torch.equal(t, w):
+            raise AssertionError(f"window_gather {name}: tiles differ")
+
+
+def gather_phase(dev):
+    """window_gather at the spatial launch's shape and at edge cases;
+    returns the kernels-line row."""
+    from windflow_tpu_torch.ops import gather as g
+    gen = np.random.default_rng(3)
+    tgen = torch.Generator(device=dev).manual_seed(3)
+    rx = torch.rand((SP_KP, SP_CAP), generator=tgen, device=dev) * 100
+    ry = torch.rand((SP_KP, SP_CAP), generator=tgen, device=dev) * 100
+    starts_np = SP_CAP // 40 + np.arange(SP_B) * SP_SLIDE
+    lens_np = np.full(SP_B, SP_WIN)
+    lens_np[-4:] = (3500, 2001, 1, 0)
+    rows = torch.zeros(SP_B, dtype=torch.int32, device=dev)
+    starts = torch.from_numpy(starts_np).to(dev, torch.int32)
+    lens = torch.from_numpy(lens_np).to(dev, torch.int32)
+    check_gather(g, (rx, ry), rows, starts, lens, SP_PAD, "main_shape")
+    ri = (rx * 1000).to(torch.int32)
+    check_gather(g, (ri,), rows, starts, lens, SP_PAD, "main_shape_int32")
+    del ri
+
+    def kernel():
+        g.window_gather((rx, ry), rows, starts, lens, SP_PAD)
+
+    k_ms = kernel_ms(kernel)
+    p_ms = call_ms(lambda: g.window_gather_reference(
+        (rx, ry), rows, starts, lens, SP_PAD))
+    lane = torch.arange(SP_PAD, device=dev)
+    idx = (rows.long()[:, None] * SP_CAP
+           + (starts.long()[:, None] + lane[None, :]).clamp(max=SP_CAP - 1))
+    live = lane[None, :] < lens.long()[:, None]
+    zero = torch.zeros((), device=dev)
+    l_ms = call_ms(lambda: [torch.where(live, torch.take(r, idx), zero)
+                            for r in (rx, ry)])
+    cells = covered(starts_np, lens_np)
+    b_ms, b_by = bytes_bound(SP_B * SP_PAD * (2 * 4 + 1) + 2 * 4 * cells
+                             + 12 * SP_B, 0)
+    emit("gather_kernel", case="main_shape", B=SP_B, pad=SP_PAD,
+         ring=[SP_KP, SP_CAP], fields=2, covered_cells=cells,
+         max_abs_err=0.0, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+         library="torch.where(mask, torch.take(ring, idx), 0) per field, "
+                 "idx and mask precomputed",
+         bound_ms=b_ms, bound_by=b_by)
+    del rx, ry
+
+    # edge cases on small buffers, int32 and float32
+    for dtype in (torch.int32, torch.float32):
+        cap = 256
+        buf = torch.from_numpy(gen.integers(-1000, 1000, size=(4, cap))).to(
+            dev, dtype)
+        cases = {
+            "len0": ([1, 2, 3], [0, 10, 250], [0, 7, 0]),
+            "past_end_clamp": ([0, 3, 2, 1], [cap - 10, cap - 3, 200, 255],
+                               [10, 3, 56, 1]),
+            "len_past_ncols": ([0, 1], [cap - 5, 250], [20, 64]),
+            "B1": ([2], [17], [64]),
+        }
+        for name, (r, st, ln) in cases.items():
+            as32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+            check_gather(g, (buf, buf * 2), as32(r), as32(st), as32(ln), 64,
+                         f"{name}/{dtype}")
+        flat = buf.reshape(1, -1)       # the restaging one-row form
+        st = gen.integers(0, flat.shape[1] - 40, size=37)
+        ln = gen.integers(0, 41, size=37)
+        ln[::6] = 0
+        check_gather(g, (flat,), None,
+                     torch.from_numpy(st).to(dev, torch.int32),
+                     torch.from_numpy(ln).to(dev, torch.int32), 64,
+                     f"one_row/{dtype}")
+        empty = torch.zeros((1, 0), dtype=dtype, device=dev)
+        z = torch.zeros(3, dtype=torch.int32, device=dev)
+        check_gather(g, (empty,), None, z, z, 8, f"empty_buffer/{dtype}")
+        emit("gather_kernel", case="edges", dtype=str(dtype),
+             edges=list(cases) + ["one_row", "empty_buffer"], ok=True)
+    return dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=l_ms)
+
+
+def skyline_oracle(x, y):
+    """(size, checksum) of the 2-D min/min skyline of the points (x, y) by
+    a sort and sweep, O(n log n): within a run of equal x only the
+    smallest y can survive (with its duplicates), and it survives when
+    every smaller x has a larger y."""
+    if len(x) == 0:
+        return 0, 0.0
+    order = np.lexsort((y, x))
+    xs, ys = x[order], y[order]
+    first = np.flatnonzero(np.r_[True, xs[1:] != xs[:-1]])
+    ends = np.r_[first[1:], len(xs)]
+    gy = ys[first]
+    before = np.r_[np.inf, np.minimum.accumulate(gy)[:-1]]
+    size, total = 0, 0.0
+    for k in np.flatnonzero(gy < before):
+        a, b = first[k], ends[k]
+        n = int(np.searchsorted(ys[a:b], gy[k], side="right"))
+        size += n
+        total += n * float(np.float32(xs[a]) + np.float32(ys[a]))
+    return size, total
+
+
+def pair_tests_needed(x, y, mask):
+    """Pair tests the skyline of these windows needs: each real point's
+    tests in lane order up to its first dominator, every lane below
+    hi (1 + the last real lane) for a survivor."""
+    B, pad = x.shape
+    lane = torch.arange(pad, device=x.device)
+    hi = torch.where(mask, lane + 1, 0).amax(dim=1)
+    total = 0
+    for b0 in range(0, B, 4):
+        xb, yb, mb = x[b0:b0 + 4], y[b0:b0 + 4], mask[b0:b0 + 4]
+        xi, yi = xb[:, :, None], yb[:, :, None]
+        xj, yj = xb[:, None, :], yb[:, None, :]
+        dom = (((xj <= xi) & (yj <= yi)) & ((xj < xi) | (yj < yi))
+               & mb[:, None, :])
+        first = dom.to(torch.int8).argmax(dim=2) + 1
+        tests = torch.where(dom.any(dim=2), first, hi[b0:b0 + 4, None])
+        total += int(torch.where(mb, tests, 0).sum())
+    return total
+
+
+def check_skyline(sk, x, y, mask, name, exact=True):
+    """Kernel against plain version and the numpy oracle: sizes exact;
+    checksums exact on the grid, else within FLOAT_RTOL of the checksum
+    (a sum of positive terms).  Returns the max abs checksum error."""
+    size, cs = sk.skyline_windows(x, y, mask)
+    want_size, want_cs = sk.skyline_windows_reference(x, y, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(size, want_size):
+        raise AssertionError(f"skyline_windows {name}: sizes differ")
+    err = float((cs.double() - want_cs.double()).abs().max()) if len(cs) \
+        else 0.0
+    if exact and not torch.equal(cs, want_cs):
+        raise AssertionError(f"skyline_windows {name}: checksums differ")
+    if not exact and not bool(((cs.double() - want_cs.double()).abs()
+                               <= FLOAT_RTOL * want_cs.double().abs()).all()):
+        raise AssertionError(f"skyline_windows {name}: checksum error "
+                             f"{err} beyond rtol {FLOAT_RTOL}")
+    xs, ys, ms = x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy()
+    for b in range(len(xs)):
+        n, total = skyline_oracle(xs[b][ms[b]], ys[b][ms[b]])
+        if n != int(size[b]) or (exact and total != float(cs[b])):
+            raise AssertionError(f"skyline_windows {name}: window {b} gives "
+                                 f"({int(size[b])}, {float(cs[b])}), the "
+                                 f"oracle ({n}, {total})")
+    return err
+
+
+def grid_points(gen, shape):
+    return np.round(gen.uniform(0, 100, size=shape) * GRID) / GRID
+
+
+def skyline_phase(dev):
+    """skyline_windows at the spatial launch's shape and at edge cases;
+    returns the kernels-line row."""
+    from windflow_tpu_torch.ops import skyline as sk
+    gen = np.random.default_rng(5)
+    lens = np.full(SP_B, SP_WIN)
+    lens[-4:] = (3500, 2001, 1, 0)
+    live = np.arange(SP_PAD)[None, :] < lens[:, None]
+    x = torch.from_numpy(np.where(live, grid_points(gen, (SP_B, SP_PAD)), 0)
+                         ).to(dev, torch.float32)
+    y = torch.from_numpy(np.where(live, grid_points(gen, (SP_B, SP_PAD)), 0)
+                         ).to(dev, torch.float32)
+    mask = torch.from_numpy(live).to(dev)
+    check_skyline(sk, x, y, mask, "main_shape")
+    k_ms = kernel_ms(lambda: sk.skyline_windows(x, y, mask), reps=10)
+    p_ms = call_ms(lambda: sk.skyline_windows_reference(x, y, mask), reps=2)
+    tests = pair_tests_needed(x, y, mask)
+    b_ms, b_by = bytes_bound(SP_B * SP_PAD * 9 + 8 * SP_B, 4 * tests)
+    emit("skyline_kernel", case="main_shape", B=SP_B, pad=SP_PAD,
+         points=int(lens.sum()), pair_tests=tests, max_abs_err=0.0,
+         kernel_ms=k_ms, plain_ms=p_ms, library_ms=None,
+         library_none_because="no single torch call computes a skyline",
+         bound_ms=b_ms, bound_by=b_by)
+
+    def small(B, pad, n, coords):
+        m = np.arange(pad)[None, :] < np.asarray(n)[:, None]
+        xs, ys = coords(gen, (B, pad))
+        return (torch.from_numpy(np.where(m, xs, 0)).to(dev, torch.float32),
+                torch.from_numpy(np.where(m, ys, 0)).to(dev, torch.float32),
+                torch.from_numpy(m).to(dev))
+
+    grid = lambda g, shp: (grid_points(g, shp), grid_points(g, shp))
+    err = 0.0
+    x, y, m = small(3, 64, [0, 0, 0], grid)
+    check_skyline(sk, x, y, m, "all_masked")
+    x, y, m = small(4, 64, [1, 1, 64, 2], grid)
+    check_skyline(sk, x, y, m, "n1")
+    x, y, m = small(6, 128, [128, 100, 37, 128, 5, 90], grid)
+    x[:, 1::2] = x[:, 0::2]            # every point twice
+    y[:, 1::2] = y[:, 0::2]
+    check_skyline(sk, x, y, m, "duplicates")
+    x, y, m = small(6, 128, [128, 120, 64, 33, 128, 7], grid)
+    x = torch.floor(x / 25) * 25       # four distinct x values
+    y[3:] = torch.floor(y[3:] / 50) * 50
+    check_skyline(sk, x, y, m, "ties")
+    x, y, m = small(5, 2048, [2048, 1500, 1025, 1024, 3000], grid)
+    m &= torch.from_numpy(gen.random((5, 2048)) < 0.7).to(dev)
+    check_skyline(sk, x, y, m, "mask_holes_and_tiles")
+    uniform = lambda g, shp: (g.uniform(0, 100, size=shp),
+                              g.uniform(0, 100, size=shp))
+    x, y, m = small(16, 4096, [4000] * 15 + [4096], uniform)
+    err = max(err, check_skyline(sk, x, y, m, "unquantised", exact=False))
+    emit("skyline_kernel", case="edges",
+         edges=["all_masked", "n1", "duplicates", "ties",
+                "mask_holes_and_tiles", "unquantised"],
+         unquantised_max_abs_err=err, ok=True)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def spatial_stream(seed=11):
+    """Deterministic spatial_test stream: SP_POINTS points of one key,
+    uniform on the 1/256 grid, ts = point index."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.apps.spatial import POINT_SCHEMA
+    rng = np.random.default_rng(seed)
+    out = []
+    for lo in range(0, SP_POINTS, SP_CHUNK):
+        m = min(SP_CHUNK, SP_POINTS - lo)
+        ids = np.arange(lo, lo + m)
+        out.append(wt.batch_from_columns(
+            POINT_SCHEMA, key=np.zeros(m, np.int64), id=ids, ts=ids,
+            x=grid_points(rng, m), y=grid_points(rng, m)))
+    return out
+
+
+def run_rows(stage, batches, schema):
+    """Source -> stage -> Sink; returns (seconds, result rows by id)."""
+    import windflow_tpu_torch as wt
+    rows = []
+
+    def consume(r):
+        if r is not None and len(r):
+            rows.append(r.copy())
+
+    df = wt.Dataflow()
+    wt.build_pipeline(df, [wt.Source(batches=batches, schema=schema), stage,
+                           wt.Sink(consume, vectorized=True)])
+    t0 = time.perf_counter()
+    df.run_and_wait_end()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = np.concatenate(rows)
+    return dt, rows[np.argsort(rows["id"], kind="stable")]
+
+
+def check_spatial_oracle(rows, batches, name):
+    """Every window's (size, checksum) against the sort-and-sweep oracle:
+    window w holds the points with w*slide <= ts < w*slide + win."""
+    x = np.concatenate([b["x"] for b in batches]).astype(np.float32)
+    y = np.concatenate([b["y"] for b in batches]).astype(np.float32)
+    ts = np.concatenate([b["ts"] for b in batches])
+    if len(np.unique(rows["id"])) != len(rows):
+        raise AssertionError(f"{name}: duplicate window ids")
+    for r in rows:
+        lo = int(r["id"]) * SP_SLIDE
+        a, b = np.searchsorted(ts, [lo, lo + SP_WIN])
+        n, total = skyline_oracle(x[a:b], y[a:b])
+        if n != int(r["size"]) or total != float(r["checksum"]):
+            raise AssertionError(
+                f"{name}: window {int(r['id'])} gives ({int(r['size'])}, "
+                f"{float(r['checksum'])}), the oracle ({n}, {total})")
+
+
+def spatial_phases(wr, rk):
+    """The spatial skyline, resident and restaging routes, against the
+    oracle and the host core; returns the main path's launch counts."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.apps.spatial import (POINT_SCHEMA,
+                                                 SkylineWindow,
+                                                 device_skyline)
+    from windflow_tpu_torch.ops import gather as g
+    from windflow_tpu_torch.ops import skyline as sk
+    batches = spatial_stream()
+
+    def farm(**kw):
+        return wt.WinFarmGPU(device_skyline(), SP_WIN, SP_SLIDE,
+                             wt.WinType.TB, pardegree=SP_PARDEGREE,
+                             batch_len=SP_BATCH, device=DEVICE, **kw)
+
+    counters = (rk.ring_append, g.window_gather, sk.skyline_windows,
+                wr.windowed_reduce)
+    runs = {}
+    for name, kw in (("spatial_resident", dict(use_resident=True)),
+                     ("spatial_restaging", {})):
+        for c in counters:
+            c.launches = 0
+        dt, rows = run_rows(farm(**kw), batches, POINT_SCHEMA)
+        launches = {c.__name__: c.launches for c in counters}
+        check_spatial_oracle(rows, batches, name)
+        resident = name == "spatial_resident"
+        if (launches["window_gather"] == 0 or launches["skyline_windows"] == 0
+                or (launches["ring_append"] > 0) != resident):
+            raise AssertionError(f"{name}: launches {launches}")
+        runs[name] = (rows, launches)
+        emit(name, workload="spatial_test wf-gpu TB win=4000 slide=1000 "
+             "points, pardegree 2, batch_len 256", points=SP_POINTS,
+             windows=len(rows), seconds=dt, windows_per_s=len(rows) / dt,
+             points_per_s=SP_POINTS / dt,
+             skyline_points=int(rows["size"].sum()), oracle_match=True,
+             launches=launches)
+    if runs["spatial_resident"][0].tobytes() != \
+            runs["spatial_restaging"][0].tobytes():
+        raise AssertionError("the resident and restaging routes differ")
+
+    # a prefix of the windows against the port's host core
+    n_prefix = (SP_PREFIX_WINDOWS - 1) * SP_SLIDE + SP_WIN
+    prefix = [b[b["ts"] < n_prefix] for b in batches[:n_prefix // SP_CHUNK
+                                                         + 1]]
+    _, host = run_rows(wt.WinSeq(SkylineWindow(), SP_WIN, SP_SLIDE,
+                                 wt.WinType.TB), prefix, POINT_SCHEMA)
+    dev = runs["spatial_resident"][0]
+    host = host[host["id"] < SP_PREFIX_WINDOWS]
+    dev = dev[dev["id"] < SP_PREFIX_WINDOWS]
+    if (host.dtype != dev.dtype or len(host) != SP_PREFIX_WINDOWS
+            or host.tobytes() != dev.tobytes()):
+        raise AssertionError("spatial prefix: the device windows differ "
+                             "from the host core's")
+    emit("spatial_prefix_vs_host_core", windows=SP_PREFIX_WINDOWS,
+         identical=True)
+    return runs["spatial_resident"][1]
+
+
+def spatial_app():
+    """apps.spatial.run("wf-gpu") at its defaults, rate-paced."""
+    from windflow_tpu_torch.apps import spatial
+    out = spatial.run("wf-gpu", device=DEVICE)
+    if not out.get("windows"):
+        raise AssertionError(f"spatial wf-gpu delivered no window: {out}")
+    emit("spatial_app", **out)
+
+
+def multi_field_native(wr, rk):
+    """sum(a) + max(b) + count over CB 256/64, 64 keys, 4M tuples: the
+    native core's per-field rings against the port's host core."""
+    import windflow_tpu_torch as wt
+    schema = wt.Schema(a=np.int64, b=np.int64)
+    per_key = MULTI_TUPLES // N_KEYS
+    rng = np.random.default_rng(13)
+    batches = []
+    for lo in range(0, per_key, CHUNK // N_KEYS):
+        m = min(CHUNK // N_KEYS, per_key - lo)
+        ids = np.repeat(np.arange(lo, lo + m), N_KEYS)
+        batches.append(wt.batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
+            a=rng.integers(0, 100, size=m * N_KEYS),
+            b=rng.integers(-30000, 30000, size=m * N_KEYS)))
+
+    def agg():
+        return wt.MultiReducer(("sum", "a", "sa"), ("max", "b", "mb"),
+                               ("count", None, "n"))
+
+    cores = []
+    stage = stage_with_core(lambda: wt.WinSeqGPU(
+        agg(), WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
+        flush_rows=FLUSH_ROWS, depth=DEPTH, device=DEVICE), cores)
+    counts = (wr.windowed_reduce.launches, rk.ring_append.launches)
+    dt, rows = run_rows(stage, batches, schema)
+    counts = {"windowed_reduce": wr.windowed_reduce.launches - counts[0],
+              "ring_append": rk.ring_append.launches - counts[1]}
+    if not (len(cores) == 1 and getattr(cores[0], "_multi", False)
+            and cores[0]._delegate is None):
+        raise AssertionError(f"multi_field_native: the core is {cores}")
+    if counts["windowed_reduce"] == 0 or counts["ring_append"] == 0:
+        raise AssertionError(f"multi_field_native: launches {counts}")
+    _, host = run_rows(wt.WinSeq(agg(), WIN, SLIDE, wt.WinType.CB), batches,
+                       schema)
+    if by_key([rows]) != by_key([host]):
+        raise AssertionError("multi_field_native: the per-field rings "
+                             "differ from the host core")
+    emit("multi_field_native", workload="MultiReducer(sum(a), max(b), "
+         "count) CB win=256 slide=64 keys=64", tuples=MULTI_TUPLES,
+         seconds=dt, tuples_per_s=MULTI_TUPLES / dt, windows=len(rows),
+         fields=list(cores[0]._ship_fields), identical=True,
+         launches=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -758,6 +1203,11 @@ def main() -> int:
     restaging_launches = end_to_end(wr)
     resident_launches = end_to_end_resident(wr, rk)
     irregular_and_python_core(wr, rk)
+    gather_row = gather_phase(dev)
+    skyline_row = skyline_phase(dev)
+    spatial_launches = spatial_phases(wr, rk)
+    spatial_app()
+    multi_field_native(wr, rk)
 
     kernels = [dict(
         name="windowed_reduce", route="cuda",
@@ -774,6 +1224,17 @@ def main() -> int:
             source="windflow_tpu_torch/ops/csrc/resident.cu",
             replaces=replaces, launches=resident_launches[name],
             **rows[name]))
+    kernels.append(dict(
+        name="window_gather", route="cuda",
+        source="windflow_tpu_torch/ops/csrc/gather.cu",
+        replaces="windflow_tpu/ops/resident.py:618, "
+                 "windflow_tpu/ops/device.py:156",
+        launches=spatial_launches["window_gather"], **gather_row))
+    kernels.append(dict(
+        name="skyline_windows", route="cuda",
+        source="windflow_tpu_torch/ops/csrc/skyline.cu",
+        replaces="windflow_tpu/apps/spatial.py:143",
+        launches=spatial_launches["skyline_windows"], **skyline_row))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,25 @@ per run:
 * ``host_core``: the port's host WinSeq core on the same stream — the floor
   the Python window bookkeeping sets without any device work.
 
+With ``--spatial`` it profiles the spatial skyline instead (chip_smoke.py's
+deterministic 640,000-point spatial_test stream, TB 4,000/1,000 points,
+WinFarmGPU(device_skyline(), pardegree=2, batch_len=256)):
+
+* ``spatial_resident`` / ``spatial_restaging`` (3 runs each): the
+  resident route (per-field float32 rings) and the restaging route, end
+  to end;
+* ``*_profiled``: the same under torch.profiler: device busy share and
+  the device time split into skyline_windows, window_gather, ring_append,
+  other kernels (the rings' zero fill, casts), host-to-device and
+  device-to-host copies;
+* ``spatial_resident_phases``: host seconds per phase of the executor's
+  launches (staging, dispatch, harvest wait);
+* ``spatial_host_core``: the port's host WinSeq(SkylineWindow()) over the
+  stream's first 16 windows — the host skyline's cost per window.
+
 Usage, from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_sum_test_profile.py
+    python3 scripts/torch_sum_test_profile.py [--spatial]
 """
 
 import json
@@ -74,15 +90,94 @@ def split(busy):
     return out
 
 
-def main():
+def split_spatial(busy):
+    """Device ms of the spatial path by kernel and copy direction."""
+    out = {"skyline_ms": 0.0, "gather_ms": 0.0, "append_ms": 0.0,
+           "other_kernel_ms": 0.0, "h2d_ms": 0.0, "d2h_ms": 0.0,
+           "other_copy_ms": 0.0}
+    for name, ms in busy.items():
+        low = name.lower()
+        key = ("h2d_ms" if "htod" in low else
+               "d2h_ms" if "dtoh" in low else
+               "other_copy_ms" if "memcpy" in low or "memset" in low else
+               "skyline_ms" if "skyline" in low else
+               "gather_ms" if "gather" in low else
+               "append_ms" if "ring_append" in low else "other_kernel_ms")
+        out[key] += ms
+    return out
+
+
+def spatial_main(device, smi):
+    from windflow_tpu_torch.apps.spatial import (POINT_SCHEMA,
+                                                 SkylineWindow,
+                                                 device_skyline)
+    batches = cs.spatial_stream()
+
+    def farm(**kw):
+        return wt.WinFarmGPU(device_skyline(), cs.SP_WIN, cs.SP_SLIDE,
+                             wt.WinType.TB, pardegree=cs.SP_PARDEGREE,
+                             batch_len=cs.SP_BATCH, device="cuda:0", **kw)
+
+    routes = (("spatial_resident", dict(use_resident=True)),
+              ("spatial_restaging", {}))
+    for label, kw in routes:
+        cs.run_rows(farm(**kw), batches[:64], POINT_SCHEMA)   # warm-up
+    for label, kw in routes:
+        for _ in range(3):
+            dt, rows = cs.run_rows(farm(**kw), batches, POINT_SCHEMA)
+            print(json.dumps({"run": label, "seconds": dt,
+                              "points_per_s": cs.SP_POINTS / dt,
+                              "windows": len(rows),
+                              "windows_per_s": len(rows) / dt,
+                              "device": device, "nvidia_smi": smi}),
+                  flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dt, rows = cs.run_rows(farm(**kw), batches, POINT_SCHEMA)
+        busy = device_busy(prof)
+        print(json.dumps({"run": f"{label}_profiled", "seconds": dt,
+                          "device_busy_ms": sum(busy.values()),
+                          "device_busy_share": sum(busy.values())
+                          / (dt * 1e3),
+                          **split_spatial(busy), "by_activity_ms": busy,
+                          "device": device, "nvidia_smi": smi}), flush=True)
+    phases.reset()
+    phases.enable()
+    dt, rows = cs.run_rows(farm(use_resident=True), batches, POINT_SCHEMA)
+    phases.auto()
+    print(json.dumps({"run": "spatial_resident_phases", "seconds": dt,
+                      "phases_s_calls": phases.report(),
+                      "counters": phases.counters(), "device": device,
+                      "nvidia_smi": smi}), flush=True)
+    n_prefix = (cs.SP_PREFIX_WINDOWS - 1) * cs.SP_SLIDE + cs.SP_WIN
+    prefix = [b[b["ts"] < n_prefix]
+              for b in batches[:n_prefix // cs.SP_CHUNK + 1]]
+    dt, rows = cs.run_rows(wt.WinSeq(SkylineWindow(), cs.SP_WIN, cs.SP_SLIDE,
+                                     wt.WinType.TB), prefix, POINT_SCHEMA)
+    print(json.dumps({"run": "spatial_host_core", "seconds": dt,
+                      "windows": len(rows), "points": n_prefix,
+                      "ms_per_window": 1e3 * dt / len(rows),
+                      "nvidia_smi": smi}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spatial", action="store_true",
+                    help="profile the spatial skyline path instead")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
         return 2
+    device = torch.cuda.get_device_name(0)
+    smi = cs.nvidia_smi_line()
+    if args.spatial:
+        return spatial_main(device, smi)
     schema = wt.Schema(value=cs.np.int64)
     batches = cs.make_stream(schema, cs.N_TUPLES)
     want = cs.expected_total(batches)
-    device = torch.cuda.get_device_name(0)
-    smi = cs.nvidia_smi_line()
     prefix = cs.make_stream(schema, cs.PREFIX_TUPLES)
     for make in (restaging_stage, resident_stage):
         # warm-up: kernel build, CUDA context, pinned pool, native library

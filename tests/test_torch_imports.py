@@ -44,12 +44,16 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from windflow_tpu_torch.interop import carry_core_state\n"
         "from windflow_tpu_torch.interop import carry_resident_state\n"
         "from windflow_tpu_torch.ops import resident, ring, windowed_reduce\n"
+        "from windflow_tpu_torch.ops import gather, skyline\n"
         "from windflow_tpu_torch.patterns import native_core\n"
-        "from windflow_tpu_torch.utils import profile\n"
+        "from windflow_tpu_torch.utils import latency, profile\n"
+        "from windflow_tpu_torch.apps import spatial\n"
+        "from windflow_tpu_torch.api import MultiPipe\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
     for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
-              "ops.ring", "utils.profile"):
+              "ops.ring", "ops.gather", "ops.skyline", "utils.profile",
+              "utils.latency", "apps.spatial", "api.multipipe"):
         assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
 
@@ -71,7 +75,11 @@ def test_import_and_plain_versions_run_no_nvcc(tmp_path):
         "ring.ring_append(r, torch.ones((2, 4), dtype=torch.int8), z)\n"
         "ring.regular_window_sum(r, z, z + 3, 2, 1)\n"
         "windowed_reduce.windowed_reduce(r.view(-1), z, z + 2, 8, 'max')\n"
-        "assert ring._lib is None and windowed_reduce._lib is None\n",
+        "from windflow_tpu_torch.ops import gather, skyline\n"
+        "t, m = gather.window_gather(r, z, z, z + 3, 8)\n"
+        "skyline.skyline_windows(t.float(), t.float(), m)\n"
+        "assert ring._lib is None and windowed_reduce._lib is None\n"
+        "assert gather._lib is None and skyline._lib is None\n",
         CUDA_HOME=str(tmp_path), PATH=f"{nvcc.parent}:{os.environ['PATH']}")
     assert not marker.exists()
 

@@ -13,7 +13,7 @@ import pytest
 from windflow_tpu.core.windows import WindowSpec as JaxWindowSpec
 from windflow_tpu.core.windows import WinType as JaxWinType
 from windflow_tpu.ops.functions import Reducer as JaxReducer
-from windflow_tpu.patterns.win_seq_tpu import WinSeqTPU
+from windflow_tpu.patterns.win_seq_tpu import KeyFarmTPU, WinFarmTPU, WinSeqTPU
 from windflow_tpu.patterns.win_seq_tpu import make_core_for as jax_make_core
 import windflow_tpu_torch as wt
 from windflow_tpu_torch.core.windows import WindowSpec
@@ -174,3 +174,72 @@ def test_carry_core_state_continues_jax_run(op):
     got += [pcore.process(b) for b in batches[half:]] + [pcore.flush()]
     assert per_key(got) == per_key(want)
     assert sum(len(v) for v in per_key(got).values()) == 4 * 100
+
+
+@pytest.mark.parametrize("use_resident", [None, False])
+@pytest.mark.parametrize("farm,pardegree", [("win", 2), ("win", 3),
+                                            ("key", 2), ("key", 4)])
+def test_device_farms_match_jax(farm, pardegree, use_resident):
+    """WinFarmGPU/KeyFarmGPU (the host farms with a device core per
+    worker) against WinFarmTPU/KeyFarmTPU: the default route (resident
+    rings) and the restaging route (use_resident=False), per-key order
+    included."""
+    keys = 3 if farm == "win" else 5
+    n = 140 if farm == "win" else 120
+    batches = cb_stream_batches(keys, n)
+    jcls, pcls = ((WinFarmTPU, wt.WinFarmGPU) if farm == "win"
+                  else (KeyFarmTPU, wt.KeyFarmGPU))
+    jax_got = run_windowed(jcls(JaxReducer("sum"), 10, 4, JaxWinType.CB,
+                                pardegree=pardegree, batch_len=16,
+                                use_resident=use_resident), batches)
+    port_got = run_port(pcls(wt.Reducer("sum"), 10, 4, wt.WinType.CB,
+                             pardegree=pardegree, batch_len=16,
+                             use_resident=use_resident, device="cpu"),
+                        batches)
+    assert port_got == jax_got and len(port_got) == keys
+    host = run_port(wt.WinSeq(wt.Reducer("sum"), 10, 4, wt.WinType.CB),
+                    batches)
+    assert port_got == host
+
+
+def test_device_farm_workers_each_own_an_executor():
+    """Every farm worker builds its own device core (and so its own
+    executor and stream), placed by resolve_worker_device."""
+    farm = wt.WinFarmGPU(wt.Reducer("sum"), 10, 4, wt.WinType.CB,
+                         pardegree=3, use_resident=False,
+                         device=["cpu", "cpu"])
+    cores = [farm._make_core(w, i) for i, w in enumerate(farm._workers)]
+    assert all(isinstance(c, DeviceWinSeqCore) for c in cores)
+    assert len({id(c.executor) for c in cores}) == 3
+
+
+def test_multipipe_matches_jax_and_refuses_unported_layers():
+    """The carried MultiPipe composes Source -> WinFarmGPU -> Sink like the
+    JAX package's; the knobs of layers the port lacks raise at once."""
+    from windflow_tpu.api import MultiPipe as JaxMultiPipe
+    from windflow_tpu.core.tuples import Schema as JaxSchema
+    from windflow_tpu.patterns.basic import Sink as JaxSink
+    from windflow_tpu.patterns.basic import Source as JaxSource
+    batches = cb_stream_batches(3, 120)
+    outs = []
+    for mp, src, farm, snk, schema, red, wtype, kw in (
+            (wt.MultiPipe, wt.Source, wt.WinFarmGPU, wt.Sink,
+             wt.Schema(value=np.int64), wt.Reducer, wt.WinType,
+             dict(device="cpu")),
+            (JaxMultiPipe, JaxSource, WinFarmTPU, JaxSink,
+             JaxSchema(value=np.int64), JaxReducer, JaxWinType, {})):
+        got = []
+        pipe = (mp("p").add_source(src(batches=iter(batches), schema=schema))
+                .add(farm(red("sum"), 10, 4, wtype.CB, pardegree=2,
+                          batch_len=16, **kw))
+                .chain_sink(snk(lambda r: got.append(r.copy())
+                                if r is not None and len(r) else None,
+                                vectorized=True)))
+        pipe.run_and_wait_end()
+        rows = np.concatenate(got)
+        outs.append(np.sort(rows, order=["key", "id"]).tobytes())
+    assert outs[0] == outs[1]
+    for knob in ({"check": "warn"}, {"control": object()}, {"trace": 0.5},
+                 {"federate": True}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            wt.MultiPipe("p", **knob)

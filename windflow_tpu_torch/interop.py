@@ -8,8 +8,9 @@ rebuilds it from the port's own classes so that a port core continues the
 stream with ``state_restore`` where the JAX core left off.
 
 A JAX ``ResidentWinSeqCore.state_snapshot()`` adds the ring cursors and
-a ``RingSnapshot`` of the device ring; :func:`carry_resident_state` carries
-those too.  (``NativeResidentCore`` state blobs come from the same C++
+a ``RingSnapshot`` of the device ring — of every field's ring, in field
+order, for a core over a ``MultiFieldResidentExecutor``;
+:func:`carry_resident_state` carries those too.  (``NativeResidentCore`` state blobs come from the same C++
 library in both packages and carry across as bytes.)
 
 The source objects are read by attribute name only (duck typing): nothing
@@ -57,8 +58,9 @@ def carry_core_state(snapshot: dict) -> dict:
 def carry_resident_state(snapshot: dict) -> dict:
     """A JAX ``ResidentWinSeqCore.state_snapshot()`` rebuilt for the port's
     ``ResidentWinSeqCore.state_restore``: the host bookkeeping through
-    :func:`carry_core_state`, the ring cursors deep-copied, and the ring
-    as numpy arrays from the snapshot's ``resolve()``."""
+    :func:`carry_core_state`, the ring cursors deep-copied, and the
+    ring(s) as numpy arrays from the snapshot's ``resolve()`` (one per
+    field for a multi-field core, in the executor's field order)."""
     out = carry_core_state(snapshot)
     out["resident"] = copy.deepcopy(snapshot["resident"])
     ring = snapshot.get("ring")

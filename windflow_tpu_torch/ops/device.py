@@ -4,33 +4,45 @@ micro-batch path, win_seq_gpu.hpp:429-501).
 
 A window batch is a *flat* buffer of archive rows plus per-window
 (start, len): the flat buffer is staged once even though consecutive
-sliding windows overlap.  One launch of the hand-written windowed-reduce
-kernel (ops/windowed_reduce.py) evaluates every window of the batch.
+sliding windows overlap.  For a builtin monoid one launch of the
+hand-written windowed-reduce kernel (ops/windowed_reduce.py) evaluates
+every window of the batch.  For a user window function
+(``TorchWindowFunction``, patterns/win_seq_gpu.py) the hand-written
+``window_gather`` kernel (ops/gather.py) expands each staged field into a
+masked ``(B, pad)`` tile, and the function runs over the tiles on the
+executor's device and stream: ``fn(keys, gwids, cols, mask)``.
 
 Differences from the JAX executor, each on purpose:
 
 * **No shape buckets.** XLA needs static shapes, so the JAX executor pads
   B, pad and N to powers of two (doubling the host-to-device copy at the
-  bench shape).  The kernel takes runtime sizes and masks its own tails.
+  bench shape).  The kernels take runtime sizes and mask their own tails.
+  A user function's tiles keep the JAX width, ``pad = _bucket(max len)``,
+  so it sees the same tile shape; ``B`` stays exact.
 * **Explicit dtype canonicalisation.** The JAX package runs without x64:
   ``jax.device_put`` turns float64 into float32 and int64 into int32.
   Here the same casts are written out (:func:`canonical_dtype`).
-* **Async protocol.** Host-to-device copies go through pinned staging
-  tensors with ``non_blocking=True``; results come back into pinned host
-  tensors; a ``torch.cuda.Event`` per launch takes the place of
-  ``copy_to_host_async``/``is_ready``.  Every pinned tensor of a launch
-  stays referenced in ``_inflight`` until its event has completed.
+* **Async protocol.** Every launch, copy and allocation runs on the
+  executor's own ``torch.cuda.Stream`` inside its device context (a user
+  function's torch ops included).  Host-to-device copies go through pinned
+  staging tensors with ``non_blocking=True``; results come back into
+  pinned host tensors; a ``torch.cuda.Event`` per launch takes the place
+  of ``copy_to_host_async``/``is_ready``.  Every tensor of a launch, pinned
+  or on the card, stays referenced in ``_inflight`` until its event has
+  completed.
 * **Dispatch by device.** A CUDA device launches the kernel; a CPU device
   (the tests) runs its plain version, synchronously.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
 import torch
 
+from .gather import window_gather
 from .windowed_reduce import windowed_reduce
 
 
@@ -59,23 +71,58 @@ def canonical_dtype(dtype: np.dtype) -> np.dtype:
                     f"{dtype}")
 
 
+_INT32_MIN, _INT32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def warn_id_range(keys: np.ndarray, gwids: np.ndarray) -> bool:
+    """The JAX package's range warning: keys and gwids reach a user window
+    function as int32 (``jax.device_put`` without x64), so values outside
+    the int32 range wrap.  Returns True when it warned."""
+    for name, a in (("keys", keys), ("gwids", gwids)):
+        a = np.asarray(a)
+        fits = (a.dtype.kind == "i" and a.dtype.itemsize <= 4) or \
+               (a.dtype.kind == "u" and a.dtype.itemsize <= 2)
+        if fits or not len(a):
+            continue  # provably within int32: skip the O(B) scan
+        mx, mn = int(a.max()), int(a.min())
+        if mx > _INT32_MAX or mn < _INT32_MIN:
+            bad = mx if mx > _INT32_MAX else mn
+            warnings.warn(
+                f"device path downcasts {name} to int32 and {bad} is out of "
+                "range; a window function reading them will see wrapped "
+                "values", stacklevel=4)
+            return True
+    return False
+
+
 class DeviceWindowExecutor:
-    """Launches batched window reductions with bounded asynchronous depth.
+    """Launches batched window evaluations with bounded asynchronous depth.
 
-    ``op`` is the builtin monoid (sum, count, min, max, prod) over the one
-    staged field in ``fields`` (none for count); results land in
-    ``out_fields`` cast to ``out_dtypes``, with ``empty_fill`` written over
-    empty windows."""
+    A builtin monoid: ``op`` (sum, count, min, max, prod) over the one
+    staged field in ``fields`` (none for count), by the windowed-reduce
+    kernel.  A user window function: ``fn(keys, gwids, cols, mask)``
+    (``op`` None) over the masked ``(B, pad)`` tiles of every field in
+    ``fields``, gathered by the window_gather kernel; it returns one
+    ``(B,)`` tensor or a tuple of them, one per ``out_fields`` entry.
+    Results land in ``out_fields`` cast to ``out_dtypes``, with
+    ``empty_fill`` written over empty windows (builtins only: a user
+    function answers empty windows itself, as in the JAX package)."""
 
-    def __init__(self, op: str, fields=("value",), out_fields=("value",),
+    def __init__(self, op=None, fields=("value",), out_fields=("value",),
                  device="cuda", depth: int = 4, compute_dtype=None,
-                 out_dtypes=None, empty_fill=None):
+                 out_dtypes=None, empty_fill=None, fn=None):
+        if (op is None) == (fn is None):
+            raise ValueError("pass exactly one of op (a builtin monoid) and "
+                             "fn (a user window function)")
         self.op = op
+        self.fn = fn
         self.fields = tuple(fields)
-        if len(self.fields) > 1:
+        if op is not None and len(self.fields) > 1:
             raise ValueError("a builtin reduction stages at most one field")
         self.out_fields = tuple(out_fields)
         self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.depth = depth
         self.compute_dtype = compute_dtype
         # result dtypes per out_field: harvest casts into them so that
@@ -89,6 +136,18 @@ class DeviceWindowExecutor:
         self._inflight = []
         self._ready = []     # harvested result batches (host)
         self._warned_downcast = False
+        self._warned_id_range = False
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The executor's device and stream as the current ones: kernels
+        launch, copies run, a user function's ops run and device tensors
+        are allocated on them."""
+        if self._stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
 
     def _stage_column(self, col: np.ndarray) -> np.ndarray:
         """Host-side cast of one value column to the kernel's dtype."""
@@ -107,48 +166,97 @@ class DeviceWindowExecutor:
         return col.astype(canonical_dtype(col.dtype), copy=False)
 
     def _to_device(self, host: np.ndarray):
-        """(device tensor, pinned staging tensor or None) for one array."""
+        """(device tensor, pinned staging tensor or None) for one array;
+        call on the executor's stream."""
         t = torch.from_numpy(np.ascontiguousarray(host))
-        if self.device.type != "cuda":
+        if self._stream is None:
             return t, None
         pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         pinned.copy_(t)
         return pinned.to(self.device, non_blocking=True), pinned
 
+    def _fetch(self, outs):
+        """Start the copies of `outs` into pinned host tensors; returns
+        (host tensors, event) — event None on the CPU."""
+        if self._stream is None:
+            return tuple(outs), None
+        hosts = []
+        for o in outs:
+            h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            h.copy_(o, non_blocking=True)
+            hosts.append(h)
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return tuple(hosts), event
+
     def launch(self, meta, flat_cols: dict, starts: np.ndarray,
-               lens: np.ndarray):
+               lens: np.ndarray, keys: np.ndarray = None,
+               gwids: np.ndarray = None):
         """Asynchronously evaluate one window batch.  `meta` is returned
-        with the results at harvest time (host-side result headers)."""
+        with the results at harvest time (host-side result headers);
+        `keys`/`gwids` (one per window) are what a user function reads."""
+        if self.fn is not None:
+            self._launch_fn(meta, flat_cols, starts, lens, keys, gwids)
+        else:
+            self._launch_op(meta, flat_cols, starts, lens)
+        while len(self._inflight) > self.depth:
+            self._harvest_one()
+
+    def _launch_op(self, meta, flat_cols, starts, lens):
         B = len(starts)
         pad = max(int(lens.max()) if B else 1, 1)
         if self.fields:
             flat = self._stage_column(flat_cols[self.fields[0]])
         else:
             flat = np.zeros(0, dtype=np.int32)   # count reads no values
-        d_flat, p_flat = self._to_device(flat)
         sl = np.stack([np.asarray(starts, dtype=np.int32),
                        np.asarray(lens, dtype=np.int32)])
-        d_sl, p_sl = self._to_device(sl)
-        out = windowed_reduce(d_flat, d_sl[0], d_sl[1], pad, self.op)
-        if self.device.type == "cuda":
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            keep = (p_flat, p_sl, d_flat, d_sl, out)
-        else:
-            host, event, keep = out, None, ()
+        with self._on_stream():
+            d_flat, p_flat = self._to_device(flat)
+            d_sl, p_sl = self._to_device(sl)
+            out = windowed_reduce(d_flat, d_sl[0], d_sl[1], pad, self.op)
+            hosts, event = self._fetch((out,))
         empty = lens == 0 if self.empty_fill and (lens == 0).any() else None
-        self._inflight.append((meta, B, empty, host, event, keep))
-        while len(self._inflight) > self.depth:
-            self._harvest_one()
+        self._inflight.append((meta, B, empty, hosts, event,
+                               (p_flat, p_sl, d_flat, d_sl, out)))
+
+    def _launch_fn(self, meta, flat_cols, starts, lens, keys, gwids):
+        B = len(starts)
+        # the JAX executor's tile width, so the function sees the same shape
+        pad = _bucket(int(lens.max()) if B else 1)
+        keys = np.zeros(B, np.int64) if keys is None else np.asarray(keys)
+        gwids = np.zeros(B, np.int64) if gwids is None else np.asarray(gwids)
+        if not self._warned_id_range:
+            self._warned_id_range = warn_id_range(keys, gwids)
+        cols = [self._stage_column(flat_cols[f]) for f in self.fields]
+        # starts, lens, keys, gwids: one int32 copy (keys and gwids wrap
+        # like the JAX package's int32 cast)
+        vec = np.stack([np.asarray(a).astype(np.int32)
+                        for a in (starts, lens, keys, gwids)])
+        with self._on_stream():
+            staged = [self._to_device(c) for c in cols]
+            d_vec, p_vec = self._to_device(vec)
+            if staged:
+                tiles, mask = window_gather([d[None, :] for d, _ in staged],
+                                            None, d_vec[0], d_vec[1], pad)
+            else:
+                tiles = ()
+                mask = (torch.arange(pad, device=self.device)[None, :]
+                        < d_vec[1][:, None])
+            out = self.fn(d_vec[2], d_vec[3], dict(zip(self.fields, tiles)),
+                          mask)
+            outs = out if isinstance(out, tuple) else (out,)
+            hosts, event = self._fetch(outs)
+        self._inflight.append((meta, B, None, hosts, event,
+                               (staged, d_vec, p_vec, tiles, mask, outs)))
 
     def _harvest_one(self):
-        meta, B, empty, host, event, _keep = self._inflight.pop(0)
+        meta, B, empty, hosts, event, _keep = self._inflight.pop(0)
         if event is not None:
             event.synchronize()
         cols = {}
-        for f, v in zip(self.out_fields, (host.numpy()[:B],)):
+        for f, h in zip(self.out_fields, hosts):
+            v = h.numpy()[:B]
             dt = self.out_dtypes.get(f)
             if dt is not None and v.dtype != dt:
                 v = v.astype(dt)

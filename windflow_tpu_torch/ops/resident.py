@@ -1,5 +1,6 @@
 """Device-resident window archives on a CUDA card — the port of
-``windflow_tpu/ops/resident.py`` (the single-ring executor).
+``windflow_tpu/ops/resident.py`` (the single-ring executor and the
+per-field one).
 
 Each stream row crosses the host-to-device copy once and window evaluation
 reads device memory:
@@ -13,6 +14,10 @@ reads device memory:
 * the fired windows are then evaluated over the ring: regular windows by
   the ``regular_window_sum`` kernel, windows given by explicit descriptors
   by the windowed-reduce kernel on the ring's flat view, once per op;
+* with several fields (:class:`MultiFieldResidentExecutor`) each field has
+  a ring of its own, each ``(op, field)`` stat reads its field's ring, and
+  a bound user window function reads masked ``(B, pad)`` tiles of its
+  fields that the ``window_gather`` kernel cuts from the rings;
 * results come back through pinned host tensors with bounded depth.
 
 The host side (``ResidentWinSeqCore`` in patterns/win_seq_gpu.py, or the
@@ -49,6 +54,7 @@ import torch
 
 from ..utils import profile
 from .device import _bucket
+from .gather import window_gather
 from .ring import regular_window_sum, ring_append
 from .windowed_reduce import windowed_reduce
 
@@ -253,29 +259,47 @@ class ResidentWindowExecutor:
 
     # ---------------------------------------------------- checkpoint/restore
 
+    # the ring accessors the checkpoint methods below share with the
+    # per-field executor, which overrides them
+
+    def _rings_tuple(self):
+        """Current ring tensor(s) as a tuple, or None if lazily unbuilt."""
+        return None if self._ring is None else (self._ring,)
+
+    def _rings_assign(self, rings):
+        self._ring = None if rings is None else rings[0]
+
+    def _ring_dtypes(self):
+        """Accumulate dtype of each ring, in _rings_tuple order."""
+        return (self.acc_dtype,)
+
     def ring_snapshot(self) -> RingSnapshot:
-        """Consistent copy of the ring (the caller must have drained the
+        """Consistent copy of the ring(s) (the caller must have drained the
         in-flight launches first — their appends are already in the ring,
         but their undelivered results would be lost)."""
         if self._inflight:
             raise RuntimeError("ring_snapshot with launches in flight; "
                                "drain() first")
-        if self._ring is None:
+        rings = self._rings_tuple()
+        if rings is None:
             return RingSnapshot(None, self.KP, self.cap)
         if self._stream is None:
-            return RingSnapshot((self._ring.clone(),), self.KP, self.cap)
+            return RingSnapshot(tuple(r.clone() for r in rings), self.KP,
+                                self.cap)
         with self._on_stream():
-            host = torch.empty(self._ring.shape, dtype=self._acc,
-                               pin_memory=True)
-            host.copy_(self._ring, non_blocking=True)
+            hosts = []
+            for r in rings:
+                host = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                host.copy_(r, non_blocking=True)
+                hosts.append(host)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return RingSnapshot((host,), self.KP, self.cap, event)
+        return RingSnapshot(tuple(hosts), self.KP, self.cap, event)
 
     def ring_restore(self, snap):
         """Reinstate a snapshot (RingSnapshot or its resolved dict) and
-        clear the launch queue.  The ring is copied in: later appends never
-        write into the snapshot's arrays."""
+        clear the launch queue.  The rings are copied in: later appends
+        never write into the snapshot's arrays."""
         data = snap.resolve() if isinstance(snap, RingSnapshot) else snap
         self._inflight.clear()
         self._ready = []
@@ -283,23 +307,28 @@ class ResidentWindowExecutor:
         self.cap = int(data["cap"])
         rings = data["rings"]
         if rings is None:
-            self._ring = None
+            self._rings_assign(None)
             return
-        ring = np.asarray(rings[0])
-        if ring.dtype != self.acc_dtype or ring.shape != (self.KP, self.cap):
+        rings = tuple(np.asarray(r) for r in rings)
+        want = self._ring_dtypes()
+        if len(rings) != len(want) or any(
+                r.dtype != dt or r.shape != (self.KP, self.cap)
+                for r, dt in zip(rings, want)):
             raise ValueError(
-                f"snapshot ring is {ring.dtype} {ring.shape}, the executor "
-                f"expects {self.acc_dtype} ({self.KP}, {self.cap})")
+                f"snapshot rings are {[(r.dtype, r.shape) for r in rings]}, "
+                f"the executor expects {list(want)} x ({self.KP}, "
+                f"{self.cap})")
         with self._on_stream():
-            self._ring = torch.tensor(ring, device=self.device)
+            self._rings_assign(tuple(torch.tensor(r, device=self.device)
+                                     for r in rings))
 
     def invalidate(self):
-        """Drop the ring and launch queue entirely: the owning core's next
-        flush rebases, rebuilding the ring from host-live archive rows (the
-        no-ring-snapshot restore path)."""
+        """Drop the ring(s) and launch queue entirely: the owning core's
+        next flush rebases, rebuilding the ring from host-live archive rows
+        (the no-ring-snapshot restore path)."""
         self._inflight.clear()
         self._ready = []
-        self._ring = None
+        self._rings_assign(None)
         self.KP = 0
         self.cap = 0
 
@@ -362,10 +391,7 @@ class ResidentWindowExecutor:
         K, R = blk.shape
         if K > self.KP:
             raise ValueError("rectangle exceeds ring rows; reset() first")
-        if self.KP * self.cap >= 2 ** 31:
-            raise ValueError(
-                f"ring of {self.KP} x {self.cap} cells: the flat-view window "
-                "starts are int32 and need KP * cap < 2**31")
+        self._check_flat_view()
         B = len(wstarts)
         Rb = _bucket(max(R, 1))
         _check_ring_overflow(offs, Rb, self.cap)
@@ -398,6 +424,12 @@ class ResidentWindowExecutor:
                                time.perf_counter()))
         while len(self._inflight) > self.depth:
             self._harvest_one()
+
+    def _check_flat_view(self):
+        if self.KP * self.cap >= 2 ** 31:
+            raise ValueError(
+                f"ring of {self.KP} x {self.cap} cells: the flat-view window "
+                "starts are int32 and need KP * cap < 2**31")
 
     def launch_regular(self, meta, blk: np.ndarray, offs: np.ndarray,
                        rcount: np.ndarray, rstart0: np.ndarray,
@@ -507,6 +539,165 @@ class ResidentWindowExecutor:
             self._harvest_one()
         ready, self._ready = self._ready, []
         return ready
+
+
+class MultiFieldResidentExecutor(ResidentWindowExecutor):
+    """Resident launch queue with one ring PER FIELD — the port of the JAX
+    package's ``MultiFieldResidentExecutor`` and of its jitted step
+    ``_make_multi_step`` (windflow_tpu/ops/resident.py:599-781).
+
+    ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod),
+    each by the windowed-reduce kernel on its field's ring's flat view;
+    ``fn``: an optional ``TorchWindowFunction`` whose ``fn(keys, gwids,
+    cols, mask)`` runs over ``(B, pad)`` tiles of its fields, cut from the
+    rings by the window_gather kernel; ``acc_dtypes`` maps every field to
+    its ring dtype, int32 or float32 (the ring kernels have no other).
+    One launch appends every field's rectangle (``ring_append`` per ring)
+    and evaluates the windows; its outputs are the stats' in ``stats``
+    order, then the function's."""
+
+    def __init__(self, fields, stats=(), fn=None, acc_dtypes=None,
+                 device=None, depth: int = 8):
+        self.fields = tuple(fields)
+        if not self.fields:
+            raise ValueError("need at least one ring field")
+        self.stats = tuple(stats)
+        self.fn = fn
+        for op, f in self.stats:
+            if op not in _REDUCE_OPS:
+                raise ValueError(f"unsupported resident op {op!r}")
+            if f not in self.fields:
+                raise ValueError(f"stat field {f!r} not in ring fields")
+        if fn is not None:
+            for f in fn.fields:
+                if f not in self.fields:
+                    raise ValueError(f"fn field {f!r} not in ring fields")
+        if not self.stats and fn is None:
+            raise ValueError("nothing to evaluate")
+        self.acc_dtypes = {f: np.dtype(acc_dtypes[f]) for f in self.fields}
+        for f, dt in self.acc_dtypes.items():
+            if dt not in _TORCH_ACC:
+                raise ValueError(
+                    f"ring dtype {dt} for field {f!r}: the ring kernels "
+                    "accumulate in int32 or float32 only (no 64-bit ring)")
+        self.device = _resolve_device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self.depth = depth
+        self.cap = 0
+        self.KP = 0
+        self._rings = None
+        self._inflight = deque()
+        self._ready = []
+        self._svc = deque(maxlen=32)
+        self._svc_mean = 0.0
+
+    # the base class's regular-descriptor launch does not apply
+    single = False
+
+    def reset(self, n_keys: int, cap: int):
+        self.KP = _bucket(max(n_keys, 1))
+        self.cap = _bucket(max(cap, 16))
+        self._rings = None
+
+    def _rings_arr(self):
+        if self._rings is None:
+            self._rings = tuple(
+                torch.zeros((self.KP, self.cap),
+                            dtype=_TORCH_ACC[self.acc_dtypes[f]],
+                            device=self.device)
+                for f in self.fields)
+        return self._rings
+
+    def _rings_tuple(self):
+        return self._rings
+
+    def _rings_assign(self, rings):
+        self._rings = rings
+
+    def _ring_dtypes(self):
+        return tuple(self.acc_dtypes[f] for f in self.fields)
+
+    def narrow_for(self, field, vals: np.ndarray) -> np.dtype:
+        """Per-field wire narrowing (the base class's ladder, bounded by
+        that field's ring dtype).  A float column headed into an integer
+        ring raises instead of truncating."""
+        acc = self.acc_dtypes[field]
+        if len(vals) and vals.dtype.kind == "f" and acc.kind != "f":
+            raise ValueError(
+                f"float column {field!r} headed into a {acc} ring would "
+                "silently truncate — declare a float ring dtype "
+                f"(TorchWindowFunction(field_dtypes={{{field!r}: "
+                "np.float32}}))")
+        if acc.kind == "f":
+            return np.dtype(np.float32)
+        return self.narrow(vals)
+
+    def launch(self, meta, blks: dict, offs: np.ndarray,
+               wrows: np.ndarray, wstarts: np.ndarray, wlens: np.ndarray,
+               wkeys: np.ndarray = None, wgwids: np.ndarray = None):
+        """One dispatch: per-field rectangles `blks[f]` (K, R) append at
+        `offs`, then every stat and the window function evaluate the
+        described windows.  `wkeys`/`wgwids` (int64, one per window) are
+        what the function reads (zeros when not given)."""
+        K, R = next(iter(blks.values())).shape
+        if K > self.KP:
+            raise ValueError("rectangle exceeds ring rows; reset() first")
+        self._check_flat_view()
+        B = len(wstarts)
+        Rb = _bucket(max(R, 1))
+        _check_ring_overflow(offs, Rb, self.cap)
+        pad = _bucket(int(wlens.max()) if B else 1)
+        KP, fn = self.KP, self.fn
+        with profile.span("device_put"):
+            blkps = [self._stage_block(blks[f], Rb) for f in self.fields]
+            # per-key offsets; the windows' flat-view starts and lens; with
+            # a function also rows, starts, keys and gwids (int32: keys and
+            # gwids wrap as the JAX package's int32 cast does)
+            vec = np.zeros(KP + (6 if fn is not None else 2) * B,
+                           dtype=np.int32)
+            vec[:len(offs)] = offs
+            rows = np.asarray(wrows, dtype=np.int64)
+            starts = np.asarray(wstarts, dtype=np.int64)
+            vec[KP:KP + B] = rows * self.cap + starts
+            vec[KP + B:KP + 2 * B] = wlens
+            if fn is not None:
+                for i, a in enumerate((rows, starts, wkeys, wgwids)):
+                    if a is not None and B:
+                        o = KP + (2 + i) * B
+                        vec[o:o + B] = np.asarray(a).astype(np.int32)
+            with self._on_stream():
+                d_blks = [self._to_device(b) for b in blkps]
+                d_vec, p_vec = self._to_device(vec)
+        for f in self.fields:
+            profile.add("bytes_shipped", blks[f].nbytes)
+            profile.add("rows_shipped", blks[f].size)
+        profile.add("windows", B)
+        tiles = mask = None
+        with profile.span("dispatch"), self._on_stream():
+            rings = tuple(ring_append(r, d, d_vec[:KP])
+                          for r, (d, _p) in zip(self._rings_arr(), d_blks))
+            ring_of = dict(zip(self.fields, rings))
+            flat_starts = d_vec[KP:KP + B]
+            lens = d_vec[KP + B:KP + 2 * B]
+            outs = [windowed_reduce(ring_of[f].view(-1), flat_starts, lens,
+                                    pad, op) for op, f in self.stats]
+            if fn is not None:
+                d_rows, d_starts, d_keys, d_gwids = (
+                    d_vec[KP + i * B:KP + (i + 1) * B] for i in range(2, 6))
+                tiles, mask = window_gather(
+                    [ring_of[f] for f in fn.fields], d_rows, d_starts, lens,
+                    pad)
+                res = fn.fn(d_keys, d_gwids, dict(zip(fn.fields, tiles)),
+                            mask)
+                outs.extend(res if isinstance(res, tuple) else (res,))
+            hosts, event = self._fetch(outs)
+        stats_add("dispatches")
+        self._inflight.append((meta, B, hosts, event,
+                               (p_vec, d_vec, d_blks, tiles, mask, outs),
+                               time.perf_counter()))
+        while len(self._inflight) > self.depth:
+            self._harvest_one()
 
 
 def prewarm_regular_ladder(mults=(2, 4, 8, 16), devices=None,

@@ -5,12 +5,13 @@ Same contract as ``ResidentWinSeqCore`` (process/flush producing result
 batches), but the per-row window bookkeeping and staging-rectangle assembly
 run in ``native/wf_native.cpp`` with the GIL released — the C++ hot loop the
 reference runs per tuple (win_seq.hpp:268-474), feeding the torch
-``ResidentWindowExecutor`` and its ring kernels.  Falls back to the
-pure-Python core transparently when the payload field is not int64 (the
-native ABI ships one int64 column).  The port binds the same
+``ResidentWindowExecutor`` and its ring kernels — or, with several device
+stats (``_multi``), one narrowed int64 column per field into the torch
+``MultiFieldResidentExecutor``'s per-field rings.  Falls back to the
+pure-Python core transparently when a payload field is not int64 (the
+native ABI ships int64 columns).  The port binds the same
 ``native/libwfnative.so`` as the JAX package, so state blobs carry across
-as bytes.  Several device stats (per-field rings) and meshes are later
-slices and raise ``NotImplementedError``.
+as bytes.  Meshes are a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ from ..ops import resident as _res
 from ..ops.device import _bucket
 from ..ops.functions import MultiReducer, Reducer
 from ..utils import profile
-from .win_seq_gpu import (_MESH_SLICE, _MULTI_FIELD_SLICE,
-                          ResidentWinSeqCore, finalize_window_values,
+from .win_seq_gpu import (_MESH_SLICE, ResidentWinSeqCore,
+                          finalize_window_values,
                           resolve_worker_device, select_acc_dtype,
                           split_pos_max)
 
@@ -135,16 +136,14 @@ class NativeResidentCore:
             # counts come from window lengths and MAX/MIN over the position
             # field from the C++ archive's per-window last/first row — e.g.
             # COUNT + MAX(ts) + SUM(revenue) ships only revenue while the
-            # whole hot loop stays in C++
+            # whole hot loop stays in C++.  Remaining device stats stage one
+            # int64 column per distinct field (wf_max_fields(), 4) into
+            # per-field device rings (MultiFieldResidentExecutor)
             dev, pos = split_pos_max(spec, reducer)
             if not dev:
                 raise TypeError(
                     "native resident core needs >=1 device-worthy stat "
                     "after the pos-max split")
-            if len(dev) > 1:
-                # the JAX package stages one column per field into
-                # per-field rings here (MultiFieldResidentExecutor)
-                raise NotImplementedError(_MULTI_FIELD_SLICE)
             self._dev_parts = dev
             self._pos_max_parts = pos
             self._count_parts = reducer.count_parts
@@ -156,7 +155,22 @@ class NativeResidentCore:
             raise TypeError("native resident core needs a builtin "
                             "(Multi)Reducer")
         self._dev_part = self._dev_parts[0]
-        self._ship_fields = (self._dev_part.field,)
+        self._ship_fields = tuple(dict.fromkeys(
+            p.field for p in self._dev_parts))
+        #: >1 device stat (several fields, or several ops over one field):
+        #: per-field rings via MultiFieldResidentExecutor; the single-stat
+        #: path keeps its regular-descriptor compression
+        self._multi = len(self._dev_parts) > 1
+        max_fields = int(self._lib.wf_max_fields())
+        if len(self._ship_fields) > max_fields:
+            raise TypeError(
+                f"native resident core stages at most {max_fields} "
+                f"payload columns (got fields {self._ship_fields})")
+        if self._multi and any(np.issubdtype(p.dtype, np.floating)
+                               for p in self._dev_parts):
+            raise TypeError(
+                "native multi-field staging ships int64 columns; float "
+                "stats run on the Python resident core")
         self.spec = spec
         self.reducer = reducer
         self.field = self._dev_part.field
@@ -179,6 +193,18 @@ class NativeResidentCore:
                             else max_delay_ms / 1e3)
         self._last_flush_t = None
         acc = select_acc_dtype(self._dev_part, compute_dtype, spec)
+        #: per-field ring dtypes for the multi path (same rules as
+        #: ResidentWinSeqCore: widest acc per field, consistent kind)
+        self._acc_by_field = {}
+        for p in self._dev_parts:
+            a = select_acc_dtype(p, compute_dtype, spec)
+            prev = self._acc_by_field.get(p.field)
+            if prev is not None and prev.kind != a.kind:
+                raise ValueError(
+                    f"stats over field {p.field!r} disagree on "
+                    f"accumulate kind ({prev} vs {a})")
+            if prev is None or a.itemsize > prev.itemsize:
+                self._acc_by_field[p.field] = a
         # key-sharded multithreading: shard t owns keys with
         # mix64(key) %% S == t (a hash decorrelated from the farm routing
         # modulus — see wf_native.cpp), each with an independent sub-core,
@@ -191,13 +217,24 @@ class NativeResidentCore:
         # *byte* array (wf_native.cpp:wf_cores_process_mt), so ids beyond
         # u8 would alias and double-process rows
         self.shards = max(min(int(shards), 256), 1)
-        self.executors = [
-            _res.ResidentWindowExecutor(
-                self._dev_part.op,
-                device=resolve_worker_device(
-                    device, worker_index * self.shards + t),
-                depth=depth, acc_dtype=acc)
-            for t in range(self.shards)]
+        if self._multi:
+            stats = tuple((p.op, p.field) for p in self._dev_parts)
+            self.executors = [
+                _res.MultiFieldResidentExecutor(
+                    self._ship_fields, stats=stats,
+                    acc_dtypes=self._acc_by_field,
+                    device=resolve_worker_device(
+                        device, worker_index * self.shards + t),
+                    depth=depth)
+                for t in range(self.shards)]
+        else:
+            self.executors = [
+                _res.ResidentWindowExecutor(
+                    self._dev_part.op,
+                    device=resolve_worker_device(
+                        device, worker_index * self.shards + t),
+                    depth=depth, acc_dtype=acc)
+                for t in range(self.shards)]
         self.executor = self.executors[0]
         self._batch_len = int(batch_len)
         # widest wire dtype code the C++ flush may narrow to: int32 (the
@@ -270,8 +307,8 @@ class NativeResidentCore:
         #: stops pathological padded rectangles (one hot key at huge
         #: flush_rows) from blowing host memory; must admit a full
         #: ladder-deep merge of benchmark-shaped launches (16x of a
-        #: 2^19-row flush = 2^23 cells)
-        self._coalesce_cells = 1 << 24
+        #: 2^19-row flush = 2^23 cells), shared by the staged fields
+        self._coalesce_cells = (1 << 24) // max(len(self._ship_fields), 1)
         if self._overlap:
             self._start_ship_threads()
 
@@ -292,6 +329,20 @@ class NativeResidentCore:
             for h in self._hs:
                 self._lib.wf_core_set_flush_rows(
                     h, self._flush_base * self._flush_mult)
+        if self._multi:
+            # per-field widest wire dtype (ship_fields order), int32: the
+            # C++ flush narrows each column independently against its ring
+            mw = (ctypes.c_int * len(self._ship_fields))(
+                *[2] * len(self._ship_fields))
+            for h in self._hs:
+                got = self._lib.wf_core_set_fields(
+                    h, len(self._ship_fields), mw)
+                if got != len(self._ship_fields):
+                    # a short accept would leave the missing columns'
+                    # rectangles uninitialized at take time — refuse
+                    raise TypeError(
+                        f"native core accepted {got} fields, "
+                        f"need {len(self._ship_fields)}")
         self._harr = (ctypes.c_void_p * self.shards)(*self._hs)
 
     def _start_ship_threads(self):
@@ -383,6 +434,9 @@ class NativeResidentCore:
             self._offsets = (batch.dtype.itemsize, f["key"][1], f["id"][1],
                              f["ts"][1], f[MARKER_FIELD][1],
                              f[self._ship_fields[0]][1])
+            #: payload-column offsets, ship_fields order (the _f ABI)
+            self._voffs = np.array([f[fl][1] for fl in self._ship_fields],
+                                   dtype=np.int64)
         return self._offsets
 
     # ------------------------------------------------------------ streaming
@@ -701,9 +755,16 @@ class NativeResidentCore:
         if b is not None:
             itemsize, o_key, o_id, o_ts, o_mk, o_val = self._offsets
             with profile.span("native_bookkeeping"):
-                launched = self._lib.wf_cores_process_mt(
-                    self._harr, self.shards, b.ctypes.data, len(b),
-                    itemsize, o_key, o_id, o_ts, o_mk, o_val)
+                if self._multi:
+                    from ..native import p_i64
+                    launched = self._lib.wf_cores_process_mt_f(
+                        self._harr, self.shards, b.ctypes.data, len(b),
+                        itemsize, o_key, o_id, o_ts, o_mk,
+                        self._voffs.ctypes.data_as(p_i64))
+                else:
+                    launched = self._lib.wf_cores_process_mt(
+                        self._harr, self.shards, b.ctypes.data, len(b),
+                        itemsize, o_key, o_id, o_ts, o_mk, o_val)
         if self.max_delay_s is not None:
             now = time.monotonic()
             if self._last_flush_t is None or launched:
@@ -843,10 +904,19 @@ class NativeResidentCore:
                                   ctypes.byref(cap)):
             return False
         K, R, B = K.value, R.value, B.value
-        # allocate the device-ready zero-padded rectangle and let the
-        # C++ take fill it directly (no _pad2 re-copy on this thread)
+        # allocate the device-ready zero-padded rectangle(s) and let the
+        # C++ take fill them directly (no _pad2 re-copy on this thread)
         KPp, Rb = KP.value, _bucket(max(R, 1))
-        blk = np.empty((KPp, Rb), dtype=_WIRE_DTYPES[wire.value])
+        blks = blk = None
+        if self._multi:
+            # one rectangle per ship field, each in the per-field wire
+            # dtype the C++ flush narrowed that column to
+            wires = (ctypes.c_int * len(self._ship_fields))()
+            lib.wf_launch_peek_wires(handle, wires)
+            blks = {f: np.empty((KPp, Rb), dtype=_WIRE_DTYPES[wires[i]])
+                    for i, f in enumerate(self._ship_fields)}
+        else:
+            blk = np.empty((KPp, Rb), dtype=_WIRE_DTYPES[wire.value])
         offs = np.empty(K, dtype=np.int64)
         wrows = np.empty(max(B, 1), dtype=np.int32)
         hkey = np.empty(max(B, 1), dtype=np.int64)
@@ -863,7 +933,7 @@ class NativeResidentCore:
         p64 = ctypes.POINTER(ctypes.c_longlong)
         regular = False
         cmax = ctypes.c_longlong()
-        if (self._dev_part.op == "sum"
+        if (not self._multi and self._dev_part.op == "sum"
                 and lib.wf_launch_peek_regular(handle, ctypes.byref(cmax))):
             regular = True
             rcount = np.empty(K, dtype=np.int32)
@@ -883,20 +953,34 @@ class NativeResidentCore:
             wstarts_p = wstarts.ctypes.data_as(p32)
             wlens_p = wlens.ctypes.data_as(p32)
         with profile.span("launch_take"):
-            lib.wf_launch_take_padded(
-                handle, blk.ctypes.data_as(ctypes.c_void_p), KPp, Rb,
-                offs.ctypes.data_as(p64), wrows.ctypes.data_as(p32),
-                wstarts_p, wlens_p,
-                hkey.ctypes.data_as(p64), hid.ctypes.data_as(p64),
-                hts.ctypes.data_as(p64), hlen.ctypes.data_as(p64),
-                hpm.ctypes.data_as(p64) if hpm is not None else None,
-                hpmn.ctypes.data_as(p64) if hpmn is not None else None)
+            if self._multi:
+                ptrs = (ctypes.c_void_p * len(self._ship_fields))(
+                    *[b.ctypes.data for b in blks.values()])
+                lib.wf_launch_take_padded_f(
+                    handle, ptrs, KPp, Rb,
+                    offs.ctypes.data_as(p64), wrows.ctypes.data_as(p32),
+                    wstarts_p, wlens_p,
+                    hkey.ctypes.data_as(p64), hid.ctypes.data_as(p64),
+                    hts.ctypes.data_as(p64), hlen.ctypes.data_as(p64),
+                    hpm.ctypes.data_as(p64) if hpm is not None else None,
+                    hpmn.ctypes.data_as(p64) if hpmn is not None else None)
+            else:
+                lib.wf_launch_take_padded(
+                    handle, blk.ctypes.data_as(ctypes.c_void_p), KPp, Rb,
+                    offs.ctypes.data_as(p64), wrows.ctypes.data_as(p32),
+                    wstarts_p, wlens_p,
+                    hkey.ctypes.data_as(p64), hid.ctypes.data_as(p64),
+                    hts.ctypes.data_as(p64), hlen.ctypes.data_as(p64),
+                    hpm.ctypes.data_as(p64) if hpm is not None else None,
+                    hpmn.ctypes.data_as(p64) if hpmn is not None else None)
         if rebase.value:
             ex.reset(max(K, 1), cap.value)
         meta = (hkey[:B], hid[:B], hts[:B], hlen[:B],
                 hpm[:B] if hpm is not None else None,
                 hpmn[:B] if hpmn is not None else None)
-        if regular:
+        if self._multi:
+            ex.launch(meta, blks, offs, wrows[:B], wstarts[:B], wlens[:B])
+        elif regular:
             # per-key arithmetic descriptors instead of 3x B int32 arrays
             ex.launch_regular(meta, blk, offs, rcount, rstart0, rlen,
                               self.spec.slide_len, wrows[:B], widx[:B],
@@ -910,12 +994,15 @@ class NativeResidentCore:
             return np.zeros(0, dtype=self._result_dtype)
         outs = []
         for (hkey, hid, hts, hlen, hpm, hpmn), out in harvested:
-            res = np.zeros(len(out), dtype=self._result_dtype)
+            # multi executors return one array per stat (dev_parts
+            # order); the single path returns the stat array itself
+            arrs = out if isinstance(out, tuple) else (out,)
+            res = np.zeros(len(arrs[0]), dtype=self._result_dtype)
             res["key"] = hkey
             res["id"] = hid
             res["ts"] = hts
-            res[self.out_field] = finalize_window_values(self._dev_part, out,
-                                                         hlen)
+            for part, a in zip(self._dev_parts, arrs):
+                res[part.out_field] = finalize_window_values(part, a, hlen)
             for part in self._count_parts:
                 res[part.out_field] = hlen.astype(part.dtype)
             for part in self._pos_max_parts:

@@ -14,12 +14,15 @@ results are emitted in launch order, so per-key result order is preserved.
 
 Two device cores live here, as in the JAX package: the restaging core
 (``DeviceWinSeqCore``, the windowed-reduce kernel over each fired batch's
-archive segment) and the resident core (``ResidentWinSeqCore``: every row
-is copied once into a per-key ring on the card, ops/resident.py; the C++
-twin is patterns/native_core.py).  ``make_core_for`` routes between them
-and the host core with the JAX package's rules.  Per-field rings and user
-window functions, device farms and meshes are later slices (ROADMAP.md) and
-raise ``NotImplementedError`` naming them.
+archive segment, or a user window function over the window_gather
+kernel's tiles) and the resident core (``ResidentWinSeqCore``: every row
+is copied once into a per-key ring on the card, one ring per field when
+several fields ship, ops/resident.py; the C++ twin is
+patterns/native_core.py).  ``make_core_for`` routes between them and the
+host core with the JAX package's rules, and ``WinFarmGPU``/``KeyFarmGPU``
+are the host farms with device cores as workers.  Meshes (multi-GPU) and
+the two-stage device patterns are later slices (ROADMAP.md); meshes raise
+``NotImplementedError`` naming theirs.
 """
 
 from __future__ import annotations
@@ -34,12 +37,10 @@ from ..ops.device import DeviceWindowExecutor
 from ..ops.functions import MultiReducer, Reducer
 from ..runtime.node import RuntimeContext
 from .basic import _Pattern
+from .key_farm import KeyFarm
+from .win_farm import WinFarm
 from .win_seq import WinSeqNode
 
-_FN_SLICE = ("user window functions on the device path are ROADMAP.md "
-             "Queue 1 slice 3, not ported yet")
-_MULTI_FIELD_SLICE = ("per-field resident rings (stats over several fields) "
-                      "are ROADMAP.md Queue 1 slice 4, not ported yet")
 _MESH_SLICE = ("mesh execution: multi-GPU is ROADMAP.md Queue 1 slice 8, not "
                "ported yet")
 
@@ -66,15 +67,48 @@ def resolve_worker_device(device, i: int) -> torch.device:
     return torch.device(device)
 
 
+class TorchWindowFunction:
+    """User window function for the device path: ``fn(keys, gwids, cols,
+    mask) -> column(s)`` over a whole window batch in PyTorch — the port of
+    the JAX package's ``JaxWindowFunction`` and the reference's CUDA device
+    functor ``F(key, gwid, data, res, size, scratch)``
+    (win_seq_gpu.hpp:54-67).
+
+    The function runs on the executor's device, inside its CUDA stream.
+    ``keys`` and ``gwids`` are ``(B,)`` int32 tensors (the JAX package's
+    width without x64); ``cols[f]`` is a ``(B, pad)`` tensor of field
+    ``f`` in its device dtype (float32 or int32) with zeros past each
+    window's length; ``mask`` is the ``(B, pad)`` bool mask of real lanes.
+    It returns one ``(B,)`` tensor or a tuple of them, in
+    ``result_fields`` order; harvest casts each to its declared dtype.
+    ``field_dtypes`` types each field's ring on the resident path (default
+    int32; float columns need an explicit float32 there)."""
+
+    def __init__(self, fn, fields=("value",), result_fields=None,
+                 field_dtypes=None):
+        self.fn = fn
+        self.fields = tuple(fields)
+        self.result_fields = dict(result_fields or {"value": np.int64})
+        #: ring dtype per input field on the resident path (default int32;
+        #: float columns need an explicit float32 here — the ring is typed
+        #: at allocation, unlike the restaging path which stages whatever
+        #: dtype each launch carries)
+        self.field_dtypes = dict(field_dtypes or {})
+
+
 def _host_standin(winfunc):
     """Host-side function object carrying the result schema for the
     core/farm template plumbing (the device path never calls it)."""
     if isinstance(winfunc, (Reducer, MultiReducer)):
         return winfunc
+    if isinstance(winfunc, TorchWindowFunction):
+        r = Reducer("count")
+        r.result_fields = dict(winfunc.result_fields)
+        return r
     raise TypeError(
-        "the device path needs a builtin Reducer or MultiReducer (host "
-        "Python functions cannot be staged to the GPU — same restriction as "
-        f"the reference's __device__ functor contract; {_FN_SLICE})")
+        "the device path needs a builtin Reducer or a TorchWindowFunction "
+        "(host Python functions cannot be staged to the GPU — same "
+        "restriction as the reference's __device__ functor contract)")
 
 
 class _AsyncLaunchRecovery:
@@ -131,15 +165,23 @@ class DeviceWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                  map_indexes=(0, 1), result_ts_slide=None, device="cuda",
                  depth: int = 4, compute_dtype=None):
         host_fn = _host_standin(winfunc)
-        executor = DeviceWindowExecutor(
-            winfunc.op, fields=winfunc.required_fields,
-            out_fields=tuple(winfunc.result_fields),
-            device=device, depth=depth, compute_dtype=compute_dtype,
-            out_dtypes=winfunc.result_fields,
-            # empty windows must produce the host-path identity even
-            # though device compute may run in a narrower dtype
-            empty_fill={winfunc.out_field: winfunc._identity()})
-        self._stage_fields = tuple(winfunc.required_fields)
+        if isinstance(winfunc, TorchWindowFunction):
+            executor = DeviceWindowExecutor(
+                fn=winfunc.fn, fields=winfunc.fields,
+                out_fields=tuple(winfunc.result_fields),
+                device=device, depth=depth, compute_dtype=compute_dtype,
+                out_dtypes=winfunc.result_fields)
+            self._stage_fields = winfunc.fields
+        else:
+            executor = DeviceWindowExecutor(
+                winfunc.op, fields=winfunc.required_fields,
+                out_fields=tuple(winfunc.result_fields),
+                device=device, depth=depth, compute_dtype=compute_dtype,
+                out_dtypes=winfunc.result_fields,
+                # empty windows must produce the host-path identity even
+                # though device compute may run in a narrower dtype
+                empty_fill={winfunc.out_field: winfunc._identity()})
+            self._stage_fields = tuple(winfunc.required_fields)
         super().__init__(spec, host_fn, config=config, role=role,
                          map_indexes=map_indexes,
                          result_ts_slide=result_ts_slide)
@@ -168,7 +210,8 @@ class DeviceWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         rows = st.archive.rows[base:top]
         cols = {f: rows[f].copy() for f in self._stage_fields}
         self._segs.append((cols, (lo - base).astype(np.int64),
-                           (hi - lo).astype(np.int64)))
+                           (hi - lo).astype(np.int64),
+                           np.full(len(lwids), key, dtype=np.int64), gwids))
         self._hdr.append((key, ids, ts))
         self._pending += len(lwids)
         if not eos and len(lwids):
@@ -181,17 +224,20 @@ class DeviceWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         if not self._segs:
             return
         flat = {f: [] for f in self._stage_fields}
-        starts, lens = [], []
+        starts, lens, keys, gwids = [], [], [], []
         off = 0
-        for cols, s, l in self._segs:
+        for cols, s, l, k, g in self._segs:
             for f in self._stage_fields:
                 flat[f].append(cols[f])
             starts.append(s + off)
             lens.append(l)
+            keys.append(k)
+            gwids.append(g)
             off += len(next(iter(cols.values()))) if cols else 0
         flat = {f: np.concatenate(v) for f, v in flat.items()}
         self.executor.launch(list(self._hdr), flat, np.concatenate(starts),
-                             np.concatenate(lens))
+                             np.concatenate(lens), np.concatenate(keys),
+                             np.concatenate(gwids))
         self._segs, self._hdr, self._pending = [], [], 0
 
     # -- harvest ----------------------------------------------------------
@@ -339,8 +385,10 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
     * the host archive's purge is deferred to flush time so a rebase (ring
       compaction) can always rebuild the ring from host-live rows.
 
-    It serves a ``Reducer``, or a ``MultiReducer`` whose device stats share
-    one field (one ring, several ops).
+    It serves a ``Reducer``, a ``MultiReducer`` (stats over one field share
+    one ring; stats over several fields get one ring each,
+    ``MultiFieldResidentExecutor``) or a ``TorchWindowFunction`` (one ring
+    per input field, typed by its ``field_dtypes``).
     """
 
     #: control-plane live rescale declined (docs/CONTROL.md): a key's
@@ -354,11 +402,20 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                  result_ts_slide=None, device=None, depth: int = 8,
                  compute_dtype=None, worker_index: int = 0, mesh=None,
                  max_delay_ms=None):
-        from ..ops.resident import ResidentWindowExecutor
+        from ..ops.resident import (MultiFieldResidentExecutor,
+                                    ResidentWindowExecutor)
         if mesh is not None:
             raise NotImplementedError(_MESH_SLICE)
+        self._fn = None
         self._pos_max_parts = []
-        if isinstance(reducer, MultiReducer):
+        if isinstance(reducer, TorchWindowFunction):
+            # a batched torch window fn over device-resident rings — one
+            # ring per input field (win_seq_gpu.hpp:54-67's arbitrary
+            # functor over whole POD tuples, without per-fire restaging)
+            self._device_parts = []
+            self._count_parts = []
+            self._fn = reducer
+        elif isinstance(reducer, MultiReducer):
             # multi-stat: counts come free from window lengths, and MAX/MIN
             # over the POSITION field (ts for TB, id for CB) from the
             # position-ordered host archive — so e.g. COUNT + MAX(ts) +
@@ -375,37 +432,68 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                 raise ValueError(
                     "resident MultiReducer needs >=1 non-count stat "
                     "(use Reducer('count') for pure counts)")
-            if len({p.field for p in self._device_parts}) > 1:
-                raise NotImplementedError(_MULTI_FIELD_SLICE)
         elif isinstance(reducer, Reducer):
             self._device_parts = [reducer]
             self._count_parts = []
         else:
-            raise TypeError("resident device path needs a builtin Reducer "
-                            f"or MultiReducer; {_FN_SLICE}")
+            raise TypeError("resident device path needs a builtin Reducer, "
+                            "MultiReducer, or TorchWindowFunction")
+        fields = {p.field for p in self._device_parts}
+        field = (fields.pop() if self._fn is None and len(fields) == 1
+                 else None)
         host_fn = _host_standin(reducer)
         super().__init__(spec, host_fn, config=config, role=role,
                          map_indexes=map_indexes,
                          result_ts_slide=result_ts_slide)
         self.reducer = reducer
-        self.field = self._device_parts[0].field
-        self._ship_fields = (self.field,)
-        accs = [select_acc_dtype(p, compute_dtype, spec)
-                for p in self._device_parts]
-        if len({d.kind for d in accs}) > 1:
-            # one shared ring, one accumulate dtype: a float ring would
-            # silently round sibling integer sums (float32 spacing > 1
-            # above 2^24) — refuse instead
-            raise ValueError(
-                "multi-stat parts disagree on accumulate kind "
-                f"({sorted(str(a) for a in accs)}): split the stats or "
-                "pass an explicit compute_dtype")
-        acc = max(accs, key=lambda d: d.itemsize)
-        ops = tuple(p.op for p in self._device_parts)
-        self.executor = ResidentWindowExecutor(
-            ops[0] if len(ops) == 1 else ops,
-            device=resolve_worker_device(device, worker_index),
-            depth=depth, acc_dtype=acc)
+        self.field = field
+        if self._fn is not None:
+            self._ship_fields = tuple(self._fn.fields)
+        elif field is not None:
+            self._ship_fields = (field,)
+        else:
+            self._ship_fields = tuple(dict.fromkeys(
+                p.field for p in self._device_parts))
+        device = resolve_worker_device(device, worker_index)
+        if field is None:
+            # per-field ring dtypes: reducer parts pick theirs via
+            # select_acc_dtype; fn fields use the fn's declared
+            # field_dtypes (default int32)
+            acc_by_field = {}
+            for p in self._device_parts:
+                a = select_acc_dtype(p, compute_dtype, spec)
+                prev = acc_by_field.get(p.field)
+                if prev is not None and prev.kind != a.kind:
+                    raise ValueError(
+                        f"stats over field {p.field!r} disagree on "
+                        f"accumulate kind ({prev} vs {a})")
+                if prev is None or a.itemsize > prev.itemsize:
+                    acc_by_field[p.field] = a
+            if self._fn is not None:
+                for f in self._ship_fields:
+                    acc_by_field.setdefault(f, np.dtype(
+                        self._fn.field_dtypes.get(f, np.int32)))
+            self.executor = MultiFieldResidentExecutor(
+                self._ship_fields,
+                stats=tuple((p.op, p.field) for p in self._device_parts),
+                fn=self._fn, acc_dtypes=acc_by_field, device=device,
+                depth=depth)
+        else:
+            accs = [select_acc_dtype(p, compute_dtype, spec)
+                    for p in self._device_parts]
+            if len({d.kind for d in accs}) > 1:
+                # one shared ring, one accumulate dtype: a float ring would
+                # silently round sibling integer sums (float32 spacing > 1
+                # above 2^24) — refuse instead
+                raise ValueError(
+                    "multi-stat parts disagree on accumulate kind "
+                    f"({sorted(str(a) for a in accs)}): split the stats or "
+                    "pass an explicit compute_dtype")
+            acc = max(accs, key=lambda d: d.itemsize)
+            ops = tuple(p.op for p in self._device_parts)
+            self.executor = ResidentWindowExecutor(
+                ops[0] if len(ops) == 1 else ops, device=device,
+                depth=depth, acc_dtype=acc)
         self.batch_len = batch_len
         self.flush_rows = flush_rows
         # latency bound: ship pending windows/rows after this many ms even
@@ -418,9 +506,10 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         self._appended = {}   # key -> rows ever archived (abs row domain)
         self._launched = {}   # key -> rows already shipped to the ring
         self._base = {}       # key -> abs row index of ring column 0
-        self._pend_cols = {}  # key -> [column arrays not yet shipped]
+        #: field -> key -> [column arrays not yet shipped]
+        self._pend_cols = {f: {} for f in self._ship_fields}
         self._pend_rows = 0
-        self._wdesc = []      # (key, abs_lo array, len array)
+        self._wdesc = []      # (key, abs_lo array, len array, gwids)
         self._hdr = []        # (key, ids, ts, lens, pos extrema) per fire
         self._n_wins = 0
         self._purge_pos = {}  # key -> purge threshold deferred to flush
@@ -429,8 +518,9 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
 
     def _on_append(self, key, st, rows):
         self._rowmap.setdefault(key, len(self._rowmap))
-        self._pend_cols.setdefault(key, []).append(
-            np.asarray(rows[self.field]))
+        for f in self._ship_fields:
+            self._pend_cols[f].setdefault(key, []).append(
+                np.asarray(rows[f]))
         self._appended[key] = self._appended.get(key, 0) + len(rows)
         self._pend_rows += len(rows)
         if self._pend_rows >= self.flush_rows:
@@ -449,7 +539,8 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         hi = (np.full(len(lwids), len(p), dtype=np.int64) if eos
               else np.searchsorted(p, ends_abs, side="left"))
         live_start = self._appended.get(key, 0) - len(p)
-        self._wdesc.append((key, lo + live_start, (hi - lo).astype(np.int64)))
+        self._wdesc.append((key, lo + live_start, (hi - lo).astype(np.int64),
+                            gwids))
         if self._pos_max_parts and len(p):
             # MAX/MIN over the position field, free from the ordered
             # archive: the window's last row holds the max and its first
@@ -504,9 +595,10 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
             per_key_slack = max(self.flush_rows // max(K, 1), 64)
             ex.reset(K, _bucket(2 * maxlive + 2 * per_key_slack))
             R = maxlive
-            srcs = {key: ([np.asarray(self._keys[key].archive.rows[
-                self.field])] if key in self._keys else [])
-                for key in rowmap}
+            srcs = {f: {key: ([np.asarray(self._keys[key].archive.rows[f])]
+                              if key in self._keys else [])
+                        for key in rowmap}
+                    for f in self._ship_fields}
             for key in rowmap:
                 self._base[key] = self._appended.get(key, 0) - counts[key]
                 self._launched[key] = self._base[key]
@@ -519,32 +611,54 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
             offs = np.zeros(ex.KP, dtype=np.int64)
             for key, r in rowmap.items():
                 offs[r] = self._launched.get(key, 0) - self._base.get(key, 0)
-        # --- the rectangle in the narrowest wire dtype ---
-        arrays = [a for key in rowmap for a in srcs.get(key, []) if len(a)]
-        if arrays:
-            lo = min(a.min() for a in arrays)
-            hi = max(a.max() for a in arrays)
-            probe = np.array([lo, hi], dtype=arrays[0].dtype)
-        else:
-            probe = np.zeros(0, dtype=np.int64)
-        blk = np.zeros((K, max(R, 1)), dtype=ex.narrow(probe))
-        for key, r in rowmap.items():
-            c = 0
-            for a in srcs.get(key, []):
-                blk[r, c:c + len(a)] = a
-                c += len(a)
+        # --- per-field rectangles in the narrowest wire dtype ---
+        blks = {}
+        for f in self._ship_fields:
+            fsrcs = srcs[f]
+            arrays = [a for key in rowmap for a in fsrcs.get(key, [])
+                      if len(a)]
+            if arrays:
+                lo = min(a.min() for a in arrays)
+                hi = max(a.max() for a in arrays)
+                probe = np.array([lo, hi], dtype=arrays[0].dtype)
+            else:
+                probe = np.zeros(0, dtype=np.int64)
+            wire = (ex.narrow_for(f, probe) if self.field is None
+                    else ex.narrow(probe))
+            blk = np.zeros((K, max(R, 1)), dtype=wire)
+            for key, r in rowmap.items():
+                c = 0
+                for a in fsrcs.get(key, []):
+                    blk[r, c:c + len(a)] = a
+                    c += len(a)
+            blks[f] = blk
         # --- window descriptors in ring coordinates ---
         if self._wdesc:
             wrows = np.concatenate([
                 np.full(len(lens), rowmap[key], dtype=np.int64)
-                for key, _, lens in self._wdesc])
+                for key, _, lens, _g in self._wdesc])
             wstarts = np.concatenate([
                 abs_lo - self._base.get(key, 0)
-                for key, abs_lo, _l in self._wdesc])
-            wlens = np.concatenate([lens for _k, _a, lens in self._wdesc])
+                for key, abs_lo, _l, _g in self._wdesc])
+            wlens = np.concatenate([lens for _k, _a, lens, _g in self._wdesc])
         else:
             wrows = wstarts = wlens = np.zeros(0, dtype=np.int64)
-        ex.launch(self._hdr, blk, offs[:K], wrows, wstarts, wlens)
+        if self.field is None:
+            # per-field rings: every field's rectangle, plus the (keys,
+            # gwids) a window function reads
+            if self._fn is not None and self._wdesc:
+                wkeys = np.concatenate([
+                    np.full(len(lens), key, dtype=np.int64)
+                    for key, _a, lens, _g in self._wdesc])
+                wgwids = np.concatenate(
+                    [g for _k, _a, _l, g in self._wdesc]).astype(np.int64)
+            else:
+                wkeys = wgwids = None
+            ex.launch(self._hdr, blks, offs[:K], wrows, wstarts, wlens,
+                      wkeys=wkeys, wgwids=wgwids)
+        else:
+            ex.launch(self._hdr, blks[self.field], offs[:K], wrows, wstarts,
+                      wlens)
         # --- advance cursors, apply deferred purges ---
         for key in rowmap:
             self._launched[key] = self._appended.get(key, 0)
@@ -552,7 +666,7 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
             st = self._keys.get(key)
             if st is not None:
                 st.archive.purge_below(pos)
-        self._pend_cols = {}
+        self._pend_cols = {f: {} for f in self._ship_fields}
         self._pend_rows = 0
         self._wdesc, self._hdr, self._n_wins = [], [], 0
         self._purge_pos = {}
@@ -567,6 +681,8 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
 
     def _build_results(self, harvested):
         outs = []
+        fn_fields = (tuple(self._fn.result_fields.items())
+                     if self._fn is not None else ())
         for hdr, out in harvested:
             stat_arrs = out if isinstance(out, tuple) else (out,)
             off = 0
@@ -576,6 +692,11 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                 for p, arr in zip(self._device_parts, stat_arrs):
                     payload[p.out_field] = finalize_window_values(
                         p, arr[off:off + n], lens)
+                # a window function's outputs follow the stats' (the
+                # float32 checksum of a skyline becomes its float64 field)
+                for (name, dt), arr in zip(
+                        fn_fields, stat_arrs[len(self._device_parts):]):
+                    payload[name] = arr[off:off + n].astype(dt)
                 for p in self._count_parts:
                     payload[p.out_field] = lens.astype(p.dtype)
                 for p in self._pos_max_parts:
@@ -654,7 +775,7 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         self._in_dtype = snap["_in_dtype"]
         for a, v in snap["resident"].items():
             setattr(self, a, copy.deepcopy(v))
-        self._pend_cols = {}
+        self._pend_cols = {f: {} for f in self._ship_fields}
         self._pend_rows = 0
         self._wdesc, self._hdr, self._n_wins = [], [], 0
         self._purge_pos = {}
@@ -747,10 +868,13 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
     (win_seq_tpu.py:make_core_for): host-free aggregates go to the host
     core; builtin monoids the resident executor evaluates go to the
     resident core — the C++ ``NativeResidentCore`` when the native library
-    loads, else the Python ``ResidentWinSeqCore``; everything else, and any
-    Reducer with ``use_reduce_kernel=True``, goes to the restaging core.
-    A latency budget (``max_delay_ms``) under twice the best recently
-    measured launch service routes to the host core."""
+    loads (several integer stats over up to ``wf_max_fields()`` fields
+    included), else the Python ``ResidentWinSeqCore``; a
+    ``TorchWindowFunction`` goes to the resident core with
+    ``use_resident=True`` and to the restaging core by default; everything
+    else, and any Reducer with ``use_reduce_kernel=True``, goes to the
+    restaging core.  A latency budget (``max_delay_ms``) under twice the
+    best recently measured launch service routes to the host core."""
     def _host_core():
         from .win_seq import WinSeq
         return WinSeq(winfunc, spec.win_len, spec.slide_len,
@@ -804,16 +928,31 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                 "needs >=1 non-count stat, ops in "
                 f"{_RESIDENT_OPS}, no float sum (got {winfunc.parts})")
         dev_parts, _pos = split_pos_max(spec, winfunc)
-        if _native_core_lib() is not None and len(dev_parts) == 1:
-            # the C++ core carries the whole hot loop; counts and position
-            # extrema come from its archive, one column ships
+        nat = _native_core_lib()
+        if (nat is not None and dev_parts
+                # dev_parts empty = a fully pos-free aggregate forced onto
+                # the device: only the Python core ships the position
+                # column for that shape
+                and (len(dev_parts) == 1
+                     or (len({p.field for p in dev_parts})
+                         <= int(nat.wf_max_fields())
+                         and not any(np.issubdtype(p.dtype, np.floating)
+                                     for p in dev_parts)))):
+            # the C++ core carries the whole hot loop: counts and position
+            # extrema come from its archive, and the device stats stage one
+            # narrowed column per distinct field into per-field rings (one
+            # column, one ring, for a single stat); float stats keep the
+            # Python core
             from .native_core import NativeResidentCore
             return NativeResidentCore(spec, winfunc, shards=shards,
                                       **resident_kw)
-        # several device stats: the JAX package hands them to the C++ core's
-        # per-field rings (slice 4); until then the Python core evaluates
-        # stats over ONE field on one shared ring, and refuses several
-        # fields
+        return ResidentWinSeqCore(spec, winfunc, **resident_kw)
+    if (isinstance(winfunc, TorchWindowFunction) and use_resident
+            and not use_reduce_kernel):
+        # window functions evaluate over per-field resident rings on
+        # request; the default stays the restaging executor, whose staged
+        # columns carry each launch's exact dtypes (rings are typed at
+        # allocation — TorchWindowFunction.field_dtypes declares them)
         return ResidentWinSeqCore(spec, winfunc, **resident_kw)
     resident = use_resident
     if resident is None:
@@ -836,6 +975,18 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
         device=resolve_worker_device(device, worker_index),
         depth=depth if depth is not None else 4,
         compute_dtype=compute_dtype)
+
+
+class _DeviceCoreFactory:
+    """Mixin for farm variants whose workers are device-batched: the host
+    farm builds its prototype workers, `_make_core` swaps in the device
+    core (set `_raw_fn` and `_dev_kw` before calling the farm ctor).
+    Worker *i*'s executor lands on ``resolve_worker_device(device, i)``,
+    so a pardegree-n farm on an n-card host owns one card per worker; on
+    one card each worker has its own executor and CUDA stream."""
+
+    def _make_core(self, worker, i=0):
+        return make_device_core(worker, self._raw_fn, self._dev_kw, index=i)
 
 
 class WinSeqGPU(_Pattern):
@@ -881,3 +1032,45 @@ class WinSeqGPU(_Pattern):
         node = WinSeqNode(self.make_core(), f"{self.name}.{i}")
         node.ctx = RuntimeContext(1, 0, self.name)
         return node
+
+
+class WinFarmGPU(_DeviceCoreFactory, WinFarm):
+    """Win_Farm of device-batched window cores — the reference's
+    Win_Farm_GPU (win_farm_gpu.hpp:132-168: the CPU farm's emitter and
+    collector, device workers)."""
+
+    def __init__(self, winfunc, win_len, slide_len, win_type=WinType.CB,
+                 pardegree=2, batch_len=512, name="win_farm_gpu",
+                 ordered=True, n_emitters=1, config=None, role=Role.SEQ,
+                 device=None, depth=None, use_reduce_kernel=False,
+                 compute_dtype=None, use_resident=None, flush_rows=1 << 20,
+                 max_delay_ms=None):
+        self._raw_fn = winfunc
+        self._dev_kw = dict(batch_len=batch_len, device=device, depth=depth,
+                            use_reduce_kernel=use_reduce_kernel,
+                            compute_dtype=compute_dtype,
+                            use_resident=use_resident, flush_rows=flush_rows,
+                            max_delay_ms=max_delay_ms)
+        super().__init__(_host_standin(winfunc), win_len, slide_len, win_type,
+                         pardegree=pardegree, name=name, ordered=ordered,
+                         n_emitters=n_emitters, config=config, role=role)
+
+
+class KeyFarmGPU(_DeviceCoreFactory, KeyFarm):
+    """Key_Farm of device-batched window cores (key_farm_gpu.hpp:151-161):
+    each worker keeps its keys resident on its own card."""
+
+    def __init__(self, winfunc, win_len, slide_len, win_type=WinType.CB,
+                 pardegree=2, batch_len=512, name="key_farm_gpu",
+                 routing=None, config=None, role=Role.SEQ, device=None,
+                 depth=None, use_reduce_kernel=False, compute_dtype=None,
+                 use_resident=None, flush_rows=1 << 20, max_delay_ms=None):
+        self._raw_fn = winfunc
+        self._dev_kw = dict(batch_len=batch_len, device=device, depth=depth,
+                            use_reduce_kernel=use_reduce_kernel,
+                            compute_dtype=compute_dtype,
+                            use_resident=use_resident, flush_rows=flush_rows,
+                            max_delay_ms=max_delay_ms)
+        super().__init__(_host_standin(winfunc), win_len, slide_len, win_type,
+                         pardegree=pardegree, name=name, routing=routing,
+                         config=config, role=role)

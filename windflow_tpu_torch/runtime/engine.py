@@ -352,6 +352,20 @@ def _make_inbox(capacity: int, failed: threading.Event,
     return Inbox(capacity, failed, policy)
 
 
+def refuse_unported_layers(owner: str, check, control, trace, federate):
+    """The static checker, the control plane, span tracing and telemetry
+    federation are not in the port yet (ROADMAP.md Queue 1 item 9): refuse
+    their knobs instead of running without them."""
+    for opt, on in (("check", check not in (None, "off")),
+                    ("control", control is not None),
+                    ("trace", bool(trace)),
+                    ("federate", bool(federate))):
+        if on:
+            raise NotImplementedError(
+                f"{owner}({opt}=...) is not ported to windflow_tpu_torch "
+                "yet (ROADMAP.md Queue 1 item 9)")
+
+
 class Dataflow:
     """A graph of nodes executed by one thread per node
     (MultiPipe::run_and_wait_end spawns cardinality()-1 threads,
@@ -403,17 +417,7 @@ class Dataflow:
         if check not in self.CHECK_MODES:
             raise ValueError(f"check= wants one of {self.CHECK_MODES}, "
                              f"got {check!r}")
-        # the static checker, the control plane, span tracing and
-        # telemetry federation are not in the port yet (ROADMAP.md
-        # Queue 1 item 9): refuse them instead of running without them
-        for opt, on in (("check", check not in (None, "off")),
-                        ("control", control is not None),
-                        ("trace", bool(trace)),
-                        ("federate", bool(federate))):
-            if on:
-                raise NotImplementedError(
-                    f"Dataflow({opt}=...) is not ported to "
-                    "windflow_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+        refuse_unported_layers("Dataflow", check, control, trace, federate)
         self.control = control
         self._controller = None
         #: rescalable-farm registry stamped by runtime/farm.py at wiring
