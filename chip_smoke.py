@@ -40,13 +40,17 @@ catches its own failure):
    the host core;
 8. gather_kernel: window_gather against its plain version at the spatial
    shape (256 windows, pad 4096, two float32 rings of 8 x 4M cells, the
-   rings the spatial run allocates) and on int32 rings, and at edge cases
-   (length 0, starts whose start + pad passes the ring's end, B = 1, the
-   restaging one-row form); with timings;
+   rings the spatial run allocates: one launch) and on int32 rings, at
+   pad 4093 (rows not 16-byte aligned), with 9 fields of mixed int32 and
+   float32 (two launches), and at edge cases (length 0, starts whose
+   start + pad passes the ring's end, B = 1, the restaging one-row form,
+   odd pads); with timings;
 9. skyline_kernel: skyline_windows against its plain version at 256
    windows of ~4,000 points (pad 4096) on the 1/256 grid (sizes and
-   checksums exact), and at edge cases (all lanes masked, n = 1, duplicate
-   points, ties on one axis, a mask with holes, unquantised coordinates:
+   checksums exact, two launches bitwise equal), and at edge cases (all
+   lanes masked, n = 1, duplicate points, ties on one axis, a mask with
+   holes, an odd pad, NaN and +-inf coordinates, pads 16384 and 32768
+   (the second above the shared-memory budget), unquantised coordinates:
    sizes exact, checksums within rtol 1e-5); with timings;
 10. spatial_resident: the spatial skyline (spatial_test wf-gpu's shape:
    TB window 4,000 points, slide 1,000, one key, pardegree 2, batch_len
@@ -54,8 +58,9 @@ catches its own failure):
    WinFarmGPU(device_skyline(), ..., use_resident=True): every window's
    (size, checksum) against a numpy sort-and-sweep oracle, a prefix of the
    windows byte for byte against the port's host WinSeq(SkylineWindow()),
-   and the launch counts of ring_append, window_gather and skyline_windows
-   in that run;
+   and the launch counts in that run: exactly 8 ring_append (2 rings x 2
+   launches x 2 workers), 4 window_gather (both fields in one) and 4
+   skyline_windows;
 11. spatial_restaging: the same stream through the restaging route
    (WinFarmGPU without use_resident), against the same oracle;
 12. spatial_app: apps.spatial.run("wf-gpu") at its defaults (8 s at
@@ -793,11 +798,17 @@ MULTI_TUPLES = 4_000_000
 
 
 def check_gather(g, bufs, rows, starts, lens, pad, name):
-    """Kernel against plain version: tiles and mask bit for bit."""
+    """Kernel against plain version: tiles and mask bit for bit, in
+    ceil(fields / FIELDS_PER_LAUNCH) launches."""
+    before = g.window_gather.launches
     tiles, mask = g.window_gather(bufs, rows, starts, lens, pad)
+    launched = g.window_gather.launches - before
     want, want_mask = g.window_gather_reference(bufs, rows, starts, lens,
                                                 pad)
     torch.cuda.synchronize()
+    if len(starts) and launched != -(-len(bufs) // g.FIELDS_PER_LAUNCH):
+        raise AssertionError(f"window_gather {name}: {launched} launches "
+                             f"for {len(bufs)} fields")
     if not torch.equal(mask, want_mask):
         raise AssertionError(f"window_gather {name}: masks differ")
     for t, w in zip(tiles, want):
@@ -822,6 +833,9 @@ def gather_phase(dev):
     check_gather(g, (rx, ry), rows, starts, lens, SP_PAD, "main_shape")
     ri = (rx * 1000).to(torch.int32)
     check_gather(g, (ri,), rows, starts, lens, SP_PAD, "main_shape_int32")
+    # rows of an odd pad straddle 16-byte edges; mixed dtypes in one launch
+    check_gather(g, (rx, ri, ry), rows, starts, lens, SP_PAD - 3,
+                 "main_shape_pad4093_mixed")
     del ri
 
     def kernel():
@@ -872,11 +886,31 @@ def gather_phase(dev):
                      torch.from_numpy(st).to(dev, torch.int32),
                      torch.from_numpy(ln).to(dev, torch.int32), 64,
                      f"one_row/{dtype}")
+        for pad in (61, 62, 63, 1023):
+            check_gather(g, (flat,), None,
+                         torch.from_numpy(st).to(dev, torch.int32),
+                         torch.from_numpy(ln).to(dev, torch.int32), pad,
+                         f"one_row_pad{pad}/{dtype}")
         empty = torch.zeros((1, 0), dtype=dtype, device=dev)
         z = torch.zeros(3, dtype=torch.int32, device=dev)
         check_gather(g, (empty,), None, z, z, 8, f"empty_buffer/{dtype}")
         emit("gather_kernel", case="edges", dtype=str(dtype),
-             edges=list(cases) + ["one_row", "empty_buffer"], ok=True)
+             edges=list(cases) + ["one_row", "one_row_odd_pads",
+                                  "empty_buffer"], ok=True)
+    # 9 and 16 fields of mixed dtypes: two launches, the mask from the first
+    cap = 2048
+    fields = [torch.from_numpy(gen.integers(-1000, 1000, size=(4, cap))).to(
+        dev, torch.int32 if k % 2 else torch.float32) for k in range(16)]
+    B = 300
+    r = torch.from_numpy(gen.integers(0, 4, size=B)).to(dev, torch.int32)
+    st = torch.from_numpy(gen.integers(0, cap, size=B)).to(dev, torch.int32)
+    ln = torch.from_numpy(gen.integers(0, 514, size=B)).to(dev, torch.int32)
+    for nf in (9, 16):
+        for pad in (512, 515):
+            check_gather(g, fields[:nf], r, st, ln, pad,
+                         f"fields{nf}_pad{pad}")
+    emit("gather_kernel", case="many_fields", fields=[9, 16],
+         pads=[512, 515], dtypes="int32 and float32 alternating", ok=True)
     return dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=l_ms)
 
@@ -923,23 +957,27 @@ def pair_tests_needed(x, y, mask):
     return total
 
 
-def check_skyline(sk, x, y, mask, name, exact=True):
-    """Kernel against plain version and the numpy oracle: sizes exact;
-    checksums exact on the grid, else within FLOAT_RTOL of the checksum
-    (a sum of positive terms).  Returns the max abs checksum error."""
+def check_skyline(sk, x, y, mask, name, exact=True, oracle=True):
+    """Kernel against plain version and (with `oracle`) the numpy oracle:
+    sizes exact; checksums exact on the grid (NaN where the plain version
+    has NaN), else within FLOAT_RTOL of the checksum (a sum of positive
+    terms).  Returns the max abs checksum error."""
     size, cs = sk.skyline_windows(x, y, mask)
     want_size, want_cs = sk.skyline_windows_reference(x, y, mask)
     torch.cuda.synchronize()
     if not torch.equal(size, want_size):
         raise AssertionError(f"skyline_windows {name}: sizes differ")
-    err = float((cs.double() - want_cs.double()).abs().max()) if len(cs) \
-        else 0.0
-    if exact and not torch.equal(cs, want_cs):
+    same = (cs == want_cs) | (torch.isnan(cs) & torch.isnan(want_cs))
+    diff = torch.where(same, 0.0, (cs.double() - want_cs.double()).abs())
+    err = float(diff.max()) if len(cs) else 0.0
+    if exact and not bool(same.all()):
         raise AssertionError(f"skyline_windows {name}: checksums differ")
-    if not exact and not bool(((cs.double() - want_cs.double()).abs()
-                               <= FLOAT_RTOL * want_cs.double().abs()).all()):
+    if not exact and not bool((diff <= FLOAT_RTOL
+                               * want_cs.double().abs()).all()):
         raise AssertionError(f"skyline_windows {name}: checksum error "
                              f"{err} beyond rtol {FLOAT_RTOL}")
+    if not oracle:
+        return err
     xs, ys, ms = x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy()
     for b in range(len(xs)):
         n, total = skyline_oracle(xs[b][ms[b]], ys[b][ms[b]])
@@ -968,6 +1006,12 @@ def skyline_phase(dev):
                          ).to(dev, torch.float32)
     mask = torch.from_numpy(live).to(dev)
     check_skyline(sk, x, y, mask, "main_shape")
+    # determinism: two launches on the same inputs agree bit for bit
+    (s1, c1), (s2, c2) = (sk.skyline_windows(x, y, mask) for _ in range(2))
+    torch.cuda.synchronize()
+    if not (torch.equal(s1, s2) and torch.equal(c1.view(torch.int32),
+                                                c2.view(torch.int32))):
+        raise AssertionError("skyline_windows: two launches differ")
     k_ms = kernel_ms(lambda: sk.skyline_windows(x, y, mask), reps=10)
     p_ms = call_ms(lambda: sk.skyline_windows_reference(x, y, mask), reps=2)
     tests = pair_tests_needed(x, y, mask)
@@ -1002,14 +1046,35 @@ def skyline_phase(dev):
     x, y, m = small(5, 2048, [2048, 1500, 1025, 1024, 3000], grid)
     m &= torch.from_numpy(gen.random((5, 2048)) < 0.7).to(dev)
     check_skyline(sk, x, y, m, "mask_holes_and_tiles")
+    x, y, m = small(5, 1023, [1023, 1000, 517, 31, 1], grid)
+    check_skyline(sk, x, y, m, "odd_pad")
+    # NaN and +-inf coordinates in real lanes (the fn's comparisons decide;
+    # the sort-and-sweep oracle does not model NaN)
+    x, y, m = small(6, 256, [256, 200, 256, 64, 256, 3], grid)
+    special = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                           device=dev)
+    for t in (x, y):
+        pick = torch.from_numpy(gen.random((6, 256)) < 0.05).to(dev)
+        kind = torch.from_numpy(gen.integers(0, 3, size=(6, 256))).to(dev)
+        t[pick & m] = special[kind[pick & m]]
+    x[2], y[2] = float("inf"), float("inf")       # every point (inf, inf)
+    x[3, :32], y[3, :32] = float("nan"), 1.0      # NaN sums in a whole chunk
+    x[4, ::2] = float("-inf")
+    check_skyline(sk, x, y, m, "nan_inf", oracle=False)
+    # pads whose window takes all of a block's shared memory (16384), and
+    # above that budget (32768: the same kernel over device memory)
+    for pad, n in ((16384, [16384, 9000]), (32768, [32768, 20000, 0])):
+        x, y, m = small(len(n), pad, n, grid)
+        check_skyline(sk, x, y, m, f"pad{pad}")
     uniform = lambda g, shp: (g.uniform(0, 100, size=shp),
                               g.uniform(0, 100, size=shp))
     x, y, m = small(16, 4096, [4000] * 15 + [4096], uniform)
     err = max(err, check_skyline(sk, x, y, m, "unquantised", exact=False))
     emit("skyline_kernel", case="edges",
          edges=["all_masked", "n1", "duplicates", "ties",
-                "mask_holes_and_tiles", "unquantised"],
-         unquantised_max_abs_err=err, ok=True)
+                "mask_holes_and_tiles", "odd_pad", "nan_inf", "pad16384",
+                "pad32768", "unquantised"],
+         deterministic=True, unquantised_max_abs_err=err, ok=True)
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -1095,9 +1160,16 @@ def spatial_phases(wr, rk):
         dt, rows = run_rows(farm(**kw), batches, POINT_SCHEMA)
         launches = {c.__name__: c.launches for c in counters}
         check_spatial_oracle(rows, batches, name)
-        resident = name == "spatial_resident"
-        if (launches["window_gather"] == 0 or launches["skyline_windows"] == 0
-                or (launches["ring_append"] > 0) != resident):
+        # one gather launch per fn launch (both fields in one); the
+        # resident run: 2 workers x (a full batch + EOS), 2 rings each
+        if name == "spatial_resident":
+            ok = (launches["window_gather"] == 4
+                  and launches["skyline_windows"] == 4
+                  and launches["ring_append"] == 8)
+        else:
+            ok = (launches["window_gather"] == launches["skyline_windows"]
+                  > 0 and launches["ring_append"] == 0)
+        if not ok:
             raise AssertionError(f"{name}: launches {launches}")
         runs[name] = (rows, launches)
         emit(name, workload="spatial_test wf-gpu TB win=4000 slide=1000 "

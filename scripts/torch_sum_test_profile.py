@@ -34,9 +34,17 @@ WinFarmGPU(device_skyline(), pardegree=2, batch_len=256)):
 * ``spatial_host_core``: the port's host WinSeq(SkylineWindow()) over the
   stream's first 16 windows — the host skyline's cost per window.
 
+With ``--ab DIR`` it compares this checkout (B) with another checkout of
+the repository at DIR (A, e.g. the parent commit unpacked with ``git
+archive``) on one card, in turns A, B, B, A: each turn is a fresh process
+in its checkout (its own kernels, built from its own sources) and prints
+one ``ab`` line with the kernels-line rows of chip_smoke.py's gather and
+skyline phases and the spatial stream's points/s on the resident and
+restaging routes (3 runs each after a warm-up).
+
 Usage, from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_sum_test_profile.py [--spatial]
+    python3 scripts/torch_sum_test_profile.py [--spatial | --ab DIR]
 """
 
 import json
@@ -162,17 +170,64 @@ def spatial_main(device, smi):
     return 0
 
 
+# one turn of --ab, run inside a checkout (chip_smoke.py of that checkout)
+AB_TURN = """
+import json, torch
+import chip_smoke as cs
+import windflow_tpu_torch as wt
+from windflow_tpu_torch.apps.spatial import POINT_SCHEMA, device_skyline
+cs.build_all()
+dev = torch.device(cs.DEVICE)
+out = {"gather": cs.gather_phase(dev), "skyline": cs.skyline_phase(dev)}
+batches = cs.spatial_stream()
+def farm(**kw):
+    return wt.WinFarmGPU(device_skyline(), cs.SP_WIN, cs.SP_SLIDE,
+                         wt.WinType.TB, pardegree=cs.SP_PARDEGREE,
+                         batch_len=cs.SP_BATCH, device=cs.DEVICE, **kw)
+for name, kw in (("resident", {"use_resident": True}), ("restaging", {})):
+    cs.run_rows(farm(**kw), batches[:64], POINT_SCHEMA)
+    out[name + "_points_per_s"] = [
+        cs.SP_POINTS / cs.run_rows(farm(**kw), batches, POINT_SCHEMA)[0]
+        for _ in range(3)]
+print("AB " + json.dumps(out))
+"""
+
+
+def ab_main(other, device, smi):
+    import subprocess
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = {"A": os.path.abspath(other), "B": here}
+    for label in ("A", "B", "B", "A"):
+        proc = subprocess.run([sys.executable, "-c", AB_TURN],
+                              cwd=trees[label], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("AB ")][-1]
+        print(json.dumps({"run": "ab", "tree": label, "dir": trees[label],
+                          **json.loads(line[3:]), "device": device,
+                          "nvidia_smi": smi}), flush=True)
+    return 0
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spatial", action="store_true",
                     help="profile the spatial skyline path instead")
+    ap.add_argument("--ab", metavar="DIR",
+                    help="compare the gather and skyline kernels and the "
+                         "spatial run with the checkout at DIR, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
         return 2
     device = torch.cuda.get_device_name(0)
     smi = cs.nvidia_smi_line()
+    if args.ab:
+        return ab_main(args.ab, device, smi)
     if args.spatial:
         return spatial_main(device, smi)
     schema = wt.Schema(value=cs.np.int64)

@@ -3,10 +3,13 @@ version) against the gather of the JAX package's device bodies, written
 here with jnp as they are: ops/device.py:156-161 (the restaging flat
 buffer, index clamped to N - 1, masked lanes zero) and
 ops/resident.py:618-625 (a (KP, cap) ring, index clamped to cap - 1).
-Inputs come from numpy seeds; tiles and masks must be identical.  The
-``cuda``-marked case holds the kernel against the plain version on the
-card (this file imports JAX only inside the CPU twins' helpers, so the
-card's machine, which has no JAX, collects it too)."""
+Inputs come from numpy seeds; tiles and masks must be identical, for one
+field or many (the kernel writes up to 8 per launch, int32 and float32
+mixed) and for pads that are not a multiple of 4 (the kernel's 16-byte
+stores straddle rows there).  The ``cuda``-marked cases hold the kernel
+against the plain version on the card (this file imports JAX only inside
+the CPU twins' helpers, so the card's machine, which has no JAX, collects
+it too)."""
 
 import numpy as np
 import pytest
@@ -126,6 +129,57 @@ def test_empty_buffer_and_empty_batch():
     assert tiles[0].shape == (0, 8) and mask.shape == (0, 8)
 
 
+def mixed_fields(rng, nf, shape):
+    """nf buffers of one shape, float32 and int32 alternating."""
+    return [values(rng, DTYPES[k % 2], shape) for k in range(nf)]
+
+
+@pytest.mark.parametrize("pad", [32, 29, 30, 31])
+@pytest.mark.parametrize("nf", [1, 8, 9, 16])
+def test_many_mixed_fields_match_jax(nf, pad):
+    """One call gathers every field (the kernel: one launch per 8) with one
+    mask; each tile is the JAX ring gather of its own field."""
+    ring, rows, starts, lens = ring_case(nf + pad, np.float32)
+    bufs = mixed_fields(np.random.default_rng(pad), nf, ring.shape)
+    tiles, mask = g.window_gather([torch.from_numpy(b) for b in bufs],
+                                  as32(rows), as32(starts), as32(lens), pad)
+    assert len(tiles) == nf
+    for buf, tile in zip(bufs, tiles):
+        want, want_mask = jax_ring(buf, rows, starts, lens, pad)
+        assert tile.dtype == torch.from_numpy(buf).dtype
+        np.testing.assert_array_equal(tile.numpy(), want)
+        np.testing.assert_array_equal(mask.numpy(), want_mask)
+
+
+@pytest.mark.parametrize("pad", [29, 30, 31, 61])
+def test_one_row_form_odd_pads_match_jax(pad):
+    """The restaging one-row form with 3 mixed fields at pads that leave
+    rows off 16-byte edges."""
+    flat, starts, lens = restaging_case(pad, np.int32)
+    rng = np.random.default_rng(pad)
+    bufs = [flat, values(rng, np.float32, len(flat)),
+            values(rng, np.int32, len(flat))]
+    tiles, mask = g.window_gather([torch.from_numpy(b)[None, :]
+                                   for b in bufs], None, as32(starts),
+                                  as32(lens), pad)
+    for buf, tile in zip(bufs, tiles):
+        want, want_mask = jax_restaging(buf, starts, lens, pad)
+        np.testing.assert_array_equal(tile.numpy(), want)
+        np.testing.assert_array_equal(mask.numpy(), want_mask)
+
+
+def test_refuses_fields_of_unequal_shape_past_one_launch():
+    """Every field is checked, the ninth (the second launch's first) too."""
+    bufs = [torch.zeros((2, 8), dtype=torch.int32) for _ in range(9)]
+    bufs[8] = torch.zeros((2, 7), dtype=torch.int32)
+    s = as32([0, 1])
+    with pytest.raises(TypeError):
+        g.window_gather(bufs, None, s, s, 4)
+    bufs[8] = torch.zeros((2, 8), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        g.window_gather(bufs, None, s, s, 4)
+
+
 def test_wrapper_refuses_bad_inputs():
     buf = torch.zeros((2, 8), dtype=torch.int32)
     s = as32([0, 1])
@@ -150,11 +204,15 @@ def test_cpu_tensors_do_not_count_launches():
     assert g.window_gather.launches == before
 
 
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 def test_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    need_card()
     for seed in range(3):
         ring, rows, starts, lens = ring_case(seed, dtype)
         bufs = [torch.from_numpy(ring).cuda(), torch.from_numpy(ring).cuda()]
@@ -163,7 +221,7 @@ def test_kernel_matches_plain_on_card(dtype):
         tiles, mask = g.window_gather(bufs, *args, 32)
         want, want_mask = g.window_gather_reference(bufs, *args, 32)
         torch.cuda.synchronize()
-        assert g.window_gather.launches == before + 2
+        assert g.window_gather.launches == before + 1
         assert torch.equal(mask, want_mask)
         assert all(torch.equal(t, w) for t, w in zip(tiles, want))
         flat, st, ln = restaging_case(seed, dtype)
@@ -173,3 +231,31 @@ def test_kernel_matches_plain_on_card(dtype):
         want, want_mask = g.window_gather_reference(*args)
         torch.cuda.synchronize()
         assert torch.equal(tile, want) and torch.equal(mask, want_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [32, 29, 30, 31, 515])
+@pytest.mark.parametrize("nf", [1, 8, 9, 16])
+def test_kernel_many_fields_odd_pads_on_card(nf, pad):
+    """ceil(nf / 8) launches, tiles and mask bit for bit the plain
+    version's, rows aligned or straddling 16-byte edges."""
+    need_card()
+    ring, rows, starts, lens = ring_case(nf + pad, np.float32)
+    bufs = [torch.from_numpy(b).cuda() for b in
+            mixed_fields(np.random.default_rng(pad), nf, ring.shape)]
+    args = (as32(rows).cuda(), as32(starts).cuda(), as32(lens).cuda(), pad)
+    before = g.window_gather.launches
+    tiles, mask = g.window_gather(bufs, *args)
+    want, want_mask = g.window_gather_reference(bufs, *args)
+    torch.cuda.synchronize()
+    assert g.window_gather.launches == before + -(-nf // 8)
+    assert torch.equal(mask, want_mask)
+    assert all(torch.equal(t, w) for t, w in zip(tiles, want))
+    flat, st, ln = restaging_case(pad, np.int32)
+    one = [torch.from_numpy(flat).cuda()[None, :]] * nf
+    args = (None, as32(st).cuda(), as32(ln).cuda(), pad)
+    tiles, mask = g.window_gather(one, *args)
+    want, want_mask = g.window_gather_reference(one, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want_mask)
+    assert all(torch.equal(t, w) for t, w in zip(tiles, want))

@@ -17,10 +17,18 @@ int32 or float32.  :func:`window_gather` takes one buffer or a sequence of
 buffers of one shape (the fields of one window batch) and returns their
 ``(B, pad)`` tiles with the bool mask.
 
-A CUDA tensor launches the kernel once per buffer on the current stream
-(asynchronous, counted in ``window_gather.launches``; the first launch also
-writes the mask); a CPU tensor runs the plain version.  There is no fallback
-from one to the other.
+The kernel (csrc/gather.cu) writes up to :data:`FIELDS_PER_LAUNCH`
+buffers' tiles and the mask in one launch: one block per window and run of
+1,024 lanes, the window's descriptors loaded once, each thread storing 4
+lanes of every field with one 16-byte store and 4 mask lanes with one
+4-byte store (lane by lane only where a row of an odd ``pad`` straddles a
+16-byte edge).  Values move as 32-bit words, so int32 and float32 buffers
+share a launch.
+
+A CUDA tensor launches the kernel on the current stream, once for every
+:data:`FIELDS_PER_LAUNCH` buffers (asynchronous, counted in
+``window_gather.launches``; the first launch also writes the mask); a CPU
+tensor runs the plain version.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import torch
 from . import _nvcc
 
 _DTYPES = (torch.int32, torch.float32)
+#: buffers one kernel launch gathers (csrc/gather.cu kMaxFields)
+FIELDS_PER_LAUNCH = 8
 
 _lock = threading.Lock()
 _lib = None
@@ -50,8 +60,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-            lib.wf_window_gather.argtypes = [c_p, c_ll, c_p, c_p, c_p, c_int,
-                                             c_int, c_p, c_p, c_p]
+            lib.wf_window_gather.argtypes = [c_p, c_p, c_int, c_ll, c_p, c_p,
+                                             c_p, c_int, c_int, c_p, c_p]
             lib.wf_window_gather.restype = c_int
             _lib = lib
         return _lib
@@ -133,11 +143,16 @@ def window_gather(bufs, rows, starts, lens, pad: int):
     ncols = bufs[0].shape[1]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for i, (buf, tile) in enumerate(zip(bufs, tiles)):
+        for i in range(0, len(bufs), FIELDS_PER_LAUNCH):
+            group = range(i, min(i + FIELDS_PER_LAUNCH, len(bufs)))
+            srcs = (ctypes.c_void_p * len(group))(
+                *(bufs[k].data_ptr() for k in group))
+            dsts = (ctypes.c_void_p * len(group))(
+                *(tiles[k].data_ptr() for k in group))
             rc = lib.wf_window_gather(
-                buf.data_ptr(), ncols,
+                srcs, dsts, len(group), ncols,
                 rows.data_ptr() if rows is not None else None,
-                starts.data_ptr(), lens.data_ptr(), B, pad, tile.data_ptr(),
+                starts.data_ptr(), lens.data_ptr(), B, pad,
                 mask.data_ptr() if i == 0 else None, stream)
             if rc != 0:
                 raise RuntimeError(f"window_gather kernel launch failed: CUDA "

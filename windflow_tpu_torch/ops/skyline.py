@@ -9,6 +9,18 @@ the masked ``(B, pad, pad)`` float32 dominance test.  Lane ``i`` of window
 :func:`skyline_windows` returns ``(size, checksum)``: the survivor count
 (int32) and the float32 sum of the survivors' ``x + y``, per window.
 
+The kernel (csrc/skyline.cu, whose header note has the details) filters,
+then verifies, one block per window: the window is staged once into
+shared memory; 64 candidates (each the point of least ``x + y`` among the
+lanes of 8 threads), less those another candidate dominates, filter every
+lane; and the few lanes that pass are verified against each other only
+(dominance is transitive, so a lane's dominator passes the filter whenever
+the lane does).  Survival is a flag
+per lane and one fixed-order pass sums it, so results are identical from
+run to run.  A window too wide for shared memory (``pad`` above ~17,500
+on an H100) takes the same kernel over device memory, with worklist and
+flags in scratch that the wrapper allocates.
+
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``skyline_windows.launches``); a CPU tensor runs the plain
 version.  There is no fallback from one to the other.
@@ -46,8 +58,10 @@ def _load():
             lib = ctypes.CDLL(build())
             c_int, c_p = ctypes.c_int, ctypes.c_void_p
             lib.wf_skyline_windows.argtypes = [c_p, c_p, c_p, c_int, c_int,
-                                               c_p, c_p, c_p]
+                                               c_p, c_p, c_p, c_p, c_p]
             lib.wf_skyline_windows.restype = c_int
+            lib.wf_skyline_staged.argtypes = [c_int]
+            lib.wf_skyline_staged.restype = c_int
             _lib = lib
         return _lib
 
@@ -104,14 +118,27 @@ def skyline_windows(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
                          f"{x.device}")
     x, y, mask = x.contiguous(), y.contiguous(), mask.contiguous()
     B, pad = x.shape
-    size = torch.zeros(B, dtype=torch.int32, device=x.device)
-    checksum = torch.zeros(B, dtype=torch.float32, device=x.device)
     if B == 0 or pad == 0:
-        return size, checksum
+        return (torch.zeros(B, dtype=torch.int32, device=x.device),
+                torch.zeros(B, dtype=torch.float32, device=x.device))
+    # the kernel writes every window
+    size = torch.empty(B, dtype=torch.int32, device=x.device)
+    checksum = torch.empty(B, dtype=torch.float32, device=x.device)
     lib = _load()
     with torch.cuda.device(x.device):
+        staged = lib.wf_skyline_staged(pad)
+        if staged < 0:
+            raise RuntimeError("skyline_windows: CUDA error querying the "
+                               "device's shared memory")
+        # above the shared-memory budget: worklist and flags in scratch
+        work = alive = None
+        if not staged:
+            work = torch.empty((B, pad), dtype=torch.int32, device=x.device)
+            alive = torch.empty((B, pad), dtype=torch.uint8, device=x.device)
         rc = lib.wf_skyline_windows(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, pad,
+            None if work is None else work.data_ptr(),
+            None if alive is None else alive.data_ptr(),
             size.data_ptr(), checksum.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
