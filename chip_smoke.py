@@ -16,14 +16,21 @@ catches its own failure):
    restaging path's shape (32768 windows of 256 rows over a ~2.1M-row flat
    buffer) and at edge cases, with CUDA-graph timings beside the least time
    the card could take;
-4. ring_kernel: ring_append and regular_window_sum against their plain
-   versions at the resident path's shape (a 64 x 262144 int32 ring, a
-   64 x 8192 int8 rectangle, 128 windows of 256 rows per key, slide 64) and
-   at edge cases (every wire x accumulate dtype, keys fewer than ring rows,
-   rows without windows, zero lengths, starts clipped at 0 and at cap, an
-   int32 wrap, offsets at cap - Rb), with timings; and the windowed-reduce
-   kernel on the ring's flat view (the irregular evaluation) against the
-   plain transcription of the JAX package's _ring_eval;
+4. ring_kernel: the fused ring_append_regular_sum (one launch a flush),
+   and ring_append and the standalone regular_window_sum (the fused kernel
+   with an empty rectangle), against their plain versions at the resident
+   path's shape (a 64 x 262144 int32 ring, a 64 x 8192 int8 rectangle, 128
+   windows of 256 rows per key, slide 64) and at edge cases (every wire x
+   accumulate dtype, keys fewer than ring rows, rows without windows, zero
+   lengths, starts clipped at 0 and at cap, an int32 wrap, offsets at
+   cap - Rb and at every residue mod 4, Rb not a multiple of 16, C not a
+   multiple of a warp's 2 windows, windows 600 apart, windows of 5,000
+   cells; two launches bitwise equal), with timings of
+   the fused kernel beside the two-launch sequence it replaces (and
+   ring_append alone at this shape); and the
+   windowed-reduce kernel on the ring's flat view (the irregular
+   evaluation) against the plain transcription of the JAX package's
+   _ring_eval;
 5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
    256, 64, CB, use_reduce_kernel=True) -> Sink) over 16M tuples of 64 keys,
    held against a numpy oracle, with the kernel's launch count read around
@@ -32,8 +39,10 @@ catches its own failure):
    WinSeqGPU(Reducer("sum", value_range=(0, 100)), 256, 64, CB,
    batch_len=32768, flush_rows=2**19, depth=48, shards=1) — the C++
    NativeResidentCore feeding the ring kernels — over 16M tuples against
-   the oracle, with the ring kernels' launch counts read around that run
-   (a 1M-tuple prefix is first held against the host core);
+   the oracle, with the ring kernels' launch counts read around that run:
+   one fused launch a regular flush, ring_append only with the irregular
+   windowed_reduce launches (a 1M-tuple prefix is first held against the
+   host core);
 7. irregular_and_python_core: Reducer("max") on the native core (irregular
    launches: the windowed-reduce kernel on the ring) and Reducer("sum") on
    the Python ResidentWinSeqCore, 1M tuples each, byte for byte against
@@ -60,7 +69,10 @@ catches its own failure):
    windows byte for byte against the port's host WinSeq(SkylineWindow()),
    and the launch counts in that run: exactly 8 ring_append (2 rings x 2
    launches x 2 workers), 4 window_gather (both fields in one) and 4
-   skyline_windows;
+   skyline_windows; then ring_append against its plain version on the
+   inputs of each of those 8 launches (their rectangles and offsets,
+   float32 into 8 x 2^22 float32 rings), timed on the largest (the
+   kernels line's ring_append row);
 11. spatial_restaging: the same stream through the restaging route
    (WinFarmGPU without use_resident), against the same oracle;
 12. spatial_app: apps.spatial.run("wf-gpu") at its defaults (8 s at
@@ -75,6 +87,8 @@ Then it prints the kernels' JSON line, the nvidia-smi line, and last
 result when no CUDA device is visible or when the package is missing.
 """
 
+import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -323,10 +337,12 @@ def build_all():
 
 
 def ring_case(gen, dev, wire, acc, edge, K=KP, cap=CAP, Rb=RB, C=C_WINDOWS,
-              slide=SLIDE, rlen=WIN):
+              slide=SLIDE, rlen=WIN, offs_mod=None):
     """Inputs of one append + regular evaluation: a ring with earlier
     contents, a rectangle whose rows >= K and tail columns are zero (as the
-    executor stages it), per-row offsets and regular window descriptors."""
+    executor stages it), per-row offsets (with `offs_mod`, each row's flat
+    start r*cap + offs[r] is that residue mod 4) and regular window
+    descriptors."""
     KP_ = KP if cap == CAP else 8
     if edge == "keys_lt_rows":
         K = KP_ - 3
@@ -351,6 +367,9 @@ def ring_case(gen, dev, wire, acc, edge, K=KP, cap=CAP, Rb=RB, C=C_WINDOWS,
     offs[:K] = torch.from_numpy(gen.integers(Rb, cap - Rb + 1, size=K))
     if edge == "offs_at_end":
         offs[:K] = cap - Rb
+    if offs_mod is not None:
+        rows = torch.arange(K)
+        offs[:K] -= (offs[:K] + rows * cap - offs_mod) % 4
     rstart0 = torch.zeros(KP_, dtype=torch.int32)
     rlens = torch.zeros(KP_, dtype=torch.int32)
     rstart0[:K] = (offs[:K] - (rlen - slide)).clamp(min=0)
@@ -372,13 +391,19 @@ def ring_case(gen, dev, wire, acc, edge, K=KP, cap=CAP, Rb=RB, C=C_WINDOWS,
                 slide=slide)
 
 
-def run_ring(rk, case, plain):
-    ring = case["ring"].clone()
-    (rk.ring_append_reference if plain else rk.ring_append)(
-        ring, case["blk"], case["offs"])
-    out = (rk.regular_window_sum_reference if plain
-           else rk.regular_window_sum)(ring, case["rstart0"], case["rlen"],
+def run_two_launches(rk, case):
+    """ring_append, then the standalone regular_window_sum."""
+    ring = rk.ring_append(case["ring"].clone(), case["blk"], case["offs"])
+    return ring, rk.regular_window_sum(ring, case["rstart0"], case["rlen"],
                                        case["C"], case["slide"])
+
+
+def run_fused(rk, case, plain):
+    ring = case["ring"].clone()
+    out = (rk.ring_append_regular_sum_reference if plain
+           else rk.ring_append_regular_sum)(
+        ring, case["blk"], case["offs"], case["rstart0"], case["rlen"],
+        case["C"], case["slide"])
     return ring, out
 
 
@@ -395,25 +420,62 @@ def window_abs_sums(ring, rstart0, rlen, C, slide):
 
 
 def check_ring(rk, case, name):
-    """Kernel against plain version on one case; returns (append error,
-    window-sum error).  Rings must be identical; int32 sums exact, float32
-    sums within FLOAT_RTOL of Σ|x| over the window."""
-    ring_k, out_k = run_ring(rk, case, plain=False)
-    ring_p, out_p = run_ring(rk, case, plain=True)
+    """The fused kernel (launched twice) and the two-launch sequence
+    against the plain version on one case.  Rings must be identical; int32
+    sums exact, float32
+    sums within FLOAT_RTOL of Σ|x| over the window; the two fused launches
+    bitwise equal.  Returns the window sums' largest error (the rings
+    are identical or it raises)."""
+    fused = [run_fused(rk, case, plain=False) for _ in range(2)]
+    two = run_two_launches(rk, case)
+    ring_p, out_p = run_fused(rk, case, plain=True)
     torch.cuda.synchronize()
-    if not torch.equal(ring_k, ring_p):
-        raise AssertionError(f"ring_append {name}: rings differ")
-    if out_k.dtype == torch.int32:
-        if not torch.equal(out_k, out_p):
-            raise AssertionError(f"regular_window_sum {name}: sums differ")
-        return 0.0, 0.0
-    err = (out_k.double() - out_p.double()).abs()
+    if not torch.equal(fused[0][1].view(torch.int32),
+                       fused[1][1].view(torch.int32)):
+        raise AssertionError(f"ring_append_regular_sum {name}: two launches "
+                             "differ")
     scale = window_abs_sums(ring_p, case["rstart0"], case["rlen"],
                             case["C"], case["slide"])
-    if not bool((err <= FLOAT_RTOL * scale).all()):
-        raise AssertionError(f"regular_window_sum {name}: error "
-                             f"{float(err.max())} beyond rtol {FLOAT_RTOL}")
-    return 0.0, float(err.max())
+    err = 0.0
+    for label, (ring_k, out_k) in (("ring_append_regular_sum", fused[0]),
+                                   ("ring_append + regular_window_sum",
+                                    two)):
+        if not torch.equal(ring_k, ring_p):
+            raise AssertionError(f"{label} {name}: rings differ")
+        if out_k.dtype == torch.int32:
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"{label} {name}: sums differ")
+            continue
+        e = (out_k.double() - out_p.double()).abs()
+        if not bool((e <= FLOAT_RTOL * scale).all()):
+            raise AssertionError(f"{label} {name}: error {float(e.max())} "
+                                 f"beyond rtol {FLOAT_RTOL}")
+        err = max(err, float(e.max()))
+    return err
+
+
+def fused_bound(case):
+    """(ms, by, bytes) of the fused kernel on these inputs: blk read once,
+    the rectangle's cells inside the ring written once, the ring cells the
+    windows cover outside the rectangle read once, the 3*KP descriptors
+    and the (KP, C) sums; one add per window cell."""
+    ring, blk, offs = case["ring"], case["blk"], case["offs"]
+    KP, cap = ring.shape
+    Rb, C, dev = blk.shape[1], case["C"], ring.device
+    i = torch.arange(C, device=dev)
+    s = (case["rstart0"].long()[:, None] + i[None, :] * case["slide"]).clamp(
+        0, cap)
+    e = (s + case["rlen"].long()[:, None]).clamp(0, cap)
+    edges = torch.zeros((KP, cap + 1), dtype=torch.int32, device=dev)
+    one = torch.ones_like(s, dtype=torch.int32)
+    edges.scatter_add_(1, s, one)
+    edges.scatter_add_(1, e, -one)
+    cov = edges.cumsum(dim=1)[:, :cap] > 0
+    col = torch.arange(cap, device=dev)[None, :]
+    rect = (col >= offs.long()[:, None]) & (col < offs.long()[:, None] + Rb)
+    nbytes = (blk.numel() * blk.element_size() + 4 * int(rect.sum())
+              + 4 * int((cov & ~rect).sum()) + 12 * KP + 4 * KP * C)
+    return (*bytes_bound(nbytes, int((e - s).sum())), nbytes)
 
 
 def covered(starts, lens, rows=None):
@@ -458,10 +520,21 @@ def ring_kernel_phase(dev):
 
     # -- main-path shape: int8 wire into an int32 ring
     case = ring_case(gen, dev, torch.int8, torch.int32, "main")
-    app_err, sum_err = check_ring(rk, case, "main_shape")
+    sum_err = check_ring(rk, case, "main_shape")
     ring = case["ring"].clone()
     blk, offs = case["blk"], case["offs"]
     rs0, rln = case["rstart0"], case["rlen"]
+    f_ms = kernel_ms(lambda: rk.ring_append_regular_sum(
+        ring, blk, offs, rs0, rln, C_WINDOWS, SLIDE))
+    f_plain = call_ms(lambda: rk.ring_append_regular_sum_reference(
+        ring, blk, offs, rs0, rln, C_WINDOWS, SLIDE))
+
+    def two_launches():
+        rk.ring_append(ring, blk, offs)
+        rk.regular_window_sum(ring, rs0, rln, C_WINDOWS, SLIDE)
+
+    two_ms = kernel_ms(two_launches)
+    f_bound = fused_bound(case)
     a_ms = kernel_ms(lambda: rk.ring_append(ring, blk, offs))
     a_plain = call_ms(lambda: rk.ring_append_reference(ring, blk, offs))
     idx = offs.long()[:, None] + torch.arange(RB, device=dev)[None, :]
@@ -484,24 +557,38 @@ def ring_kernel_phase(dev):
     cells = covered_cells(rs0.cpu(), rln.cpu(), C_WINDOWS, SLIDE, CAP)
     s_bound = bytes_bound(4 * cells + 8 * KP + 4 * KP * C_WINDOWS,
                           int(rln.long().sum()) * C_WINDOWS)
-    emit("ring_kernel", kernel="ring_append", case="main_shape", KP=KP,
-         cap=CAP, Rb=RB, wire="int8", acc="int32", max_abs_err=app_err,
-         kernel_ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
+    emit("ring_kernel", kernel="ring_append_regular_sum", case="main_shape",
+         KP=KP, cap=CAP, Rb=RB, wire="int8", acc="int32", C=C_WINDOWS,
+         slide=SLIDE, rlen=WIN, max_abs_err=sum_err, kernel_ms=f_ms,
+         plain_ms=f_plain, two_launch_ms=two_ms,
+         two_launch="ring_append + regular_window_sum", library_ms=None,
+         library_none_because="no single torch call appends and sums "
+                              "clipped overlapping windows",
+         bound_bytes=f_bound[2], bound_ms=f_bound[0], bound_by=f_bound[1])
+    # ring_append at the regular-flush shape: half of the two-launch
+    # sequence (its kernels-line row is timed at the shape of its main-path
+    # launches, ring_append_phase)
+    emit("ring_kernel", kernel="ring_append", case="regular_flush_shape",
+         KP=KP, cap=CAP, Rb=RB, wire="int8", acc="int32", kernel_ms=a_ms,
+         plain_ms=a_plain, library_ms=a_lib,
          library="ring.scatter_(1, idx, blk.to(int32))",
          bound_ms=a_bound[0], bound_by=a_bound[1])
     emit("ring_kernel", kernel="regular_window_sum", case="main_shape",
-         KP=KP, cap=CAP, C=C_WINDOWS, slide=SLIDE, rlen=WIN,
-         covered_cells=cells, max_abs_err=sum_err, kernel_ms=s_ms,
-         plain_ms=s_plain, library_ms=None,
-         library_none_because="no single torch call sums clipped "
-                              "overlapping windows",
-         jax_design_ms=s_jax, bound_ms=s_bound[0], bound_by=s_bound[1])
-    rows["ring_append"] = dict(max_abs_err=app_err, ms=a_ms,
-                               plain_ms=a_plain, bound_ms=a_bound[0],
-                               bound_by=a_bound[1], library_ms=a_lib)
-    rows["regular_window_sum"] = dict(max_abs_err=sum_err, ms=s_ms,
-                                      plain_ms=s_plain, bound_ms=s_bound[0],
-                                      bound_by=s_bound[1], library_ms=None)
+         form="ring_append_regular_sum with Rb = 0", KP=KP, cap=CAP,
+         C=C_WINDOWS, slide=SLIDE, rlen=WIN, covered_cells=cells,
+         max_abs_err=sum_err, kernel_ms=s_ms, plain_ms=s_plain,
+         library_ms=None, jax_design_ms=s_jax, bound_ms=s_bound[0],
+         bound_by=s_bound[1])
+    rows["ring_append_flush_shape"] = dict(
+        ms=a_ms, plain_ms=a_plain, bound_ms=a_bound[0], library_ms=a_lib)
+    rows["ring_append_regular_sum"] = dict(
+        max_abs_err=sum_err, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
+        bound_by=f_bound[1], library_ms=None)
+    # not rows of the kernels line: the sequence the fused kernel replaces,
+    # its ring_append half and the standalone sum
+    # (torch_sum_test_profile.py --ab reads these)
+    rows["two_launches"] = dict(ms=two_ms)
+    rows["regular_window_sum"] = dict(ms=s_ms, bound_ms=s_bound[0])
 
     # -- edge cases, every wire x accumulate dtype, at a small ring
     edges = ("plain", "keys_lt_rows", "rows_without_windows", "zero_length",
@@ -511,13 +598,37 @@ def ring_kernel_phase(dev):
             for edge in edges:
                 case = ring_case(gen, dev, wire, acc, edge, cap=4096, Rb=512,
                                  C=16, slide=24, rlen=40)
-                a, b = check_ring(rk, case, f"{wire}->{acc} {edge}")
-                rows["ring_append"]["max_abs_err"] = max(
-                    rows["ring_append"]["max_abs_err"], a)
-                rows["regular_window_sum"]["max_abs_err"] = max(
-                    rows["regular_window_sum"]["max_abs_err"], b)
+                b = check_ring(rk, case, f"{wire}->{acc} {edge}")
+                rows["ring_append_regular_sum"]["max_abs_err"] = max(
+                    rows["ring_append_regular_sum"]["max_abs_err"], b)
             emit("ring_kernel", case="edges", wire=str(wire), acc=str(acc),
                  edges=list(edges), ok=True)
+    # the fused kernel's own edges: offsets at every residue mod 4 (the
+    # append's head and tail peels), Rb not a multiple of 16 (the per-cell
+    # path), C not a multiple of a warp's 2 windows, windows far apart,
+    # windows of 5,000 cells across several append chunks
+    shapes = {"rb40": dict(Rb=40), "rb8": dict(Rb=8, slide=4, rlen=12),
+              "c37": dict(C=37),
+              "wide_slide": dict(cap=16384, Rb=2048, C=20, slide=600,
+                                 rlen=1000),
+              "long_window": dict(cap=16384, Rb=4096, C=5, slide=2000,
+                                  rlen=5000)}
+    for acc in ACCS:
+        for wire in (torch.int8, torch.float32):
+            for label, kw in shapes.items():
+                for offs_mod in range(4):
+                    args = dict(cap=4096, Rb=512, C=16, slide=24, rlen=40)
+                    args.update(kw)
+                    case = ring_case(gen, dev, wire, acc, "plain",
+                                     offs_mod=offs_mod, **args)
+                    b = check_ring(rk, case, f"{wire}->{acc} {label} "
+                                   f"offs%4={offs_mod}")
+                    rows["ring_append_regular_sum"]["max_abs_err"] = max(
+                        rows["ring_append_regular_sum"]["max_abs_err"], b)
+        emit("ring_kernel", case="fused_edges", acc=str(acc),
+             wires=["torch.int8", "torch.float32"], shapes=list(shapes),
+             offs_mod=[0, 1, 2, 3], two_launches_bitwise_equal=True,
+             ok=True)
 
     # -- the irregular evaluation: windowed_reduce on the ring's flat view
     for acc in ACCS:
@@ -547,6 +658,93 @@ def ring_kernel_phase(dev):
                  kernel_ms=kernel_ms(lambda: wr.windowed_reduce(
                      r.view(-1), flat_starts, lens, WIN, op)))
     return rows
+
+
+@contextlib.contextmanager
+def recorded_appends():
+    """Records every ring_append call the resident executors make while
+    active (the ring's shape and dtype, copies of the rectangle and the
+    offsets); each call goes on to the wrapper unchanged."""
+    from windflow_tpu_torch.ops import resident
+    orig, calls = resident.ring_append, []
+
+    def recording(ring, blk, offs):
+        calls.append(dict(shape=tuple(ring.shape), dtype=ring.dtype,
+                          blk=blk.clone(), offs=offs.clone()))
+        return orig(ring, blk, offs)
+
+    resident.ring_append = recording
+    try:
+        yield calls
+    finally:
+        resident.ring_append = orig
+
+
+def ring_append_phase(dev, calls):
+    """ring_append against its plain version on the inputs of every call in
+    `calls` (the recorded rectangles and offsets into a ring of the
+    recorded shape and dtype with seeded contents: rings identical), timed
+    on the largest.  Its rectangle and the cells it writes fit in the
+    card's L2, so a replay of the same inputs would find them there: the
+    timed calls cycle through copies of the inputs whose sum is three
+    times the L2 (at most 16 copies), each call on cold cells (the same inputs back to back
+    are reported beside, as hot_l2_ms).  Returns the kernels-line row."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rings = {}
+    for c in calls:
+        key = (c["shape"], c["dtype"])
+        if key not in rings:
+            rings[key] = (torch.rand(c["shape"], generator=gen, device=dev)
+                          * 200 - 100).to(c["dtype"])
+        got = rk.ring_append(rings[key].clone(), c["blk"], c["offs"])
+        want = rk.ring_append_reference(rings[key].clone(), c["blk"],
+                                        c["offs"])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ring_append {c['blk'].dtype} -> "
+                                 f"{c['dtype']} {c['shape']}: rings differ")
+        del got, want
+    big = max(calls, key=lambda c: c["blk"].numel())
+    ring = rings.pop((big["shape"], big["dtype"]))
+    rings.clear()
+    blk, offs = big["blk"], big["offs"]
+    nbytes = (blk.numel() * (blk.element_size() + ring.element_size())
+              + 4 * offs.numel())
+    hot = kernel_ms(lambda: rk.ring_append(ring, blk, offs))
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 << 20)
+    copies = [(ring, blk)] + [(ring.clone(), blk.clone()) for _ in range(
+        min(-(-3 * l2 // nbytes), 16) - 1)]
+    idx = (offs.long()[:, None]
+           + torch.arange(blk.shape[1], device=dev)[None, :])
+
+    def cycled(fn):
+        turn = itertools.cycle(copies)
+        return lambda: fn(*next(turn))
+
+    ms = kernel_ms(cycled(lambda r, b: rk.ring_append(r, b, offs)),
+                   reps=10 * len(copies))
+    plain = call_ms(cycled(lambda r, b: rk.ring_append_reference(r, b,
+                                                                 offs)),
+                    reps=2 * len(copies))
+    lib = call_ms(cycled(lambda r, b: r.scatter_(1, idx, b.to(r.dtype))),
+                  reps=2 * len(copies))
+    b = bytes_bound(nbytes, blk.numel())
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b[0],
+               bound_by=b[1], library_ms=lib)
+    emit("ring_kernel", kernel="ring_append", case="spatial_resident_calls",
+         calls_checked=len(calls),
+         shapes=sorted({(c["shape"], tuple(c["blk"].shape),
+                         str(c["blk"].dtype), str(c["dtype"]))
+                        for c in calls}, key=str),
+         timed=dict(ring=list(big["shape"]), blk=list(blk.shape),
+                    wire=str(blk.dtype), acc=str(big["dtype"])),
+         copies=len(copies), l2_bytes=l2, kernel_ms=ms, hot_l2_ms=hot,
+         plain_ms=plain, library_ms=lib,
+         library="ring.scatter_(1, idx, blk.to(ring.dtype))",
+         bound_bytes=nbytes, bound_ms=b[0], bound_by=b[1])
+    return row
 
 
 def stage_with_core(make_stage, cores):
@@ -676,7 +874,9 @@ def host_rows(wt, reducer, batches, schema):
 
 def end_to_end_resident(wr, rk):
     """sum_test, 16M tuples, through NativeResidentCore and the ring
-    kernels; returns the ring kernels' launch counts in that run."""
+    kernels; returns the ring kernels' launch counts in that run: one
+    fused launch a regular flush, ring_append only with an irregular
+    launch's windowed_reduce."""
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.ops import resident
     from windflow_tpu_torch.patterns.native_core import NativeResidentCore
@@ -700,13 +900,12 @@ def end_to_end_resident(wr, rk):
     stage = stage_with_core(lambda: resident_stage(wt), cores)
     torch.cuda.reset_peak_memory_stats()
     resident.stats_snapshot(reset=True)
-    wr.windowed_reduce.launches = 0
-    rk.ring_append.launches = 0
-    rk.regular_window_sum.launches = 0
+    counters = (rk.ring_append_regular_sum, rk.ring_append,
+                rk.regular_window_sum, wr.windowed_reduce)
+    for c in counters:
+        c.launches = 0
     dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
-    launches = {"ring_append": rk.ring_append.launches,
-                "regular_window_sum": rk.regular_window_sum.launches,
-                "windowed_reduce": wr.windowed_reduce.launches}
+    launches = {c.__name__: c.launches for c in counters}
     stats = resident.stats_snapshot(reset=True)
     if not (len(cores) == 1 and isinstance(cores[0], NativeResidentCore)):
         raise AssertionError(f"the stage's core is {cores}, not the port's "
@@ -716,9 +915,15 @@ def end_to_end_resident(wr, rk):
                              "core")
     if total != want:
         raise AssertionError(f"windowed-sum total {total} != oracle {want}")
-    if not (launches["ring_append"] > 0
-            and launches["regular_window_sum"] > 0):
-        raise AssertionError(f"the resident path launched {launches}")
+    # every dispatch is one regular flush (one fused launch) or one
+    # irregular launch (ring_append + windowed_reduce for the one op)
+    if not (launches["ring_append_regular_sum"] > 0
+            and launches["ring_append"] == launches["windowed_reduce"]
+            and launches["regular_window_sum"] == 0
+            and stats["dispatches"] == launches["ring_append_regular_sum"]
+            + launches["ring_append"]):
+        raise AssertionError(f"the resident path launched {launches}, "
+                             f"dispatches {stats['dispatches']}")
     emit("end_to_end_resident",
          workload="sum_test CB win=256 slide=64 keys=64 resident",
          tuples=N_TUPLES, seconds=dt, tuples_per_s=N_TUPLES / dt,
@@ -754,12 +959,11 @@ def irregular_and_python_core(wr, rk):
     for op, name, make, cls in runs:
         cores = []
         stage = stage_with_core(make, cores)
-        counts = (wr.windowed_reduce.launches, rk.ring_append.launches,
-                  rk.regular_window_sum.launches)
+        counters = (wr.windowed_reduce, rk.ring_append,
+                    rk.ring_append_regular_sum)
+        counts = [c.launches for c in counters]
         _, n_dev, _, dev_rows = run_pipeline(stage, prefix, schema, True)
-        counts = [b - a for a, b in zip(counts, (
-            wr.windowed_reduce.launches, rk.ring_append.launches,
-            rk.regular_window_sum.launches))]
+        counts = [c.launches - a for c, a in zip(counters, counts)]
         if not (len(cores) == 1 and type(cores[0]) is cls
                 and getattr(cores[0], "_delegate", None) is None):
             raise AssertionError(f"{op}/{name}: the stage's core is {cores}")
@@ -774,7 +978,7 @@ def irregular_and_python_core(wr, rk):
              tuples=PREFIX_TUPLES, windows=n_dev, identical=True,
              launches={"windowed_reduce": counts[0],
                        "ring_append": counts[1],
-                       "regular_window_sum": counts[2]})
+                       "ring_append_regular_sum": counts[2]})
 
 
 # spatial_test wf-gpu's shape (apps/spatial.py defaults: 80,000 points/s
@@ -1136,7 +1340,8 @@ def check_spatial_oracle(rows, batches, name):
 
 def spatial_phases(wr, rk):
     """The spatial skyline, resident and restaging routes, against the
-    oracle and the host core; returns the main path's launch counts."""
+    oracle and the host core; returns the main path's launch counts and
+    its ring_append calls (recorded_appends)."""
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.apps.spatial import (POINT_SCHEMA,
                                                  SkylineWindow,
@@ -1157,7 +1362,8 @@ def spatial_phases(wr, rk):
                      ("spatial_restaging", {})):
         for c in counters:
             c.launches = 0
-        dt, rows = run_rows(farm(**kw), batches, POINT_SCHEMA)
+        with recorded_appends() as calls:
+            dt, rows = run_rows(farm(**kw), batches, POINT_SCHEMA)
         launches = {c.__name__: c.launches for c in counters}
         check_spatial_oracle(rows, batches, name)
         # one gather launch per fn launch (both fields in one); the
@@ -1171,7 +1377,7 @@ def spatial_phases(wr, rk):
                   > 0 and launches["ring_append"] == 0)
         if not ok:
             raise AssertionError(f"{name}: launches {launches}")
-        runs[name] = (rows, launches)
+        runs[name] = (rows, launches, calls)
         emit(name, workload="spatial_test wf-gpu TB win=4000 slide=1000 "
              "points, pardegree 2, batch_len 256", points=SP_POINTS,
              windows=len(rows), seconds=dt, windows_per_s=len(rows) / dt,
@@ -1197,7 +1403,7 @@ def spatial_phases(wr, rk):
                              "from the host core's")
     emit("spatial_prefix_vs_host_core", windows=SP_PREFIX_WINDOWS,
          identical=True)
-    return runs["spatial_resident"][1]
+    return runs["spatial_resident"][1:]
 
 
 def spatial_app():
@@ -1277,7 +1483,8 @@ def main() -> int:
     irregular_and_python_core(wr, rk)
     gather_row = gather_phase(dev)
     skyline_row = skyline_phase(dev)
-    spatial_launches = spatial_phases(wr, rk)
+    spatial_launches, spatial_appends = spatial_phases(wr, rk)
+    rows["ring_append"] = ring_append_phase(dev, spatial_appends)
     spatial_app()
     multi_field_native(wr, rk)
 
@@ -1288,14 +1495,19 @@ def main() -> int:
         launches=restaging_launches, max_abs_err=row["max_abs_err"],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None)]
-    for name, replaces in (("ring_append", "windflow_tpu/ops/resident.py:234"),
-                           ("regular_window_sum",
-                            "windflow_tpu/ops/resident.py:183")):
+    # ring_append's row: the spatial resident run's launches (the per-field
+    # rings append every launch), checked and timed at their own inputs; in
+    # sum_test it runs only with the irregular launches, the regular
+    # flushes append inside the fused kernel
+    for name, replaces, launches in (
+            ("ring_append", "windflow_tpu/ops/resident.py:234",
+             spatial_launches["ring_append"]),
+            ("ring_append_regular_sum", "windflow_tpu/ops/resident.py:183",
+             resident_launches["ring_append_regular_sum"])):
         kernels.append(dict(
             name=name, route="cuda",
             source="windflow_tpu_torch/ops/csrc/resident.cu",
-            replaces=replaces, launches=resident_launches[name],
-            **rows[name]))
+            replaces=replaces, launches=launches, **rows[name]))
     kernels.append(dict(
         name="window_gather", route="cuda",
         source="windflow_tpu_torch/ops/csrc/gather.cu",

@@ -38,9 +38,15 @@ With ``--ab DIR`` it compares this checkout (B) with another checkout of
 the repository at DIR (A, e.g. the parent commit unpacked with ``git
 archive``) on one card, in turns A, B, B, A: each turn is a fresh process
 in its checkout (its own kernels, built from its own sources) and prints
-one ``ab`` line with the kernels-line rows of chip_smoke.py's gather and
-skyline phases and the spatial stream's points/s on the resident and
-restaging routes (3 runs each after a warm-up).
+one ``ab`` line with the rows of chip_smoke.py's ring-kernel phase (the
+fused ring_append_regular_sum, the two-launch sequence it replaces,
+ring_append at that shape, the standalone regular_window_sum; a checkout
+without the fused kernel gives ring_append and regular_window_sum) and of
+its gather and skyline phases, ring_append at the inputs of the spatial
+resident run's launches (where that checkout's chip_smoke.py records
+them), sum_test's resident tuples/s with the ring kernels' launch counts
+of those runs, and the spatial stream's points/s on the
+resident and restaging routes (3 runs each after a warm-up).
 
 Usage, from the repository root on a machine with a CUDA card:
 
@@ -176,9 +182,25 @@ import json, torch
 import chip_smoke as cs
 import windflow_tpu_torch as wt
 from windflow_tpu_torch.apps.spatial import POINT_SCHEMA, device_skyline
+from windflow_tpu_torch.ops import ring as rk
 cs.build_all()
 dev = torch.device(cs.DEVICE)
-out = {"gather": cs.gather_phase(dev), "skyline": cs.skyline_phase(dev)}
+out = {"ring": cs.ring_kernel_phase(dev), "gather": cs.gather_phase(dev),
+       "skyline": cs.skyline_phase(dev)}
+schema = wt.Schema(value=cs.np.int64)
+cs.run_pipeline(cs.resident_stage(wt), cs.make_stream(schema,
+                                                      cs.PREFIX_TUPLES),
+                schema)
+stream = cs.make_stream(schema, cs.N_TUPLES)
+counters = [getattr(rk, n) for n in ("ring_append_regular_sum",
+            "ring_append", "regular_window_sum") if hasattr(rk, n)]
+for c in counters:
+    c.launches = 0
+out["sum_test_resident_tuples_per_s"] = [
+    cs.N_TUPLES / cs.run_pipeline(cs.resident_stage(wt), stream, schema)[0]
+    for _ in range(3)]
+out["sum_test_resident_launches"] = {c.__name__: c.launches
+                                     for c in counters}
 batches = cs.spatial_stream()
 def farm(**kw):
     return wt.WinFarmGPU(device_skyline(), cs.SP_WIN, cs.SP_SLIDE,
@@ -189,6 +211,10 @@ for name, kw in (("resident", {"use_resident": True}), ("restaging", {})):
     out[name + "_points_per_s"] = [
         cs.SP_POINTS / cs.run_rows(farm(**kw), batches, POINT_SCHEMA)[0]
         for _ in range(3)]
+if hasattr(cs, "recorded_appends"):
+    with cs.recorded_appends() as calls:
+        cs.run_rows(farm(use_resident=True), batches, POINT_SCHEMA)
+    out["ring_append_spatial"] = cs.ring_append_phase(dev, calls)
 print("AB " + json.dumps(out))
 """
 
@@ -218,8 +244,9 @@ def main(argv=None):
     ap.add_argument("--spatial", action="store_true",
                     help="profile the spatial skyline path instead")
     ap.add_argument("--ab", metavar="DIR",
-                    help="compare the gather and skyline kernels and the "
-                         "spatial run with the checkout at DIR, in turns")
+                    help="compare the ring, gather and skyline kernels, "
+                         "sum_test's resident route and the spatial run "
+                         "with the checkout at DIR, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)

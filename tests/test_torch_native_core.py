@@ -154,7 +154,7 @@ def test_native_role_renumbering(role, cfg):
 
 def test_native_regular_descriptors_engage(monkeypatch):
     """Steady-state CB sliding windows take the regular-descriptor launch
-    (the regular_window_sum kernel's path) and still match."""
+    (the fused ring_append_regular_sum kernel's path) and still match."""
     calls = []
     orig = ResidentWindowExecutor.launch_regular
 
@@ -163,13 +163,13 @@ def test_native_regular_descriptors_engage(monkeypatch):
         return orig(self, *a, **kw)
 
     monkeypatch.setattr(ResidentWindowExecutor, "launch_regular", counting)
-    before = (rk.ring_append.launches, rk.regular_window_sum.launches)
+    before = (rk.ring_append.launches, rk.ring_append_regular_sum.launches)
     assert_pair_matches(*pair(16, 4, batch_len=64, flush_rows=250),
                         cb_stream(4, 800, chunk=100, seed=31))
     assert calls, "regular-descriptor path never engaged"
     # CPU tensors ran the plain versions: no kernel launch was counted
     assert (rk.ring_append.launches,
-            rk.regular_window_sum.launches) == before
+            rk.ring_append_regular_sum.launches) == before
 
 
 def test_native_out_of_order_drops():

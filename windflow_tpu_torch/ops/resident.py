@@ -10,10 +10,12 @@ reads device memory:
   (the device twin of ``core/archive.py``'s ``KeyArchive``);
 * each launch appends the new rows as ONE rectangle in the narrowest wire
   dtype that holds them (int8/int16/int32/float32), widened to the
-  accumulate dtype on the card by the ``ring_append`` kernel;
-* the fired windows are then evaluated over the ring: regular windows by
-  the ``regular_window_sum`` kernel, windows given by explicit descriptors
-  by the windowed-reduce kernel on the ring's flat view, once per op;
+  accumulate dtype on the card;
+* the fired windows are then evaluated over the ring: regular windows in
+  the same launch as the append (the ``ring_append_regular_sum`` kernel,
+  one launch a flush, as the JAX step ``_regular_body`` is one jitted
+  step), windows given by explicit descriptors by the windowed-reduce
+  kernel on the ring's flat view, once per op;
 * with several fields (:class:`MultiFieldResidentExecutor`) each field has
   a ring of its own, each ``(op, field)`` stat reads its field's ring, and
   a bound user window function reads masked ``(B, pad)`` tiles of its
@@ -55,7 +57,7 @@ import torch
 from ..utils import profile
 from .device import _bucket
 from .gather import window_gather
-from .ring import regular_window_sum, ring_append
+from .ring import ring_append, ring_append_regular_sum
 from .windowed_reduce import windowed_reduce
 
 # -- wire diagnostics (always on: one lock round-trip per dispatch) ---------
@@ -466,9 +468,9 @@ class ResidentWindowExecutor:
         profile.add("rows_shipped", blk.size)
         profile.add("windows", len(wrows))
         with profile.span("dispatch"), self._on_stream():
-            ring = ring_append(self._ring_arr(), d_blk, d_vec[:KP])
-            out = regular_window_sum(ring, d_vec[KP:2 * KP],
-                                     d_vec[2 * KP:], C, int(slide))
+            out = ring_append_regular_sum(self._ring_arr(), d_blk,
+                                          d_vec[:KP], d_vec[KP:2 * KP],
+                                          d_vec[2 * KP:], C, int(slide))
             hosts, event = self._fetch((out,))
         stats_add("dispatches")
         self._inflight.append((meta, (np.asarray(wrows), np.asarray(widx)),

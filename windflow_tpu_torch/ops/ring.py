@@ -5,15 +5,19 @@ that builds them on first use.
 These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
 
 * :func:`ring_append` — the vmapped ``dynamic_update_slice`` + ``astype``
-  of ``_regular_body`` and ``_ring_append``: row ``r`` of a (KP, Rb)
-  rectangle, widened from its wire dtype (int8/int16/int32/float32) to the
-  ring's accumulate dtype (int32/float32), is written at column ``offs[r]``
-  of a (KP, cap) ring.  The ring is updated in place.
-* :func:`regular_window_sum` — the cumsum + two-point gather of
-  ``_regular_body``: window ``i`` of row ``r`` covers
-  ``ring[r, s:e]`` with ``s = clip(rstart0[r] + i*slide, 0, cap)`` and
-  ``e = clip(s + rlen[r], 0, cap)``; returns the (KP, C) sums.  int32 sums
-  wrap modulo 2**32, as XLA's int32 cumsum difference does.
+  of ``_ring_append``: row ``r`` of a (KP, Rb) rectangle, widened from its
+  wire dtype (int8/int16/int32/float32) to the ring's accumulate dtype
+  (int32/float32), is written at column ``offs[r]`` of a (KP, cap) ring.
+  The ring is updated in place.  On the card it is the kernel below with
+  no window.
+* :func:`ring_append_regular_sum` — the whole of ``_regular_body`` in one
+  launch: the same append, then the (KP, C) regular window sums of the
+  ring after it, window ``i`` of row ``r`` covering ``ring[r, s:e]`` with
+  ``s = clip(rstart0[r] + i*slide, 0, cap)`` and
+  ``e = clip(s + rlen[r], 0, cap)``.  int32 sums wrap modulo 2**32, as
+  XLA's int32 cumsum difference does.
+* :func:`regular_window_sum` — those window sums alone: the same kernel
+  with an empty rectangle.
 
 The irregular evaluation (``_ring_eval``) is the windowed-reduce kernel on
 the ring's flat view (ops/resident.py); :func:`ring_eval_reference` is a
@@ -39,6 +43,13 @@ _WIRES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
 #: accumulate dtypes of the ring (enum Acc)
 _ACCS = {torch.int32: 0, torch.float32: 1}
 
+# the kernels' geometry (constants of csrc/resident.cu; the tests' CPU twin
+# of their index arithmetic reads them here)
+#: cells a thread appends (a warp: 32 * CHUNK)
+CHUNK = 16
+#: consecutive windows of one row a warp of ring_append_regular_sum sums
+WIN_PER_WARP = 2
+
 _lock = threading.Lock()
 _lib = None
 
@@ -58,10 +69,10 @@ def _load():
             lib.wf_ring_append.argtypes = [c_p, c_p, c_p, c_int, c_ll, c_int,
                                            c_int, c_int, c_p]
             lib.wf_ring_append.restype = c_int
-            lib.wf_regular_window_sum.argtypes = [c_p, c_p, c_p, c_p, c_int,
-                                                  c_ll, c_int, c_int, c_int,
-                                                  c_p]
-            lib.wf_regular_window_sum.restype = c_int
+            lib.wf_ring_append_regular_sum.argtypes = [
+                c_p, c_p, c_p, c_p, c_p, c_p, c_int, c_ll, c_int, c_int,
+                c_int, c_int, c_int, c_p]
+            lib.wf_ring_append_regular_sum.restype = c_int
             _lib = lib
         return _lib
 
@@ -78,6 +89,37 @@ def _check_vec(name, t, rows, device):
         raise TypeError(f"{name} must be a ({rows},) int32 tensor on "
                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
                         f"{t.device}")
+
+
+def _check_append(ring, blk, offs):
+    _check_ring(ring)
+    KP = ring.shape[0]
+    if blk.dtype not in _WIRES or blk.dim() != 2 or blk.shape[0] != KP:
+        raise TypeError(f"blk must be a ({KP}, Rb) int8/int16/int32/float32 "
+                        f"tensor, got {blk.dtype} {tuple(blk.shape)}")
+    _check_vec("offs", offs, KP, ring.device)
+    if blk.device != ring.device:
+        raise TypeError(f"blk lies on {blk.device}, the ring on "
+                        f"{ring.device}")
+
+
+def _check_windows(ring, rstart0, rlen):
+    _check_ring(ring)
+    _check_vec("rstart0", rstart0, ring.shape[0], ring.device)
+    _check_vec("rlen", rlen, ring.shape[0], ring.device)
+
+
+def _on_card(name, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for contiguous
+    CUDA tensors (the kernel launches); raises on anything else."""
+    device = tensors[0].device
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True
 
 
 def _stream_of(t: torch.Tensor) -> int:
@@ -102,23 +144,10 @@ def ring_append(ring: torch.Tensor, blk: torch.Tensor,
     """Write row ``r`` of the (KP, Rb) rectangle `blk` at column ``offs[r]``
     of the (KP, cap) `ring`, widened to the ring's dtype; returns `ring`,
     updated in place."""
-    _check_ring(ring)
-    KP, cap = ring.shape
-    if blk.dtype not in _WIRES or blk.dim() != 2 or blk.shape[0] != KP:
-        raise TypeError(f"blk must be a ({KP}, Rb) int8/int16/int32/float32 "
-                        f"tensor, got {blk.dtype} {tuple(blk.shape)}")
-    _check_vec("offs", offs, KP, ring.device)
-    if blk.device != ring.device:
-        raise TypeError(f"blk lies on {blk.device}, the ring on "
-                        f"{ring.device}")
-    if ring.device.type == "cpu":
+    _check_append(ring, blk, offs)
+    if not _on_card("ring_append", ring, blk, offs):
         return ring_append_reference(ring, blk, offs)
-    if ring.device.type != "cuda":
-        raise ValueError(f"ring_append runs on cuda or cpu tensors, got "
-                         f"{ring.device}")
-    if not (ring.is_contiguous() and blk.is_contiguous()
-            and offs.is_contiguous()):
-        raise ValueError("ring_append takes contiguous tensors")
+    KP, cap = ring.shape
     Rb = blk.shape[1]
     if KP == 0 or Rb == 0:
         return ring
@@ -158,38 +187,79 @@ def regular_window_sum_reference(ring: torch.Tensor, rstart0: torch.Tensor,
     return (cs.gather(1, e) - cs.gather(1, s)).to(ring.dtype)
 
 
+def ring_append_regular_sum_reference(ring: torch.Tensor, blk: torch.Tensor,
+                                      offs: torch.Tensor,
+                                      rstart0: torch.Tensor,
+                                      rlen: torch.Tensor, C: int,
+                                      slide: int) -> torch.Tensor:
+    """Plain version of the fused kernel: the plain append, then the plain
+    window sums of the ring after it."""
+    return regular_window_sum_reference(
+        ring_append_reference(ring, blk, offs), rstart0, rlen, C, slide)
+
+
+def _launch_append_sum(ring, blk, offs, rstart0, rlen, C, slide, counter):
+    """One launch of the fused kernel, counted in ``counter.launches``
+    (nothing is launched or counted when there is no cell to write);
+    ``blk is None`` is the empty rectangle (the standalone window sum).
+    Returns the (KP, C) sums."""
+    KP, cap = ring.shape
+    if cap > 2 ** 30:
+        raise ValueError(f"ring rows of {cap} cells: the window-sum kernel "
+                         "takes rows of at most 2**30 cells")
+    out = torch.empty((KP, C), dtype=ring.dtype, device=ring.device)
+    Rb = 0 if blk is None else blk.shape[1]
+    if KP == 0 or (C == 0 and Rb == 0):
+        return out
+    lib = _load()
+    with torch.cuda.device(ring.device):
+        rc = lib.wf_ring_append_regular_sum(
+            ring.data_ptr(), None if blk is None else blk.data_ptr(),
+            None if blk is None else offs.data_ptr(), rstart0.data_ptr(),
+            rlen.data_ptr(), out.data_ptr(), KP, cap, Rb, int(C), int(slide),
+            0 if blk is None else _WIRES[blk.dtype], _ACCS[ring.dtype],
+            _stream_of(ring))
+    if rc != 0:
+        raise RuntimeError(f"ring_append_regular_sum kernel launch failed: "
+                           f"CUDA error {rc}")
+    counter.launches += 1
+    return out
+
+
+def ring_append_regular_sum(ring: torch.Tensor, blk: torch.Tensor,
+                            offs: torch.Tensor, rstart0: torch.Tensor,
+                            rlen: torch.Tensor, C: int,
+                            slide: int) -> torch.Tensor:
+    """:func:`ring_append` of `blk` at `offs`, then the (KP, C) sums of the
+    regular windows of the ring after it (window ``i`` of row ``r`` starts
+    at ``rstart0[r] + i*slide`` with length ``rlen[r]`` >= 0, both clipped
+    to ``[0, cap]``), in one kernel launch; `ring` is updated in place."""
+    _check_append(ring, blk, offs)
+    _check_windows(ring, rstart0, rlen)
+    if not _on_card("ring_append_regular_sum", ring, blk, offs, rstart0,
+                    rlen):
+        return ring_append_regular_sum_reference(ring, blk, offs, rstart0,
+                                                 rlen, C, slide)
+    return _launch_append_sum(ring, blk, offs, rstart0, rlen, C, slide,
+                              ring_append_regular_sum)
+
+
+#: kernel launches since the count was last reset
+ring_append_regular_sum.launches = 0
+
+
 def regular_window_sum(ring: torch.Tensor, rstart0: torch.Tensor,
                        rlen: torch.Tensor, C: int,
                        slide: int) -> torch.Tensor:
     """(KP, C) sums of the regular windows of every ring row: window ``i``
     of row ``r`` starts at ``rstart0[r] + i*slide`` with length ``rlen[r]``
-    (>= 0), both clipped to ``[0, cap]``."""
-    _check_ring(ring)
-    KP, cap = ring.shape
-    _check_vec("rstart0", rstart0, KP, ring.device)
-    _check_vec("rlen", rlen, KP, ring.device)
-    if ring.device.type == "cpu":
+    (>= 0), both clipped to ``[0, cap]`` — the fused kernel with an empty
+    rectangle."""
+    _check_windows(ring, rstart0, rlen)
+    if not _on_card("regular_window_sum", ring, rstart0, rlen):
         return regular_window_sum_reference(ring, rstart0, rlen, C, slide)
-    if ring.device.type != "cuda":
-        raise ValueError(f"regular_window_sum runs on cuda or cpu tensors, "
-                         f"got {ring.device}")
-    if not (ring.is_contiguous() and rstart0.is_contiguous()
-            and rlen.is_contiguous()):
-        raise ValueError("regular_window_sum takes contiguous tensors")
-    out = torch.empty((KP, C), dtype=ring.dtype, device=ring.device)
-    if KP == 0 or C == 0:
-        return out
-    lib = _load()
-    with torch.cuda.device(ring.device):
-        rc = lib.wf_regular_window_sum(
-            ring.data_ptr(), rstart0.data_ptr(), rlen.data_ptr(),
-            out.data_ptr(), KP, cap, int(C), int(slide), _ACCS[ring.dtype],
-            _stream_of(ring))
-    if rc != 0:
-        raise RuntimeError(f"regular_window_sum kernel launch failed: CUDA "
-                           f"error {rc}")
-    regular_window_sum.launches += 1
-    return out
+    return _launch_append_sum(ring, None, None, rstart0, rlen, C, slide,
+                              regular_window_sum)
 
 
 #: kernel launches since the count was last reset
