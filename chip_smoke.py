@@ -11,26 +11,40 @@ catches its own failure):
 2. build: compiles every kernel source of windflow_tpu_torch/ops/csrc/ with
    nvcc (one nvcc per source) and the native host library with make, all
    at once, and reports each build time;
-3. kernel: the windowed-reduce kernel against its plain PyTorch version on
-   the card, for sum/count/min/max/prod over int32 and float32, at the
+3. kernel: the windowed-reduce kernel against its plain PyTorch version and,
+   bit for bit, against its lane-order twin (plain torch, run on the card),
+   for sum/count/min/max/prod over int32 and float32, at the
    restaging path's shape (32768 windows of 256 rows over a ~2.1M-row flat
-   buffer) and at edge cases, with CUDA-graph timings beside the least time
-   the card could take;
-4. ring_kernel: the fused ring_append_regular_sum (one launch a flush),
-   and ring_append and the standalone regular_window_sum (the fused kernel
-   with an empty rectangle), against their plain versions at the resident
-   path's shape (a 64 x 262144 int32 ring, a 64 x 8192 int8 rectangle, 128
-   windows of 256 rows per key, slide 64) and at edge cases (every wire x
-   accumulate dtype, keys fewer than ring rows, rows without windows, zero
-   lengths, starts clipped at 0 and at cap, an int32 wrap, offsets at
-   cap - Rb and at every residue mod 4, Rb not a multiple of 16, C not a
-   multiple of a warp's 2 windows, windows 600 apart, windows of 5,000
-   cells; two launches bitwise equal), with timings of
-   the fused kernel beside the two-launch sequence it replaces (and
-   ring_append alone at this shape); and the
-   windowed-reduce kernel on the ring's flat view (the irregular
-   evaluation) against the plain transcription of the JAX package's
-   _ring_eval;
+   buffer), in both of its designs (direct, the default, and staged), with
+   CUDA-graph timings beside the least time the card could take: hot (one
+   input set) and cold (inputs cycled through three times the L2), and the
+   empty-launch floor; then at edge cases (lengths 0 and pad, B = 1, 7, 8,
+   int32 wrap, NaN), windows that straddle blocks, every start offset mod
+   4, a span exactly at the staged design's shared-memory budget and one
+   16-byte group past it, and many evaluations in one launch (sum of an
+   int32 ring, max of a float32 ring and count over unsorted windows on
+   several rows; nine evaluations in two launches), the staged design's
+   per-block choice counted on the card against the twin's plan;
+4. ring_kernel: the fused ring_append_regular_sum (one launch a flush) and
+   ring_append against their plain versions at the resident path's shape
+   (a 64 x 262144 int32 ring, a 64 x 8192 int8 rectangle, 128 windows of
+   256 rows per key, slide 64) and at edge cases (every wire x accumulate
+   dtype, keys fewer than ring rows, rows without windows, zero lengths,
+   starts clipped at 0 and at cap, an int32 wrap, offsets at cap - Rb and
+   at every residue mod 4, Rb not a multiple of 16, C not a multiple of a
+   warp's 2 windows, windows 600 apart, windows of 5,000 cells; two
+   launches bitwise equal; the window sums alone, an empty (KP, 0)
+   rectangle, equal too), with timings of the fused kernel and of
+   ring_append at this shape; and the windowed-reduce kernel over the
+   ring's (row, start, len) descriptors (the irregular evaluation)
+   against the plain transcription of the JAX package's _ring_eval and the
+   twin;
+4b. big_ring: a ring of 16 x 2^28 int32 cells (2^32 cells, 16 GiB) through
+   ResidentWindowExecutor.launch: two appends at the ends of its rows, then
+   sum, max and min of windows on its last row, whose cells lie past flat
+   offset 2^32, in one windowed-reduce launch, held against the plain
+   version on that row (the int32 flat starts of the kernel before could
+   not reach them);
 5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
    256, 64, CB, use_reduce_kernel=True) -> Sink) over 16M tuples of 64 keys,
    held against a numpy oracle, with the kernel's launch count read around
@@ -41,8 +55,8 @@ catches its own failure):
    NativeResidentCore feeding the ring kernels — over 16M tuples against
    the oracle, with the ring kernels' launch counts read around that run:
    one fused launch a regular flush, ring_append only with the irregular
-   windowed_reduce launches (a 1M-tuple prefix is first held against the
-   host core);
+   windowed_reduce launches, one each (a 1M-tuple prefix is first held
+   against the host core);
 7. irregular_and_python_core: Reducer("max") on the native core (irregular
    launches: the windowed-reduce kernel on the ring) and Reducer("sum") on
    the Python ResidentWinSeqCore, 1M tuples each, byte for byte against
@@ -80,9 +94,11 @@ catches its own failure):
 13. multi_field_native: MultiReducer(sum(a), max(b), count) over CB 256/64
    and 64 keys, 4M tuples, through the native core's per-field rings
    (NativeResidentCore._multi -> MultiFieldResidentExecutor), byte for
-   byte against the port's host core.
+   byte against the port's host core, with one windowed-reduce launch for
+   each of the executor's launches that evaluates windows.
 
-Then it prints the kernels' JSON line, the nvidia-smi line, and last
+Then it prints the kernels' JSON line (each kernel with the empty-launch
+floor beside its times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
 result when no CUDA device is visible or when the package is missing.
 """
@@ -90,6 +106,7 @@ result when no CUDA device is visible or when the package is missing.
 import contextlib
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -201,11 +218,12 @@ def bound(op, n, B, lens):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(got, want, flat, starts, lens, op):
+def compare(got, want, flat, starts, lens, op, rows=None):
     """Max abs error of got vs want; raises on a disagreement.  Integers and
     float min/max/count exactly; float sums within FLOAT_RTOL of the sum of
     |x| over the window (reduction order differs); float prod within
-    FLOAT_RTOL of |want|."""
+    FLOAT_RTOL of |want|.  `flat` is the buffer the windows read: one flat
+    row, or with `rows` a 2-D one."""
     same = got == want
     if got.is_floating_point():
         same |= torch.isnan(got) & torch.isnan(want)
@@ -217,10 +235,12 @@ def compare(got, want, flat, starts, lens, op):
         return 0.0
     err = torch.where(same, 0.0, (got.double() - want.double()).abs())
     if op == "sum":
+        buf = flat.reshape(1, -1) if rows is None else flat
+        r = (torch.zeros_like(starts) if rows is None else rows).long()
         idx = (starts.long()[:, None]
                + torch.arange(int(lens.max()), device=flat.device)[None, :])
         mask = idx < (starts.long() + lens.long())[:, None]
-        vals = flat[idx.clamp(max=flat.numel() - 1)].double().abs()
+        vals = buf[r[:, None], idx.clamp(max=buf.shape[1] - 1)].double().abs()
         scale = torch.where(mask, vals, 0).sum(dim=1)
     else:
         scale = want.double().abs()
@@ -230,9 +250,74 @@ def compare(got, want, flat, starts, lens, op):
     return float(err.max())
 
 
+def twin_module():
+    """The windowed-reduce kernel's lane-order twin and the staged design's
+    per-block plan (tests/test_torch_windowed_reduce.py: lane_order_twin,
+    staged_plan), loaded from the checkout by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_windowed_reduce.py")
+    spec = importlib.util.spec_from_file_location("wr_twin", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_reduce(wr, tw, evals, rows, starts, lens, pad, name, plan=None):
+    """Both designs of the kernel against the plain version (compare) and
+    bit for bit against the twin; with `plan` (the twin's staged_plan) the
+    staged design's blocks that staged and that read device memory must be
+    the plan's.  Returns the largest error against the plain version."""
+    dev = starts.device
+    paths = torch.zeros(2, dtype=torch.int32, device=dev)
+    direct = wr.windowed_reduce_many(evals, rows, starts, lens, pad)
+    staged = wr.windowed_reduce_many(evals, rows, starts, lens, pad,
+                                     staged=True, paths=paths)
+    plain = wr.windowed_reduce_many_reference(evals, rows, starts, lens, pad)
+    twin = tw.lane_order_twin(evals, rows, starts, lens, pad)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (buf, op), d, st, p, t in zip(evals, direct, staged, plain, twin):
+        for label, got in (("direct", d), ("staged", st)):
+            if not torch.equal(got.view(torch.int32), t.view(torch.int32)):
+                bad = int((got.view(torch.int32) != t.view(torch.int32))
+                          .nonzero()[0])
+                raise AssertionError(
+                    f"windowed_reduce {name} {op}/{buf.dtype} ({label}): "
+                    f"window {bad} gives {got[bad].item()}, the twin "
+                    f"{t[bad].item()}")
+        err = max(err, compare(d, p, buf, starts, lens, op, rows))
+    if plan is not None:
+        want = [int(plan.sum()), int((~plan).sum())]
+        if paths.tolist() != want:
+            raise AssertionError(f"windowed_reduce {name}: staged blocks "
+                                 f"{paths.tolist()}, the plan {want}")
+    return err
+
+
+def cold_copies(dev, tensors):
+    """Copies of `tensors` whose sum is three times the card's L2 (the
+    first is `tensors` itself): a timed call that cycles through them finds
+    its inputs in device memory, not in L2."""
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 << 20)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = -(-3 * l2 // nbytes)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n - 1)]
+
+
+def cycled(copies, fn):
+    """fn over the next of `copies` at each call (cold inputs)."""
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
+
+
 def kernel_phase(wr, dev):
-    """Kernel against its plain version at the main path's shape and at edge
-    cases; returns the main-path row of the kernels line (op sum, int32)."""
+    """Kernel against its plain version and its twin at the main path's
+    shape, both designs, and at edge cases; returns the main-path row of
+    the kernels line (op sum, int32, the default design)."""
+    tw = twin_module()
     gen = np.random.default_rng(0)
     starts, lens, n = bench_layout(dev)
     max_err = 0.0
@@ -246,41 +331,83 @@ def kernel_phase(wr, dev):
             else:
                 host = gen.integers(0, 100, size=n)
             flat = torch.from_numpy(host).to(dev, dtype)
-            got = wr.windowed_reduce(flat, starts, lens, WIN, op)
-            want = wr.windowed_reduce_reference(flat, starts, lens, WIN, op)
-            torch.cuda.synchronize()
-            err = compare(got, want, flat, starts, lens, op)
+            err = check_reduce(wr, tw, [(flat, op)], None, starts, lens, WIN,
+                               f"bench_shape {op}/{dtype}",
+                               tw.staged_plan(None, starts.cpu().numpy(),
+                                              lens.cpu().numpy(), WIN, n,
+                                              int(op != "count")))
             max_err = max(max_err, err)
             b_ms, b_by = bound(op, n, BATCH_LEN, lens)
-            def kernel():
-                wr.windowed_reduce(flat, starts, lens, WIN, op)
+
+            def kernel(staged=False):
+                wr.windowed_reduce_many([(flat, op)], None, starts, lens, WIN,
+                                        staged=staged)
 
             k_ms = kernel_ms(kernel)
+            s_ms = kernel_ms(lambda: kernel(True))
             c_ms = call_ms(kernel)
             p_ms = call_ms(lambda: wr.windowed_reduce_reference(
                 flat, starts, lens, WIN, op))
             rows[(op, dtype)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by)
             emit("kernel", case="bench_shape", op=op, dtype=str(dtype),
-                 B=BATCH_LEN, pad=WIN, n=n, max_abs_err=err, kernel_ms=k_ms,
+                 B=BATCH_LEN, pad=WIN, n=n, max_abs_err=err,
+                 twin_bitwise=True, kernel_ms=k_ms, staged_ms=s_ms,
                  kernel_call_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None)
-    edge_cases(wr, dev, gen)
+    # the main-path row: sum over int32, hot and cold, both designs, beside
+    # the bound and the empty-launch floor
+    flat = torch.from_numpy(gen.integers(0, 100, size=n)).to(dev,
+                                                             torch.int32)
+    copies = cold_copies(dev, (flat, starts, lens))
+
+    def timed(staged):
+        return dict(
+            hot_ms=kernel_ms(lambda: wr.windowed_reduce_many(
+                [(flat, "sum")], None, starts, lens, WIN, staged=staged)),
+            cold_ms=kernel_ms(cycled(copies, lambda f, st, ln:
+                                     wr.windowed_reduce_many(
+                                         [(f, "sum")], None, st, ln, WIN,
+                                         staged=staged)),
+                              reps=10 * len(copies)))
+
+    designs = {"direct": timed(False), "staged": timed(True)}
+    floor = kernel_ms(wr.empty_launch)
+    b_ms, b_by = bound("sum", n, BATCH_LEN, lens)
+    emit("kernel", case="bench_shape_designs", op="sum", dtype="torch.int32",
+         B=BATCH_LEN, pad=WIN, n=n, cold_copies=len(copies),
+         default="direct", **{f"{k}_{m}": v for k, d in designs.items()
+                              for m, v in d.items()},
+         floor_ms=floor, bound_ms=b_ms, bound_by=b_by,
+         bound_bytes=4 * n + 12 * BATCH_LEN)
+    del copies
+    emit("kernel", case="edges_and_many_evaluations",
+         max_abs_err=edge_cases(wr, tw, dev, gen), ok=True)
     torch.cuda.synchronize()
-    return dict(max_abs_err=max_err, **rows[("sum", torch.int32)])
+    row = dict(rows[("sum", torch.int32)])
+    row["ms"] = designs["direct"]["hot_ms"]
+    return dict(max_abs_err=max_err, cold_ms=designs["direct"]["cold_ms"],
+                staged_ms=designs["staged"]["hot_ms"],
+                staged_cold_ms=designs["staged"]["cold_ms"],
+                floor_ms=floor, **row)
 
 
-def edge_cases(wr, dev, gen):
+def edge_cases(wr, tw, dev, gen):
+    """The kernel against its plain version and its twin, both designs, at
+    its edges; returns the largest error against the plain version (float
+    products of up to 300 values near 1 included, so it can be large in
+    absolute terms and still within FLOAT_RTOL of |want|)."""
+    as32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                     device=dev)
+    err = 0.0
+
     def check(name, flat, starts, lens, pad, ops):
+        nonlocal err
         flat = flat.to(dev)
-        starts = torch.as_tensor(starts, dtype=torch.int32, device=dev)
-        lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        for op in ops:
-            got = wr.windowed_reduce(flat, starts, lens, pad, op)
-            want = wr.windowed_reduce_reference(flat, starts, lens, pad, op)
-            torch.cuda.synchronize()
-            compare(got, want, flat, starts, lens, op)
-            emit("kernel", case=name, op=op, dtype=str(flat.dtype), ok=True)
+        err = max(err, check_reduce(wr, tw, [(flat, op) for op in ops], None,
+                                    as32(starts), as32(lens), pad, name))
+        emit("kernel", case=name, ops=list(ops), dtype=str(flat.dtype),
+             ok=True)
 
     all_ops = ("sum", "count", "min", "max", "prod")
     for dtype in (torch.int32, torch.float32):
@@ -297,6 +424,22 @@ def edge_cases(wr, dev, gen):
         flat = torch.from_numpy(values(600)).to(dtype)
         check("len0_and_len_pad", flat, [0, 5, 300, 44], [0, 256, 256, 0],
               256, all_ops)
+        # sliding windows that straddle the blocks of both designs (B not
+        # a multiple of 64), lengths 0..300 at pad 300
+        flat = torch.from_numpy(values(12000)).to(dtype)
+        B = 64 * 5 + 37
+        lens = gen.integers(0, 301, size=B)
+        lens[::9] = 300
+        check("straddle_blocks", flat, np.arange(B) * 29, lens, 300, all_ops)
+        # every start offset mod 4 (the 16-byte groups' head), and windows
+        # that end at the buffer's last cell (n not a multiple of 4)
+        for m in range(4):
+            flat = torch.from_numpy(values(4001)).to(dtype)
+            starts = 4 * gen.integers(0, 900, size=200) + m
+            lens = gen.integers(0, 257, size=200)
+            starts[:4] = 4001 - lens[:4]
+            check(f"start_mod4={m}", flat, np.sort(starts), lens, 256,
+                  all_ops)
     wrap = torch.full((16,), 2 ** 30, dtype=torch.int32)
     check("int32_wrap_sum", wrap, [0, 0, 4], [4, 3, 8], 8, ("sum",))
     wrap16 = torch.full((16,), 2 ** 16, dtype=torch.int32)
@@ -305,6 +448,60 @@ def edge_cases(wr, dev, gen):
     nan[5] = float("nan")
     check("nan_min_max", nan, [0, 4, 8, 6, 40], [8, 4, 8, 0, 16], 16,
           ("min", "max", "sum"))
+    # a span at the staged design's budget: 64 windows of one buffer
+    # covering exactly STAGE_CELLS cells from a 16-byte edge stage; one
+    # cell later (head 1) the span takes one 16-byte group more and the
+    # block reads device memory
+    n = 4 * wr.STAGE_CELLS
+    flat = torch.from_numpy(gen.integers(-50, 50, size=n)).to(dev,
+                                                               torch.int32)
+    lens = as32(np.full(wr.STAGED_WINDOWS, WIN))
+    for shift, want in ((0, [True]), (1, [False])):
+        st = np.r_[0, np.full(wr.STAGED_WINDOWS - 1,
+                              wr.STAGE_CELLS - WIN)] + shift
+        plan = tw.staged_plan(None, st, lens.cpu().numpy(), WIN, n, 1)
+        if plan.tolist() != want:
+            raise AssertionError(f"budget case shift {shift}: plan {plan}")
+        err = max(err, check_reduce(wr, tw, [(flat, "sum"), (flat, "max")],
+                                    None, as32(st), lens, WIN,
+                                    f"budget_shift{shift}", plan))
+    emit("kernel", case="stage_budget", stage_cells=wr.STAGE_CELLS,
+         at_budget_staged=True, one_group_past_direct=True, ok=True)
+    # many evaluations in one launch: sum of an int32 ring, max of a
+    # float32 ring and count, over sliding windows of one row (blocks that
+    # stage) then unsorted windows on several rows (blocks that read device
+    # memory); then nine evaluations (two launches)
+    R, ncols, B = 8, 20000, 64 * 6 + 21
+    ri = torch.from_numpy(gen.integers(-1000, 1000, size=(R, ncols))).to(
+        dev, torch.int32)
+    rf = torch.from_numpy(gen.uniform(-100, 100, size=(R, ncols))).to(
+        dev, torch.float32)
+    rows = gen.integers(0, R, size=B)
+    starts = gen.integers(0, ncols - 300, size=B)
+    rows[:192] = 3
+    starts[:192] = 100 + np.arange(192) * 64
+    lens = gen.integers(0, 300, size=B)
+    lens[:192] = 256
+    d = [as32(a) for a in (rows, starts, lens)]
+    plan = tw.staged_plan(rows, starts, lens, 300, ncols, 2)
+    if not (plan.any() and not plan.all()):
+        raise AssertionError(f"many-evaluation case: plan {plan}")
+    evals = [(ri, "sum"), (rf, "max"), (ri, "count")]
+    before = wr.windowed_reduce.launches
+    err = max(err, check_reduce(wr, tw, evals, *d, 300, "many_evaluations",
+                                plan))
+    if wr.windowed_reduce.launches - before != 2:    # one a design
+        raise AssertionError("three evaluations took more than one launch")
+    evals9 = evals + [(rf, "min"), (ri, "prod"), (rf, "sum"), (ri, "max"),
+                      (rf, "count"), (ri, "min")]
+    before = wr.windowed_reduce.launches
+    err = max(err, check_reduce(wr, tw, evals9, *d, 300, "nine_evaluations"))
+    if wr.windowed_reduce.launches - before != 4:    # two a design
+        raise AssertionError("nine evaluations did not take two launches")
+    emit("kernel", case="many_evaluations", evals=[op for _, op in evals9],
+         rows=R, B=B, staged_blocks=int(plan.sum()),
+         direct_blocks=int((~plan).sum()), ok=True)
+    return err
 
 
 def build_all():
@@ -392,10 +589,14 @@ def ring_case(gen, dev, wire, acc, edge, K=KP, cap=CAP, Rb=RB, C=C_WINDOWS,
 
 
 def run_two_launches(rk, case):
-    """ring_append, then the standalone regular_window_sum."""
+    """ring_append, then the window sums alone (the fused kernel with an
+    empty (KP, 0) rectangle)."""
     ring = rk.ring_append(case["ring"].clone(), case["blk"], case["offs"])
-    return ring, rk.regular_window_sum(ring, case["rstart0"], case["rlen"],
-                                       case["C"], case["slide"])
+    KP = ring.shape[0]
+    empty = torch.zeros((KP, 0), dtype=torch.int8, device=ring.device)
+    return ring, rk.ring_append_regular_sum(
+        ring, empty, torch.zeros_like(case["offs"]), case["rstart0"],
+        case["rlen"], case["C"], case["slide"])
 
 
 def run_fused(rk, case, plain):
@@ -438,7 +639,7 @@ def check_ring(rk, case, name):
                             case["C"], case["slide"])
     err = 0.0
     for label, (ring_k, out_k) in (("ring_append_regular_sum", fused[0]),
-                                   ("ring_append + regular_window_sum",
+                                   ("ring_append + window sums alone",
                                     two)):
         if not torch.equal(ring_k, ring_p):
             raise AssertionError(f"{label} {name}: rings differ")
@@ -494,15 +695,6 @@ def covered(starts, lens, rows=None):
     return int(n)
 
 
-def covered_cells(rstart0, rlen, C, slide, cap):
-    """Ring cells the regular windows cover, each counted once."""
-    s = np.clip(rstart0.numpy()[:, None] + np.arange(C)[None, :] * slide, 0,
-                cap)
-    e = np.clip(s + rlen.numpy()[:, None], 0, cap)
-    rows = np.repeat(np.arange(len(s)), C)
-    return covered(s.ravel(), (e - s).ravel(), rows)
-
-
 def bytes_bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -529,66 +721,31 @@ def ring_kernel_phase(dev):
     f_plain = call_ms(lambda: rk.ring_append_regular_sum_reference(
         ring, blk, offs, rs0, rln, C_WINDOWS, SLIDE))
 
-    def two_launches():
-        rk.ring_append(ring, blk, offs)
-        rk.regular_window_sum(ring, rs0, rln, C_WINDOWS, SLIDE)
-
-    two_ms = kernel_ms(two_launches)
     f_bound = fused_bound(case)
     a_ms = kernel_ms(lambda: rk.ring_append(ring, blk, offs))
     a_plain = call_ms(lambda: rk.ring_append_reference(ring, blk, offs))
     idx = offs.long()[:, None] + torch.arange(RB, device=dev)[None, :]
     a_lib = call_ms(lambda: ring.scatter_(1, idx, blk.to(torch.int32)))
     a_bound = bytes_bound(blk.numel() * (1 + 4) + 4 * KP, blk.numel())
-    s_ms = kernel_ms(lambda: rk.regular_window_sum(ring, rs0, rln,
-                                                   C_WINDOWS, SLIDE))
-    s_plain = call_ms(lambda: rk.regular_window_sum_reference(
-        ring, rs0, rln, C_WINDOWS, SLIDE))
-
-    def jax_design():
-        cs = torch.nn.functional.pad(
-            torch.cumsum(ring, dim=1, dtype=torch.int32), (1, 0))
-        i = torch.arange(C_WINDOWS, device=dev)
-        st = (rs0.long()[:, None] + i[None, :] * SLIDE).clamp(0, CAP)
-        en = (st + rln.long()[:, None]).clamp(0, CAP)
-        return cs.gather(1, en) - cs.gather(1, st)
-
-    s_jax = call_ms(jax_design)
-    cells = covered_cells(rs0.cpu(), rln.cpu(), C_WINDOWS, SLIDE, CAP)
-    s_bound = bytes_bound(4 * cells + 8 * KP + 4 * KP * C_WINDOWS,
-                          int(rln.long().sum()) * C_WINDOWS)
     emit("ring_kernel", kernel="ring_append_regular_sum", case="main_shape",
          KP=KP, cap=CAP, Rb=RB, wire="int8", acc="int32", C=C_WINDOWS,
          slide=SLIDE, rlen=WIN, max_abs_err=sum_err, kernel_ms=f_ms,
-         plain_ms=f_plain, two_launch_ms=two_ms,
-         two_launch="ring_append + regular_window_sum", library_ms=None,
+         plain_ms=f_plain, library_ms=None,
          library_none_because="no single torch call appends and sums "
                               "clipped overlapping windows",
          bound_bytes=f_bound[2], bound_ms=f_bound[0], bound_by=f_bound[1])
-    # ring_append at the regular-flush shape: half of the two-launch
-    # sequence (its kernels-line row is timed at the shape of its main-path
-    # launches, ring_append_phase)
+    # ring_append at the regular-flush shape (its kernels-line row is timed
+    # at the shape of its main-path launches, ring_append_phase)
     emit("ring_kernel", kernel="ring_append", case="regular_flush_shape",
          KP=KP, cap=CAP, Rb=RB, wire="int8", acc="int32", kernel_ms=a_ms,
          plain_ms=a_plain, library_ms=a_lib,
          library="ring.scatter_(1, idx, blk.to(int32))",
          bound_ms=a_bound[0], bound_by=a_bound[1])
-    emit("ring_kernel", kernel="regular_window_sum", case="main_shape",
-         form="ring_append_regular_sum with Rb = 0", KP=KP, cap=CAP,
-         C=C_WINDOWS, slide=SLIDE, rlen=WIN, covered_cells=cells,
-         max_abs_err=sum_err, kernel_ms=s_ms, plain_ms=s_plain,
-         library_ms=None, jax_design_ms=s_jax, bound_ms=s_bound[0],
-         bound_by=s_bound[1])
     rows["ring_append_flush_shape"] = dict(
         ms=a_ms, plain_ms=a_plain, bound_ms=a_bound[0], library_ms=a_lib)
     rows["ring_append_regular_sum"] = dict(
         max_abs_err=sum_err, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
         bound_by=f_bound[1], library_ms=None)
-    # not rows of the kernels line: the sequence the fused kernel replaces,
-    # its ring_append half and the standalone sum
-    # (torch_sum_test_profile.py --ab reads these)
-    rows["two_launches"] = dict(ms=two_ms)
-    rows["regular_window_sum"] = dict(ms=s_ms, bound_ms=s_bound[0])
 
     # -- edge cases, every wire x accumulate dtype, at a small ring
     edges = ("plain", "keys_lt_rows", "rows_without_windows", "zero_length",
@@ -630,10 +787,16 @@ def ring_kernel_phase(dev):
              offs_mod=[0, 1, 2, 3], two_launches_bitwise_equal=True,
              ok=True)
 
-    # -- the irregular evaluation: windowed_reduce on the ring's flat view
+    # -- the irregular evaluation: windowed_reduce over the ring's (row,
+    # start, len) descriptors, every op in one launch
+    tw = twin_module()
     for acc in ACCS:
         ring = (torch.from_numpy(gen.integers(0, 100, size=(KP, CAP)))
                 .to(dev, acc))
+        ring_p = (torch.from_numpy(gen.uniform(0.99, 1.01, size=(KP, CAP)))
+                  .to(dev, acc) if acc == torch.float32
+                  else torch.from_numpy(gen.integers(-2, 3, size=(KP, CAP)))
+                  .to(dev, acc))
         B = BATCH_LEN
         rows_ = torch.from_numpy(gen.integers(0, KP, size=B)).to(dev,
                                                                  torch.int32)
@@ -641,23 +804,81 @@ def ring_kernel_phase(dev):
             dev, torch.int32)
         starts = torch.from_numpy(gen.integers(0, CAP - WIN, size=B)).to(
             dev, torch.int32)
-        flat_starts = (rows_.long() * CAP + starts).to(torch.int32)
-        for op in ("sum", "min", "max", "prod"):
-            r = ring
-            if op == "prod":
-                r = (torch.from_numpy(gen.uniform(0.99, 1.01, size=(KP, CAP)))
-                     .to(dev, acc) if acc == torch.float32
-                     else torch.from_numpy(gen.integers(-2, 3, size=(KP, CAP)))
-                     .to(dev, acc))
-            got = wr.windowed_reduce(r.view(-1), flat_starts, lens, WIN, op)
+        evals = [(ring, "sum"), (ring, "min"), (ring, "max"),
+                 (ring_p, "prod")]
+        err = check_reduce(wr, tw, evals, rows_, starts, lens, WIN,
+                           f"ring_2d/{acc}")
+        got = wr.windowed_reduce_many(evals, rows_, starts, lens, WIN)
+        for (r, op), g in zip(evals, got):
             want = rk.ring_eval_reference(op, r, rows_, starts, lens, WIN)
-            torch.cuda.synchronize()
-            err = compare(got, want, r.view(-1), flat_starts, lens, op)
-            emit("ring_kernel", kernel="windowed_reduce",
-                 case="ring_flat_view", op=op, acc=str(acc), B=B, pad=WIN, max_abs_err=err,
-                 kernel_ms=kernel_ms(lambda: wr.windowed_reduce(
-                     r.view(-1), flat_starts, lens, WIN, op)))
+            err = max(err, compare(g, want, r, starts, lens, op, rows_))
+        emit("ring_kernel", kernel="windowed_reduce", case="ring_2d",
+             ops=[op for _, op in evals], acc=str(acc), ring=[KP, CAP], B=B,
+             pad=WIN, max_abs_err=err, twin_bitwise=True,
+             kernel_ms=kernel_ms(lambda: wr.windowed_reduce_many(
+                 evals, rows_, starts, lens, WIN)))
+        del ring, ring_p
     return rows
+
+
+# a ring of 2^32 int32 cells (16 GiB): the last row's cells lie past flat
+# offset 2^32, out of reach of int32 flat starts
+BIG_KEYS, BIG_CAP = 16, 1 << 28
+
+
+def big_ring_phase(wr):
+    """Windows on the last row of a ring of BIG_KEYS x BIG_CAP int32 cells,
+    through ResidentWindowExecutor.launch: an append at each row's end
+    minus 8192, then one at its end minus 4096 with windows over both,
+    sum, max and min in one windowed_reduce launch, held against the plain
+    version on that row (and the appended cells against the rectangles)."""
+    from windflow_tpu_torch.ops.resident import ResidentWindowExecutor
+    gen = np.random.default_rng(17)
+    ex = ResidentWindowExecutor(("sum", "max", "min"), device=DEVICE)
+    ex.reset(BIG_KEYS, BIG_CAP)
+    if (ex.KP, ex.cap) != (BIG_KEYS, BIG_CAP):
+        raise AssertionError(f"ring geometry {(ex.KP, ex.cap)}")
+    R = 4096
+    blks = [gen.integers(-30000, 30000, size=(BIG_KEYS, R)).astype(np.int16)
+            for _ in range(2)]
+    offs = [np.full(BIG_KEYS, BIG_CAP - 2 * R, np.int64),
+            np.full(BIG_KEYS, BIG_CAP - R, np.int64)]
+    B = 1000
+    lens = gen.integers(0, 513, size=B).astype(np.int32)
+    lens[:3] = (512, 0, 1)
+    starts = (BIG_CAP - 2 * R + gen.integers(0, 2 * R - 512, size=B)).astype(
+        np.int32)
+    starts[0] = BIG_CAP - 512          # a window that ends at the row's end
+    rows = np.full(B, BIG_KEYS - 1, np.int32)
+    empty = np.zeros(0, np.int32)
+    before = wr.windowed_reduce.launches
+    ex.launch("fill", blks[0], offs[0], empty, empty, empty)
+    ex.launch("eval", blks[1], offs[1], rows, starts, lens)
+    ready = ex.drain()
+    launches = wr.windowed_reduce.launches - before
+    if [m for m, _ in ready] != ["fill", "eval"] or launches != 1:
+        raise AssertionError(f"big ring: {[m for m, _ in ready]}, "
+                             f"{launches} windowed_reduce launches")
+    ring = ex._ring
+    last = ring[BIG_KEYS - 1:BIG_KEYS]
+    tail = last[0, BIG_CAP - 2 * R:].cpu().numpy()
+    if not (np.array_equal(tail[:R], blks[0][-1])
+            and np.array_equal(tail[R:], blks[1][-1])):
+        raise AssertionError("big ring: the last row's appended cells "
+                             "differ from the rectangles")
+    d = [torch.from_numpy(a).to(DEVICE) for a in (starts, lens)]
+    zero = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    want = wr.windowed_reduce_many_reference(
+        [(last, op) for op in ex.ops], zero, d[0], d[1], 512)
+    for op, got, w in zip(ex.ops, ready[1][1], want):
+        if not np.array_equal(got, w.cpu().numpy()):
+            raise AssertionError(f"big ring: {op} differs from the plain "
+                                 "version on the last row")
+    emit("big_ring", ring=[BIG_KEYS, BIG_CAP], cells=BIG_KEYS * BIG_CAP,
+         last_row_flat_offset=(BIG_KEYS - 1) * BIG_CAP, windows=B,
+         ops=list(ex.ops), windowed_reduce_launches=launches, identical=True)
+    del ex, ring, last
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -719,17 +940,12 @@ def ring_append_phase(dev, calls):
     idx = (offs.long()[:, None]
            + torch.arange(blk.shape[1], device=dev)[None, :])
 
-    def cycled(fn):
-        turn = itertools.cycle(copies)
-        return lambda: fn(*next(turn))
-
-    ms = kernel_ms(cycled(lambda r, b: rk.ring_append(r, b, offs)),
+    ms = kernel_ms(cycled(copies, lambda r, b: rk.ring_append(r, b, offs)),
                    reps=10 * len(copies))
-    plain = call_ms(cycled(lambda r, b: rk.ring_append_reference(r, b,
-                                                                 offs)),
-                    reps=2 * len(copies))
-    lib = call_ms(cycled(lambda r, b: r.scatter_(1, idx, b.to(r.dtype))),
-                  reps=2 * len(copies))
+    plain = call_ms(cycled(copies, lambda r, b: rk.ring_append_reference(
+        r, b, offs)), reps=2 * len(copies))
+    lib = call_ms(cycled(copies, lambda r, b: r.scatter_(
+        1, idx, b.to(r.dtype))), reps=2 * len(copies))
     b = bytes_bound(nbytes, blk.numel())
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b[0],
                bound_by=b[1], library_ms=lib)
@@ -901,7 +1117,7 @@ def end_to_end_resident(wr, rk):
     torch.cuda.reset_peak_memory_stats()
     resident.stats_snapshot(reset=True)
     counters = (rk.ring_append_regular_sum, rk.ring_append,
-                rk.regular_window_sum, wr.windowed_reduce)
+                wr.windowed_reduce)
     for c in counters:
         c.launches = 0
     dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
@@ -919,7 +1135,6 @@ def end_to_end_resident(wr, rk):
     # irregular launch (ring_append + windowed_reduce for the one op)
     if not (launches["ring_append_regular_sum"] > 0
             and launches["ring_append"] == launches["windowed_reduce"]
-            and launches["regular_window_sum"] == 0
             and stats["dispatches"] == launches["ring_append_regular_sum"]
             + launches["ring_append"]):
         raise AssertionError(f"the resident path launched {launches}, "
@@ -1415,6 +1630,24 @@ def spatial_app():
     emit("spatial_app", **out)
 
 
+@contextlib.contextmanager
+def counted_launches(cls):
+    """Counts the calls of ``cls.launch`` while active: all of them, and
+    those that evaluate windows (B > 0); each call goes on unchanged."""
+    orig, seen = cls.launch, {"calls": 0, "with_windows": 0}
+
+    def counting(self, meta, blks, offs, wrows, wstarts, *args, **kw):
+        seen["calls"] += 1
+        seen["with_windows"] += int(len(wstarts) > 0)
+        return orig(self, meta, blks, offs, wrows, wstarts, *args, **kw)
+
+    cls.launch = counting
+    try:
+        yield seen
+    finally:
+        cls.launch = orig
+
+
 def multi_field_native(wr, rk):
     """sum(a) + max(b) + count over CB 256/64, 64 keys, 4M tuples: the
     native core's per-field rings against the port's host core."""
@@ -1435,19 +1668,25 @@ def multi_field_native(wr, rk):
         return wt.MultiReducer(("sum", "a", "sa"), ("max", "b", "mb"),
                                ("count", None, "n"))
 
+    from windflow_tpu_torch.ops.resident import MultiFieldResidentExecutor
     cores = []
     stage = stage_with_core(lambda: wt.WinSeqGPU(
         agg(), WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
         flush_rows=FLUSH_ROWS, depth=DEPTH, device=DEVICE), cores)
     counts = (wr.windowed_reduce.launches, rk.ring_append.launches)
-    dt, rows = run_rows(stage, batches, schema)
+    with counted_launches(MultiFieldResidentExecutor) as dispatches:
+        dt, rows = run_rows(stage, batches, schema)
     counts = {"windowed_reduce": wr.windowed_reduce.launches - counts[0],
               "ring_append": rk.ring_append.launches - counts[1]}
     if not (len(cores) == 1 and getattr(cores[0], "_multi", False)
             and cores[0]._delegate is None):
         raise AssertionError(f"multi_field_native: the core is {cores}")
-    if counts["windowed_reduce"] == 0 or counts["ring_append"] == 0:
-        raise AssertionError(f"multi_field_native: launches {counts}")
+    # every stat of a dispatch in one windowed_reduce launch (the JAX
+    # step evaluates them in one jitted step)
+    if (counts["ring_append"] == 0 or counts["windowed_reduce"] == 0
+            or counts["windowed_reduce"] != dispatches["with_windows"]):
+        raise AssertionError(f"multi_field_native: launches {counts}, "
+                             f"dispatches {dispatches}")
     _, host = run_rows(wt.WinSeq(agg(), WIN, SLIDE, wt.WinType.CB), batches,
                        schema)
     if by_key([rows]) != by_key([host]):
@@ -1457,7 +1696,7 @@ def multi_field_native(wr, rk):
          "count) CB win=256 slide=64 keys=64", tuples=MULTI_TUPLES,
          seconds=dt, tuples_per_s=MULTI_TUPLES / dt, windows=len(rows),
          fields=list(cores[0]._ship_fields), identical=True,
-         launches=counts)
+         launches=counts, dispatches=dispatches)
 
 
 def main() -> int:
@@ -1478,6 +1717,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     row = kernel_phase(wr, dev)
     rows = ring_kernel_phase(dev)
+    big_ring_phase(wr)
     restaging_launches = end_to_end(wr)
     resident_launches = end_to_end_resident(wr, rk)
     irregular_and_python_core(wr, rk)
@@ -1493,8 +1733,10 @@ def main() -> int:
         source="windflow_tpu_torch/ops/csrc/windowed_reduce.cu",
         replaces="windflow_tpu/ops/pallas_kernels.py:49",
         launches=restaging_launches, max_abs_err=row["max_abs_err"],
-        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=None)]
+        ms=row["ms"], cold_ms=row["cold_ms"], staged_ms=row["staged_ms"],
+        staged_cold_ms=row["staged_cold_ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=None)]
     # ring_append's row: the spatial resident run's launches (the per-field
     # rings append every launch), checked and timed at their own inputs; in
     # sum_test it runs only with the irregular launches, the regular
@@ -1519,6 +1761,8 @@ def main() -> int:
         source="windflow_tpu_torch/ops/csrc/skyline.cu",
         replaces="windflow_tpu/apps/spatial.py:143",
         launches=spatial_launches["skyline_windows"], **skyline_row))
+    for k in kernels:     # the empty-launch floor beside every kernel
+        k["floor_ms"] = row["floor_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

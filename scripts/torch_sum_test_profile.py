@@ -38,15 +38,18 @@ With ``--ab DIR`` it compares this checkout (B) with another checkout of
 the repository at DIR (A, e.g. the parent commit unpacked with ``git
 archive``) on one card, in turns A, B, B, A: each turn is a fresh process
 in its checkout (its own kernels, built from its own sources) and prints
-one ``ab`` line with the rows of chip_smoke.py's ring-kernel phase (the
-fused ring_append_regular_sum, the two-launch sequence it replaces,
-ring_append at that shape, the standalone regular_window_sum; a checkout
-without the fused kernel gives ring_append and regular_window_sum) and of
-its gather and skyline phases, ring_append at the inputs of the spatial
-resident run's launches (where that checkout's chip_smoke.py records
-them), sum_test's resident tuples/s with the ring kernels' launch counts
-of those runs, and the spatial stream's points/s on the
-resident and restaging routes (3 runs each after a warm-up).
+one ``ab`` line with the rows of chip_smoke.py's windowed-reduce phase
+(the restaging shape, and where that checkout's chip_smoke.py measures
+them its cold times, its second design and the empty-launch floor), of
+its ring-kernel phase (the fused ring_append_regular_sum, ring_append at
+that shape), of its gather and skyline phases, ring_append at the inputs
+of the spatial resident run's launches (where that checkout's
+chip_smoke.py records them), sum_test's resident tuples/s with the ring
+kernels' launch counts of those runs, the spatial stream's points/s on the
+resident and restaging routes (3 runs each after a warm-up), the
+irregular evaluation of sum, min, max and prod over 32768 windows of a
+64 x 262144 int32 ring, and the 4M native _multi run's windowed_reduce
+launches and device time (under torch.profiler).
 
 Usage, from the repository root on a machine with a CUDA card:
 
@@ -183,9 +186,11 @@ import chip_smoke as cs
 import windflow_tpu_torch as wt
 from windflow_tpu_torch.apps.spatial import POINT_SCHEMA, device_skyline
 from windflow_tpu_torch.ops import ring as rk
+from windflow_tpu_torch.ops import windowed_reduce as wr
 cs.build_all()
 dev = torch.device(cs.DEVICE)
-out = {"ring": cs.ring_kernel_phase(dev), "gather": cs.gather_phase(dev),
+out = {"windowed_reduce": cs.kernel_phase(wr, dev),
+       "ring": cs.ring_kernel_phase(dev), "gather": cs.gather_phase(dev),
        "skyline": cs.skyline_phase(dev)}
 schema = wt.Schema(value=cs.np.int64)
 cs.run_pipeline(cs.resident_stage(wt), cs.make_stream(schema,
@@ -193,7 +198,7 @@ cs.run_pipeline(cs.resident_stage(wt), cs.make_stream(schema,
                 schema)
 stream = cs.make_stream(schema, cs.N_TUPLES)
 counters = [getattr(rk, n) for n in ("ring_append_regular_sum",
-            "ring_append", "regular_window_sum") if hasattr(rk, n)]
+            "ring_append") if hasattr(rk, n)] + [wr.windowed_reduce]
 for c in counters:
     c.launches = 0
 out["sum_test_resident_tuples_per_s"] = [
@@ -215,6 +220,34 @@ if hasattr(cs, "recorded_appends"):
     with cs.recorded_appends() as calls:
         cs.run_rows(farm(use_resident=True), batches, POINT_SCHEMA)
     out["ring_append_spatial"] = cs.ring_append_phase(dev, calls)
+# the irregular evaluation: sum, min, max and prod of 32768 windows on a
+# 64 x 262144 int32 ring, in one launch (or, in a checkout without
+# windowed_reduce_many, one launch an op on the ring's flat view)
+g = cs.np.random.default_rng(1)
+ring = torch.from_numpy(g.integers(0, 100, size=(cs.KP, cs.CAP))).to(
+    dev, torch.int32)
+as32 = lambda a: torch.from_numpy(a).to(dev, torch.int32)
+rows_ = as32(g.integers(0, cs.KP, size=cs.BATCH_LEN))
+starts = as32(g.integers(0, cs.CAP - cs.WIN, size=cs.BATCH_LEN))
+lens = as32(g.integers(0, cs.WIN + 1, size=cs.BATCH_LEN))
+ops = ("sum", "min", "max", "prod")
+if hasattr(wr, "windowed_reduce_many"):
+    ring_ops = lambda: wr.windowed_reduce_many([(ring, op) for op in ops],
+                                               rows_, starts, lens, cs.WIN)
+else:
+    flat_starts = (rows_.long() * cs.CAP + starts).to(torch.int32)
+    ring_ops = lambda: [wr.windowed_reduce(ring.view(-1), flat_starts, lens,
+                                           cs.WIN, op) for op in ops]
+out["irregular_4ops_ms"] = cs.kernel_ms(ring_ops)
+del ring
+from torch.profiler import ProfilerActivity, profile
+before = wr.windowed_reduce.launches
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cs.multi_field_native(wr, rk)
+out["multi_windowed_reduce_launches"] = wr.windowed_reduce.launches - before
+out["multi_windowed_reduce_device_ms"] = sum(
+    (getattr(ev, "device_time_total", 0) or 0) / 1e3
+    for ev in prof.key_averages() if "windowed_reduce" in ev.key)
 print("AB " + json.dumps(out))
 """
 
@@ -244,9 +277,10 @@ def main(argv=None):
     ap.add_argument("--spatial", action="store_true",
                     help="profile the spatial skyline path instead")
     ap.add_argument("--ab", metavar="DIR",
-                    help="compare the ring, gather and skyline kernels, "
-                         "sum_test's resident route and the spatial run "
-                         "with the checkout at DIR, in turns")
+                    help="compare the windowed-reduce, ring, gather and "
+                         "skyline kernels, sum_test's resident route, the "
+                         "spatial run and the _multi run with the checkout "
+                         "at DIR, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)

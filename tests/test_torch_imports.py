@@ -73,7 +73,8 @@ def test_import_and_plain_versions_run_no_nvcc(tmp_path):
         "r = torch.zeros((2, 8), dtype=torch.int32)\n"
         "z = torch.zeros(2, dtype=torch.int32)\n"
         "ring.ring_append(r, torch.ones((2, 4), dtype=torch.int8), z)\n"
-        "ring.regular_window_sum(r, z, z + 3, 2, 1)\n"
+        "ring.ring_append_regular_sum(r, torch.zeros((2, 0), dtype=torch.int8),"
+        " z, z, z + 3, 2, 1)\n"
         "windowed_reduce.windowed_reduce(r.view(-1), z, z + 2, 8, 'max')\n"
         "from windflow_tpu_torch.ops import gather, skyline\n"
         "t, m = gather.window_gather(r, z, z, z + 3, 8)\n"

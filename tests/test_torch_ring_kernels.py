@@ -2,13 +2,13 @@
 package's resident device bodies, on the same inputs made with numpy from a
 seed:
 
-* ``ring_append`` + ``regular_window_sum``, and the fused
-  ``ring_append_regular_sum`` (one launch a flush), against
-  ``_regular_body`` — the ring after the append and the full (KP, C)
-  window sums;
-* ``ring_append`` + the windowed-reduce kernel on the ring's flat view
-  against ``_append_eval`` — each op and op tuple over explicit
-  (row, start, len) descriptors; ``ring_eval_reference`` (the plain
+* ``ring_append`` + the window sums alone (the fused kernel with an
+  empty ``(KP, 0)`` rectangle), and the fused ``ring_append_regular_sum``
+  (one launch a flush), against ``_regular_body`` — the ring after the
+  append and the full (KP, C) window sums;
+* ``ring_append`` + the windowed-reduce kernel over (row, start, len)
+  descriptors against ``_append_eval`` — each op and op tuple, all ops of a
+  tuple in one evaluation list; ``ring_eval_reference`` (the plain
   transcription of ``_ring_eval``) against it too.
 
 Every wire x accumulate dtype pair ``narrow()`` can produce is covered, with
@@ -43,7 +43,7 @@ import pytest
 import torch
 
 from windflow_tpu_torch.ops import ring as rk
-from windflow_tpu_torch.ops.windowed_reduce import windowed_reduce
+from windflow_tpu_torch.ops.windowed_reduce import windowed_reduce_many
 
 RTOL = 1e-5
 WIRES = (np.int8, np.int16, np.int32, np.float32)
@@ -103,13 +103,23 @@ def make_regular(seed, wire, acc, edge, KP=8, cap=256, Rb=32, C=16,
                 C=C, slide=slide, cap=cap)
 
 
+def sums_alone(ring, rstart0, rlen, C, slide):
+    """The regular window sums alone: the fused kernel with an empty
+    (KP, 0) rectangle."""
+    KP = ring.shape[0]
+    return rk.ring_append_regular_sum(
+        ring, torch.zeros((KP, 0), dtype=torch.int8, device=ring.device),
+        torch.zeros(KP, dtype=torch.int32, device=ring.device), rstart0, rlen,
+        C, slide)
+
+
 def port_regular(case):
     ring = torch.from_numpy(case["ring"].copy())
     rk.ring_append(ring, torch.from_numpy(case["blk"]),
                    torch.from_numpy(case["offs"]))
-    out = rk.regular_window_sum(ring, torch.from_numpy(case["rstart0"]),
-                                torch.from_numpy(case["rlen"]), case["C"],
-                                case["slide"])
+    out = sums_alone(ring, torch.from_numpy(case["rstart0"]),
+                     torch.from_numpy(case["rlen"]), case["C"],
+                     case["slide"])
     return ring.numpy(), out.numpy()
 
 
@@ -176,7 +186,7 @@ def test_regular_edge_values():
     ring = torch.arange(16, dtype=torch.int32).reshape(2, 8)
     rstart0 = torch.tensor([-3, 6], dtype=torch.int32)
     rlen = torch.tensor([4, 0], dtype=torch.int32)
-    out = rk.regular_window_sum(ring, rstart0, rlen, 4, 3)
+    out = sums_alone(ring, rstart0, rlen, 4, 3)
     # row 0: windows [0,4) [0,4) [3,7) [6,8) -> 6, 6, 18, 13 (the start
     # clips before the length is added)
     # row 1: length 0 everywhere -> 0
@@ -270,16 +280,14 @@ def test_irregular_matches_jax(wire, acc, ops):
     rk.ring_append(ring, torch.from_numpy(case["blk"]),
                    torch.from_numpy(case["offs"]))
     assert ring.numpy().tobytes() == np.asarray(want_ring).tobytes()
-    flat_starts = torch.from_numpy(
-        (case["rows"].astype(np.int64) * cap + case["starts"])
-        .astype(np.int32))
     lens = torch.from_numpy(case["lens"])
     rows_t = torch.from_numpy(case["rows"])
     starts_t = torch.from_numpy(case["starts"])
-    for op, w in zip(ops, want):
+    outs = windowed_reduce_many([(ring, op) for op in ops], rows_t, starts_t,
+                                lens, pad)
+    for op, w, got in zip(ops, want, outs):
         w = np.asarray(w)
-        got = windowed_reduce(ring.view(-1), flat_starts, lens, pad,
-                              op).numpy()
+        got = got.numpy()
         twin = rk.ring_eval_reference(op, ring, rows_t, starts_t, lens,
                                       pad).numpy()
         args = (ring.numpy(), case["rows"], case["starts"], case["lens"])
@@ -301,7 +309,7 @@ def test_wrappers_refuse_bad_inputs():
         rk.ring_append(ring, torch.zeros((4, 8), dtype=torch.int8),
                        offs.long())
     with pytest.raises(TypeError, match="rlen"):
-        rk.regular_window_sum(ring, offs, offs[:3], 4, 2)
+        sums_alone(ring, offs, offs[:3], 4, 2)
     with pytest.raises(TypeError, match="rstart0"):
         rk.ring_append_regular_sum(ring, torch.zeros((4, 8), dtype=torch.int8),
                                    offs, offs.long(), offs, 4, 2)
@@ -315,8 +323,7 @@ def test_wrappers_refuse_bad_inputs():
 
 
 def test_cpu_tensors_do_not_count_launches():
-    counters = (rk.ring_append, rk.regular_window_sum,
-                rk.ring_append_regular_sum)
+    counters = (rk.ring_append, rk.ring_append_regular_sum)
     before = [c.launches for c in counters]
     case = make_regular(1, np.int8, np.int32, "plain")
     port_regular(case)
@@ -332,14 +339,13 @@ def test_empty_work_launches_nothing(monkeypatch, form):
     loading the library here would fail without nvcc)."""
     monkeypatch.setattr(rk, "_on_card", lambda name, *tensors: True)
     monkeypatch.setattr(rk, "_load", lambda: pytest.fail("loaded"))
-    counters = (rk.ring_append, rk.regular_window_sum,
-                rk.ring_append_regular_sum)
+    counters = (rk.ring_append, rk.ring_append_regular_sum)
     before = [c.launches for c in counters]
     KP = 0 if form == "fused_KP0" else 4
     ring = torch.zeros((KP, 64), dtype=torch.int32)
     vec = torch.zeros(KP, dtype=torch.int32)
     if form == "standalone_C0":
-        out = rk.regular_window_sum(ring, vec, vec, 0, 8)
+        out = sums_alone(ring, vec, vec, 0, 8)
         assert out.shape == (KP, 0)
     elif form == "fused_KP0":
         out = rk.ring_append_regular_sum(
@@ -363,8 +369,8 @@ def test_kernels_match_plain_on_card(wire, acc):
                for k, v in case.items() if isinstance(v, np.ndarray)}
         ring_k = dev["ring"].clone()
         rk.ring_append(ring_k, dev["blk"], dev["offs"])
-        out_k = rk.regular_window_sum(ring_k, dev["rstart0"], dev["rlen"],
-                                      case["C"], case["slide"])
+        out_k = sums_alone(ring_k, dev["rstart0"], dev["rlen"], case["C"],
+                           case["slide"])
         ring_p = dev["ring"].clone()
         rk.ring_append_reference(ring_p, dev["blk"], dev["offs"])
         out_p = rk.regular_window_sum_reference(
@@ -616,14 +622,14 @@ def test_twin_main_shape_ring_reads():
 
 
 def test_standalone_sum_is_the_empty_rectangle():
-    """regular_window_sum is the fused kernel with Rb = 0: the twin with an
-    empty rectangle equals the plain window sums."""
+    """The window sums alone are the fused kernel with Rb = 0: the twin
+    with an empty rectangle equals the plain window sums."""
     case = twin_case(9, np.int16, np.float32, edge="clip_low")
     empty = np.zeros((case["ring"].shape[0], 0), dtype=np.int8)
     ring, out, _, _ = twin_append_regular_sum(
         case["ring"], empty, case["offs"], case["rstart0"], case["rlen"],
         case["C"], case["slide"])
-    want = rk.regular_window_sum(
+    want = sums_alone(
         torch.from_numpy(case["ring"]), torch.from_numpy(case["rstart0"]),
         torch.from_numpy(case["rlen"]), case["C"], case["slide"]).numpy()
     assert ring.tobytes() == case["ring"].tobytes()
@@ -680,7 +686,7 @@ def test_fused_kernel_matches_plain_on_card(wire, acc):
 @pytest.mark.parametrize("case_name", list(TWIN_CASES))
 @pytest.mark.parametrize("acc", ACCS, ids=lambda d: np.dtype(d).name)
 def test_kernels_equal_twin_bitwise_on_card(acc, case_name):
-    """The fused kernel, ring_append and the standalone window sum equal
+    """The fused kernel, ring_append and the window sums alone equal
     the twin bit for bit (float32 sums included), for offsets ≡ 0..3."""
     need_card()
     for offs_mod in range(4):
@@ -694,8 +700,8 @@ def test_kernels_equal_twin_bitwise_on_card(acc, case_name):
                                          case["C"], case["slide"])
         appended = rk.ring_append(dev["ring"].clone(), dev["blk"],
                                   dev["offs"])
-        alone = rk.regular_window_sum(appended, dev["rstart0"], dev["rlen"],
-                                      case["C"], case["slide"])
+        alone = sums_alone(appended, dev["rstart0"], dev["rlen"], case["C"],
+                           case["slide"])
         torch.cuda.synchronize()
         assert ring.cpu().numpy().tobytes() == want_ring.tobytes()
         assert appended.cpu().numpy().tobytes() == want_ring.tobytes()

@@ -5,8 +5,8 @@
 //  * ring_append_regular_sum: the whole of _regular_body (:183-199) in
 //    one launch, as the JAX step is one jitted step: the append, then the
 //    regular window sums (there a ring-wide cumsum + two-point gather,
-//    here direct window sums).  With an empty rectangle (Rb = 0) it is the
-//    standalone regular-window sum;
+//    here direct window sums).  With an empty rectangle (Rb = 0) it gives
+//    the window sums alone;
 //  * ring_append: the vmapped dynamic_update_slice + astype of
 //    _ring_append (:234-240), the append of every irregular launch and of
 //    every per-field ring: the same kernel with no window (C = 0),
@@ -15,7 +15,7 @@
 //    slower at both of ring_append's main-path shapes on the H100
 //    (PERF.md).
 // The irregular evaluation (_ring_eval) runs through the windowed_reduce
-// kernel on the ring's flat view (ops/resident.py).
+// kernel over (row, start, len) descriptors (ops/resident.py).
 //
 // The append.  For every row r < KP and column j < Rb:
 //     ring[r, offs[r] + j] = (Acc) blk[r, j]
@@ -401,7 +401,7 @@ extern "C" int wf_ring_append(void* ring, const void* blk, const void* offs,
 // regular window sums of the ring after the append into `out` (acc dtype):
 // window i of row r starts at rstart0[r] + i*slide with length rlen[r]
 // (both int32).  One launch on `stream`.  Rb = 0 (blk and offs unused, may
-// be null) is the standalone window sum.  Returns cudaGetLastError().
+// be null) gives the window sums alone.  Returns cudaGetLastError().
 extern "C" int wf_ring_append_regular_sum(void* ring, const void* blk,
                                           const void* offs,
                                           const void* rstart0,

@@ -14,10 +14,12 @@ reads device memory:
 * the fired windows are then evaluated over the ring: regular windows in
   the same launch as the append (the ``ring_append_regular_sum`` kernel,
   one launch a flush, as the JAX step ``_regular_body`` is one jitted
-  step), windows given by explicit descriptors by the windowed-reduce
-  kernel on the ring's flat view, once per op;
+  step), windows given by explicit (row, start, len) descriptors by the
+  windowed-reduce kernel, every op in one launch (as JAX's
+  ``_append_eval`` evaluates every op in one jitted step);
 * with several fields (:class:`MultiFieldResidentExecutor`) each field has
-  a ring of its own, each ``(op, field)`` stat reads its field's ring, and
+  a ring of its own, each ``(op, field)`` stat reads its field's ring (all
+  stats of a launch in one windowed-reduce launch), and
   a bound user window function reads masked ``(B, pad)`` tiles of its
   fields that the ``window_gather`` kernel cuts from the rings;
 * results come back through pinned host tensors with bounded depth.
@@ -58,7 +60,7 @@ from ..utils import profile
 from .device import _bucket
 from .gather import window_gather
 from .ring import ring_append, ring_append_regular_sum
-from .windowed_reduce import windowed_reduce
+from .windowed_reduce import windowed_reduce_many
 
 # -- wire diagnostics (always on: one lock round-trip per dispatch) ---------
 # Every resident dispatch feeds these process-wide counters: dispatch count,
@@ -180,6 +182,26 @@ def _check_ring_overflow(offs, Rb, cap):
     if len(offs) and int(offs.max()) + Rb > cap:
         raise ValueError(
             f"ring overflow: offset {int(offs.max())} + {Rb} > {cap}")
+
+
+def launch_vec(KP: int, offs, B: int, cols) -> np.ndarray:
+    """The int32 vector one launch copies to the card: the KP per-key ring
+    offsets (rows >= len(offs) at 0), then each column of `cols` (B values
+    each, None for zeros; int64 values wrap in the cast).  The windows'
+    descriptors go as (row, start, len) columns in ring coordinates, never
+    as a flat offset row * cap + start: a ring may hold 2**31 cells and
+    more, as the JAX ring's 2-D gather allows."""
+    vec = np.zeros(KP + len(cols) * B, dtype=np.int32)
+    vec[:len(offs)] = offs
+    for i, col in enumerate(cols):
+        if col is not None and B:
+            vec[KP + i * B:KP + (i + 1) * B] = np.asarray(col).astype(np.int32)
+    return vec
+
+
+def launch_cols(d_vec, at: int, B: int, n: int):
+    """The n (B,) columns of the launch vector from position `at` on."""
+    return tuple(d_vec[at + i * B:at + (i + 1) * B] for i in range(n))
 
 
 def _resolve_device(device) -> torch.device:
@@ -393,7 +415,6 @@ class ResidentWindowExecutor:
         K, R = blk.shape
         if K > self.KP:
             raise ValueError("rectangle exceeds ring rows; reset() first")
-        self._check_flat_view()
         B = len(wstarts)
         Rb = _bucket(max(R, 1))
         _check_ring_overflow(offs, Rb, self.cap)
@@ -401,12 +422,7 @@ class ResidentWindowExecutor:
         KP = self.KP
         with profile.span("device_put"):
             blkp = self._stage_block(blk, Rb)
-            # per-key offsets, then the windows' flat-view starts and lens
-            vec = np.zeros(KP + 2 * B, dtype=np.int32)
-            vec[:len(offs)] = offs
-            vec[KP:KP + B] = (np.asarray(wrows, dtype=np.int64) * self.cap
-                              + np.asarray(wstarts, dtype=np.int64))
-            vec[KP + B:] = wlens
+            vec = launch_vec(KP, offs, B, (wrows, wstarts, wlens))
             with self._on_stream():
                 d_blk, p_blk = self._to_device(blkp)
                 d_vec, p_vec = self._to_device(vec)
@@ -415,10 +431,9 @@ class ResidentWindowExecutor:
         profile.add("windows", B)
         with profile.span("dispatch"), self._on_stream():
             ring = ring_append(self._ring_arr(), d_blk, d_vec[:KP])
-            flat = ring.view(-1)
-            outs = tuple(windowed_reduce(flat, d_vec[KP:KP + B],
-                                         d_vec[KP + B:], pad, op)
-                         for op in self.ops)
+            rows, starts, lens = launch_cols(d_vec, KP, B, 3)
+            outs = tuple(windowed_reduce_many([(ring, op) for op in self.ops],
+                                              rows, starts, lens, pad))
             hosts, event = self._fetch(outs)
         stats_add("dispatches")
         self._inflight.append((meta, B, hosts, event,
@@ -426,12 +441,6 @@ class ResidentWindowExecutor:
                                time.perf_counter()))
         while len(self._inflight) > self.depth:
             self._harvest_one()
-
-    def _check_flat_view(self):
-        if self.KP * self.cap >= 2 ** 31:
-            raise ValueError(
-                f"ring of {self.KP} x {self.cap} cells: the flat-view window "
-                "starts are int32 and need KP * cap < 2**31")
 
     def launch_regular(self, meta, blk: np.ndarray, offs: np.ndarray,
                        rcount: np.ndarray, rstart0: np.ndarray,
@@ -549,7 +558,7 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
     ``_make_multi_step`` (windflow_tpu/ops/resident.py:599-781).
 
     ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod),
-    each by the windowed-reduce kernel on its field's ring's flat view;
+    all by one windowed-reduce launch over the fields' rings;
     ``fn``: an optional ``TorchWindowFunction`` whose ``fn(keys, gwids,
     cols, mask)`` runs over ``(B, pad)`` tiles of its fields, cut from the
     rings by the window_gather kernel; ``acc_dtypes`` maps every field to
@@ -645,7 +654,6 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
         K, R = next(iter(blks.values())).shape
         if K > self.KP:
             raise ValueError("rectangle exceeds ring rows; reset() first")
-        self._check_flat_view()
         B = len(wstarts)
         Rb = _bucket(max(R, 1))
         _check_ring_overflow(offs, Rb, self.cap)
@@ -653,21 +661,12 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
         KP, fn = self.KP, self.fn
         with profile.span("device_put"):
             blkps = [self._stage_block(blks[f], Rb) for f in self.fields]
-            # per-key offsets; the windows' flat-view starts and lens; with
-            # a function also rows, starts, keys and gwids (int32: keys and
-            # gwids wrap as the JAX package's int32 cast does)
-            vec = np.zeros(KP + (6 if fn is not None else 2) * B,
-                           dtype=np.int32)
-            vec[:len(offs)] = offs
-            rows = np.asarray(wrows, dtype=np.int64)
-            starts = np.asarray(wstarts, dtype=np.int64)
-            vec[KP:KP + B] = rows * self.cap + starts
-            vec[KP + B:KP + 2 * B] = wlens
+            # with a function also the windows' keys and gwids (int32: they
+            # wrap as the JAX package's int32 cast does)
+            cols = (wrows, wstarts, wlens)
             if fn is not None:
-                for i, a in enumerate((rows, starts, wkeys, wgwids)):
-                    if a is not None and B:
-                        o = KP + (2 + i) * B
-                        vec[o:o + B] = np.asarray(a).astype(np.int32)
+                cols += (wkeys, wgwids)
+            vec = launch_vec(KP, offs, B, cols)
             with self._on_stream():
                 d_blks = [self._to_device(b) for b in blkps]
                 d_vec, p_vec = self._to_device(vec)
@@ -680,16 +679,14 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
             rings = tuple(ring_append(r, d, d_vec[:KP])
                           for r, (d, _p) in zip(self._rings_arr(), d_blks))
             ring_of = dict(zip(self.fields, rings))
-            flat_starts = d_vec[KP:KP + B]
-            lens = d_vec[KP + B:KP + 2 * B]
-            outs = [windowed_reduce(ring_of[f].view(-1), flat_starts, lens,
-                                    pad, op) for op, f in self.stats]
+            rows, starts, lens = launch_cols(d_vec, KP, B, 3)
+            outs = (windowed_reduce_many(
+                [(ring_of[f], op) for op, f in self.stats], rows, starts,
+                lens, pad) if self.stats else [])
             if fn is not None:
-                d_rows, d_starts, d_keys, d_gwids = (
-                    d_vec[KP + i * B:KP + (i + 1) * B] for i in range(2, 6))
+                d_keys, d_gwids = launch_cols(d_vec, KP + 3 * B, B, 2)
                 tiles, mask = window_gather(
-                    [ring_of[f] for f in fn.fields], d_rows, d_starts, lens,
-                    pad)
+                    [ring_of[f] for f in fn.fields], rows, starts, lens, pad)
                 res = fn.fn(d_keys, d_gwids, dict(zip(fn.fields, tiles)),
                             mask)
                 outs.extend(res if isinstance(res, tuple) else (res,))

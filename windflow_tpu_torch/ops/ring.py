@@ -15,13 +15,13 @@ These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
   ring after it, window ``i`` of row ``r`` covering ``ring[r, s:e]`` with
   ``s = clip(rstart0[r] + i*slide, 0, cap)`` and
   ``e = clip(s + rlen[r], 0, cap)``.  int32 sums wrap modulo 2**32, as
-  XLA's int32 cumsum difference does.
-* :func:`regular_window_sum` — those window sums alone: the same kernel
-  with an empty rectangle.
+  XLA's int32 cumsum difference does.  With an empty ``(KP, 0)``
+  rectangle it computes those window sums alone.
 
-The irregular evaluation (``_ring_eval``) is the windowed-reduce kernel on
-the ring's flat view (ops/resident.py); :func:`ring_eval_reference` is a
-plain transcription of ``_ring_eval`` that it is held against.
+The irregular evaluation (``_ring_eval``) is the windowed-reduce kernel
+over (row, start, len) descriptors (ops/windowed_reduce.py,
+ops/resident.py); :func:`ring_eval_reference` is a plain transcription of
+``_ring_eval`` that it is held against.
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``); a CPU tensor runs the plain version.
@@ -198,34 +198,6 @@ def ring_append_regular_sum_reference(ring: torch.Tensor, blk: torch.Tensor,
         ring_append_reference(ring, blk, offs), rstart0, rlen, C, slide)
 
 
-def _launch_append_sum(ring, blk, offs, rstart0, rlen, C, slide, counter):
-    """One launch of the fused kernel, counted in ``counter.launches``
-    (nothing is launched or counted when there is no cell to write);
-    ``blk is None`` is the empty rectangle (the standalone window sum).
-    Returns the (KP, C) sums."""
-    KP, cap = ring.shape
-    if cap > 2 ** 30:
-        raise ValueError(f"ring rows of {cap} cells: the window-sum kernel "
-                         "takes rows of at most 2**30 cells")
-    out = torch.empty((KP, C), dtype=ring.dtype, device=ring.device)
-    Rb = 0 if blk is None else blk.shape[1]
-    if KP == 0 or (C == 0 and Rb == 0):
-        return out
-    lib = _load()
-    with torch.cuda.device(ring.device):
-        rc = lib.wf_ring_append_regular_sum(
-            ring.data_ptr(), None if blk is None else blk.data_ptr(),
-            None if blk is None else offs.data_ptr(), rstart0.data_ptr(),
-            rlen.data_ptr(), out.data_ptr(), KP, cap, Rb, int(C), int(slide),
-            0 if blk is None else _WIRES[blk.dtype], _ACCS[ring.dtype],
-            _stream_of(ring))
-    if rc != 0:
-        raise RuntimeError(f"ring_append_regular_sum kernel launch failed: "
-                           f"CUDA error {rc}")
-    counter.launches += 1
-    return out
-
-
 def ring_append_regular_sum(ring: torch.Tensor, blk: torch.Tensor,
                             offs: torch.Tensor, rstart0: torch.Tensor,
                             rlen: torch.Tensor, C: int,
@@ -233,37 +205,39 @@ def ring_append_regular_sum(ring: torch.Tensor, blk: torch.Tensor,
     """:func:`ring_append` of `blk` at `offs`, then the (KP, C) sums of the
     regular windows of the ring after it (window ``i`` of row ``r`` starts
     at ``rstart0[r] + i*slide`` with length ``rlen[r]`` >= 0, both clipped
-    to ``[0, cap]``), in one kernel launch; `ring` is updated in place."""
+    to ``[0, cap]``), in one kernel launch; `ring` is updated in place.  A
+    ``(KP, 0)`` rectangle gives the window sums alone.  Nothing is
+    launched or counted when there is no cell to write."""
     _check_append(ring, blk, offs)
     _check_windows(ring, rstart0, rlen)
     if not _on_card("ring_append_regular_sum", ring, blk, offs, rstart0,
                     rlen):
         return ring_append_regular_sum_reference(ring, blk, offs, rstart0,
                                                  rlen, C, slide)
-    return _launch_append_sum(ring, blk, offs, rstart0, rlen, C, slide,
-                              ring_append_regular_sum)
+    KP, cap = ring.shape
+    if cap > 2 ** 30:
+        raise ValueError(f"ring rows of {cap} cells: the window-sum kernel "
+                         "takes rows of at most 2**30 cells")
+    out = torch.empty((KP, C), dtype=ring.dtype, device=ring.device)
+    Rb = blk.shape[1]
+    if KP == 0 or (C == 0 and Rb == 0):
+        return out
+    lib = _load()
+    with torch.cuda.device(ring.device):
+        rc = lib.wf_ring_append_regular_sum(
+            ring.data_ptr(), blk.data_ptr(), offs.data_ptr(),
+            rstart0.data_ptr(), rlen.data_ptr(), out.data_ptr(), KP, cap, Rb,
+            int(C), int(slide), _WIRES[blk.dtype], _ACCS[ring.dtype],
+            _stream_of(ring))
+    if rc != 0:
+        raise RuntimeError(f"ring_append_regular_sum kernel launch failed: "
+                           f"CUDA error {rc}")
+    ring_append_regular_sum.launches += 1
+    return out
 
 
 #: kernel launches since the count was last reset
 ring_append_regular_sum.launches = 0
-
-
-def regular_window_sum(ring: torch.Tensor, rstart0: torch.Tensor,
-                       rlen: torch.Tensor, C: int,
-                       slide: int) -> torch.Tensor:
-    """(KP, C) sums of the regular windows of every ring row: window ``i``
-    of row ``r`` starts at ``rstart0[r] + i*slide`` with length ``rlen[r]``
-    (>= 0), both clipped to ``[0, cap]`` — the fused kernel with an empty
-    rectangle."""
-    _check_windows(ring, rstart0, rlen)
-    if not _on_card("regular_window_sum", ring, rstart0, rlen):
-        return regular_window_sum_reference(ring, rstart0, rlen, C, slide)
-    return _launch_append_sum(ring, None, None, rstart0, rlen, C, slide,
-                              regular_window_sum)
-
-
-#: kernel launches since the count was last reset
-regular_window_sum.launches = 0
 
 
 # ------------------------------------------------------ irregular windows

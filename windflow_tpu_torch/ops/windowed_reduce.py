@@ -1,19 +1,30 @@
-"""Windowed monoid reduction over a flat staged buffer: the hand-written CUDA
-kernel (csrc/windowed_reduce.cu), its plain PyTorch version, and the loader
-that builds the kernel on first use.
+"""Windowed monoid reductions: the hand-written CUDA kernel
+(csrc/windowed_reduce.cu), its plain PyTorch version, and the loader that
+builds the kernel on first use.
 
 This is the port of the Pallas TPU kernel
-``windflow_tpu/ops/pallas_kernels.py:windowed_reduce_pallas``.  Window ``i``
-is ``flat[starts[i] : starts[i] + lens[i]]`` with ``lens[i] <= pad``; it is
-reduced with ``op`` in ``flat``'s dtype (int32 or float32).  ``count``
-returns the lengths converted to that dtype.  The TPU kernel also accepted
-``op="mean"`` and returned the window *sum* for it (its reducer table maps
-mean to sum); no Reducer reaches it, and this port refuses it.
+``windflow_tpu/ops/pallas_kernels.py:windowed_reduce_pallas`` and of the
+XLA device bodies that evaluate windows over a resident ring
+(``_ring_eval`` through ``_append_eval`` and ``_make_multi_step``'s stats,
+``windflow_tpu/ops/resident.py:243, :260, :599``).  An *evaluation* is a
+``(buf, op)`` pair: ``buf`` an ``(R, ncols)`` int32 or float32 tensor (or
+a 1-D ``(ncols,)`` one, a single row), ``op`` one of sum, count, min, max
+and prod.  Window ``w`` is ``buf[rows[w], starts[w] : starts[w] +
+min(lens[w], pad)]`` (``rows=None`` reads row 0), a column past the row's
+end reading its last cell as the JAX gathers clamp; it is reduced in the
+buffer's dtype.  ``count`` returns the lengths converted to that dtype.
+The TPU kernel also accepted ``op="mean"`` and returned the window *sum*
+for it (its reducer table maps mean to sum); no Reducer reaches it, and
+this port refuses it.
 
-:func:`windowed_reduce` takes the kernel for a CUDA tensor and the plain
-version for a CPU tensor; there is no fallback from one to the other.  The
-kernel is compiled with ``nvcc`` (ops/_nvcc.py) the first time it is
-launched and loaded with ``ctypes``.
+:func:`windowed_reduce_many` evaluates up to :data:`EVALS_PER_LAUNCH`
+evaluations over one set of descriptors in one launch (more take
+``ceil(n / EVALS_PER_LAUNCH)`` launches); :func:`windowed_reduce` is its
+one-evaluation, one-row form.  A CUDA tensor launches the kernel on the
+current stream (asynchronous, counted in ``windowed_reduce.launches``); a
+CPU tensor runs the plain version.  There is no fallback from one to the
+other.  The kernel is compiled with ``nvcc`` (ops/_nvcc.py) the first time
+it is launched and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -32,6 +43,22 @@ _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4}
 #: value dtypes the kernel is instantiated for (enum Dtype)
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 
+# the kernel's geometry (constants of csrc/windowed_reduce.cu; the tests and
+# chip_smoke.py build their cases from them)
+#: evaluations one launch takes (kMaxEvals)
+EVALS_PER_LAUNCH = 8
+#: lanes that reduce one window (kLanes) and cells of a 16-byte group
+#: (kGroup): cell j of a window whose first cell has flat index f0 (row *
+#: ncols + start) is combined by lane ((f0 % GROUP + j) // GROUP) % LANES
+LANES = 8
+GROUP = 4
+#: windows a block of the staged design takes (kStagedWindows)
+STAGED_WINDOWS = 64
+#: shared-memory cells a staged block fills over all its buffers
+#: (kStageCells): a block stages when nbuf * round_up(base % 4 + width, 4)
+#: is at most this
+STAGE_CELLS = 11264
+
 _lock = threading.Lock()
 _lib = None
 
@@ -47,10 +74,13 @@ def _load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
+            c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
             fn = lib.wf_windowed_reduce
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_uint, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn.argtypes = [c_p] * 5 + [c_int, c_ll] + [c_p] * 3 + [
+                c_int, c_int, c_int, c_p, c_p]
+            fn.restype = c_int
+            lib.wf_empty.argtypes = [c_p]
+            lib.wf_empty.restype = c_int
             _lib = lib
         return _lib
 
@@ -70,31 +100,31 @@ def _ident_bits(op: str, dtype: torch.dtype) -> int:
     return int(np.array(identity(op, np_dt), dtype=np_dt).view(np.uint32))
 
 
-def windowed_reduce_reference(flat: torch.Tensor, starts: torch.Tensor,
-                              lens: torch.Tensor, pad: int,
-                              op: str) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: a clamped index gather into a
-    (B, pad) tile, the masked lanes set to the identity, a reduction over
-    axis 1.  int32 sums and products wrap modulo 2**32 like the kernel's."""
-    _check_op(op)
-    starts = starts.long()
-    lens = lens.long()
+def _as_rows(buf: torch.Tensor) -> torch.Tensor:
+    """`buf` as an (R, ncols) tensor: a 1-D buffer is one row."""
+    return buf.reshape(1, -1) if buf.dim() == 1 else buf
+
+
+def _reference_one(buf, rows, starts, lens, pad, op):
     if op == "count":
-        return lens.to(flat.dtype)
-    ident = torch.tensor(identity(op, flat.dtype).item(), dtype=flat.dtype,
-                         device=flat.device)
-    lane = torch.arange(pad, device=flat.device)
-    mask = lane[None, :] < lens[:, None]
-    n = flat.numel()
-    if n == 0:
-        vals = ident.expand(len(starts), pad)
-    else:
-        idx = (starts[:, None] + lane[None, :]).clamp(max=n - 1)
-        vals = torch.where(mask, flat[idx], ident)
-    if op in ("sum", "prod") and flat.dtype == torch.int32:
+        return lens.to(buf.dtype)
+    buf = _as_rows(buf)
+    device = buf.device
+    ident = torch.tensor(identity(op, buf.dtype).item(), dtype=buf.dtype,
+                         device=device)
+    ncols = buf.shape[1]
+    if ncols == 0:
+        return ident.expand(len(starts)).clone()
+    lane = torch.arange(int(pad), device=device)
+    mask = lane[None, :] < lens.long()[:, None]
+    idx = (starts.long()[:, None] + lane[None, :]).clamp(0, ncols - 1)
+    vals = buf[rows.long()[:, None], idx] if rows is not None else buf[0][idx]
+    vals = torch.where(mask, vals, ident)
+    if op in ("sum", "prod") and buf.dtype == torch.int32:
         # accumulate in int64 and truncate: the low 32 bits are the wrapped
         # int32 result (torch.sum of int32 would otherwise widen)
-        red = vals.long().sum(dim=1) if op == "sum" else vals.long().prod(dim=1)
+        wide = vals.long()
+        red = wide.sum(dim=1) if op == "sum" else wide.prod(dim=1)
         return red.to(torch.int32)
     if op == "sum":
         return vals.sum(dim=1)
@@ -103,54 +133,154 @@ def windowed_reduce_reference(flat: torch.Tensor, starts: torch.Tensor,
     return vals.amin(dim=1) if op == "min" else vals.amax(dim=1)
 
 
+def windowed_reduce_many_reference(evals, rows, starts, lens,
+                                   pad: int) -> list:
+    """Plain PyTorch version of the kernel: per evaluation a gather
+    ``buf[rows, clamp(starts + lane, 0, ncols - 1)]`` into a (B, pad) tile,
+    the lanes past each length set to the identity, a reduction over axis
+    1.  int32 sums and products wrap modulo 2**32 like the kernel's."""
+    out = []
+    for buf, op in evals:
+        _check_op(op)
+        out.append(_reference_one(buf, rows, starts, lens, pad, op))
+    return out
+
+
+def windowed_reduce_reference(flat: torch.Tensor, starts: torch.Tensor,
+                              lens: torch.Tensor, pad: int,
+                              op: str) -> torch.Tensor:
+    """Plain version of :func:`windowed_reduce` (one evaluation over one
+    flat row)."""
+    return windowed_reduce_many_reference([(flat, op)], None, starts, lens,
+                                          pad)[0]
+
+
+def _check_many(evals, rows, starts, lens):
+    if not evals:
+        raise ValueError("windowed_reduce_many needs at least one evaluation")
+    shape, device = evals[0][0].shape, evals[0][0].device
+    for buf, op in evals:
+        _check_op(op)
+        if buf.dtype not in _DTYPES:
+            raise TypeError(f"windowed_reduce takes int32 or float32 values, "
+                            f"got {buf.dtype}")
+        if (buf.dim() not in (1, 2) or buf.shape != shape
+                or buf.device != device):
+            raise TypeError(f"windowed_reduce_many takes 1-D or 2-D buffers "
+                            f"of one shape on one device, got "
+                            f"{tuple(buf.shape)} on {buf.device}")
+    if len(shape) == 1 and rows is not None:
+        raise ValueError("1-D buffers are one row: pass rows=None")
+    B = starts.numel()
+    for name, t in (("rows", rows), ("starts", starts), ("lens", lens)):
+        if t is None:
+            continue
+        if (t.dtype != torch.int32 or t.dim() != 1 or t.numel() != B
+                or t.device != device):
+            raise TypeError(f"{name} must be a ({B},) int32 tensor on "
+                            f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                            f"{t.device}")
+    return device
+
+
+def windowed_reduce_many(evals, rows, starts, lens, pad: int, *,
+                         staged: bool = False, paths=None) -> list:
+    """Reduce the B windows ``(rows[w], starts[w], min(lens[w], pad))`` of
+    every evaluation ``(buf, op)`` in `evals`; returns one (B,) tensor an
+    evaluation, in the buffer's dtype.
+
+    All buffers share one shape (their dtypes may differ) and lie on one
+    device with the int32 descriptors; ``rows=None`` reads row 0.  A CUDA
+    buffer launches the kernel, once for every :data:`EVALS_PER_LAUNCH`
+    evaluations (none for B = 0); a CPU buffer runs the plain version.
+    ``staged=True`` launches the kernel's staged design (each block stages
+    its windows' span in shared memory where it fits: the variant
+    chip_smoke.py times the default direct design against; the results are
+    the same bit for bit); ``paths``, an int32 (2,) CUDA tensor, then gets
+    the count of blocks that staged and of blocks that read device memory
+    directly added (chip_smoke.py and the tests read it)."""
+    evals = [(buf, op) for buf, op in evals]
+    device = _check_many(evals, rows, starts, lens)
+    if device.type == "cpu":
+        return windowed_reduce_many_reference(evals, rows, starts, lens, pad)
+    if device.type != "cuda":
+        raise ValueError(f"windowed_reduce runs on cuda or cpu tensors, got "
+                         f"{device}")
+    if not all(t.is_contiguous() for t in (*(b for b, _ in evals), starts,
+                                           lens)) or (
+            rows is not None and not rows.is_contiguous()):
+        raise ValueError("windowed_reduce takes contiguous tensors")
+    if paths is not None and (not staged or paths.dtype != torch.int32
+                              or paths.shape != (2,)
+                              or paths.device != device):
+        raise TypeError("paths takes the staged design's int32 (2,) tensor "
+                        "on the card")
+    B, pad = starts.numel(), int(pad)
+    outs = [torch.empty(B, dtype=buf.dtype, device=device)
+            for buf, _ in evals]
+    if B == 0:
+        return outs
+    lib = _load()
+    ncols = evals[0][0].shape[-1]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for i in range(0, len(evals), EVALS_PER_LAUNCH):
+            group = range(i, min(i + EVALS_PER_LAUNCH, len(evals)))
+            n = len(group)
+            bufs = (ctypes.c_void_p * n)(*(evals[k][0].data_ptr()
+                                           for k in group))
+            dsts = (ctypes.c_void_p * n)(*(outs[k].data_ptr()
+                                           for k in group))
+            ops = (ctypes.c_int * n)(*(_OPS[evals[k][1]] for k in group))
+            dts = (ctypes.c_int * n)(*(_DTYPES[evals[k][0].dtype]
+                                       for k in group))
+            ids = (ctypes.c_uint * n)(*(_ident_bits(evals[k][1],
+                                                    evals[k][0].dtype)
+                                        for k in group))
+            rc = lib.wf_windowed_reduce(
+                bufs, dsts, ops, dts, ids, n, ncols,
+                rows.data_ptr() if rows is not None else None,
+                starts.data_ptr(), lens.data_ptr(), B, pad, int(staged),
+                paths.data_ptr() if paths is not None else None, stream)
+            if rc != 0:
+                raise RuntimeError(f"windowed_reduce kernel launch failed: "
+                                   f"CUDA error {rc}")
+            windowed_reduce.launches += 1
+    return outs
+
+
 def windowed_reduce(flat: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, pad: int, op: str) -> torch.Tensor:
     """Reduce B windows ``flat[starts[i] : starts[i]+lens[i]]`` (lens <=
     pad) with the monoid `op`; returns a (B,) tensor in ``flat.dtype``.
 
-    A CUDA `flat` launches the kernel on the current stream (asynchronous,
+    The one-evaluation, one-row form of :func:`windowed_reduce_many`: a
+    CUDA `flat` launches the kernel on the current stream (asynchronous,
     counted in ``windowed_reduce.launches``); a CPU `flat` runs the plain
     version.  The kernel takes int32 or float32 values and int32
-    starts/lens, all contiguous and on one device."""
+    starts/lens, all on one device."""
     _check_op(op)
     if flat.dtype not in _DTYPES:
         raise TypeError(f"windowed_reduce takes int32 or float32 values, "
                         f"got {flat.dtype}")
-    if flat.device.type == "cpu":
-        return windowed_reduce_reference(flat, starts, lens, pad, op)
-    if flat.device.type != "cuda":
-        raise ValueError(f"windowed_reduce runs on cuda or cpu tensors, got "
-                         f"{flat.device}")
-    for name, t in (("starts", starts), ("lens", lens)):
-        if t.dtype != torch.int32 or t.device != flat.device or t.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int32 tensor on "
-                            f"{flat.device}, got {t.dtype} {tuple(t.shape)} "
-                            f"on {t.device}")
-    if starts.numel() != lens.numel():
-        raise ValueError("starts and lens differ in length")
     if flat.dim() != 1:
         raise ValueError("flat must be 1-D")
-    flat, starts, lens = flat.contiguous(), starts.contiguous(), lens.contiguous()
-    B = starts.numel()
-    out = torch.empty(B, dtype=flat.dtype, device=flat.device)
-    if B == 0:
-        return out
-    lib = _load()
-    # the launch goes to the current CUDA device: make it flat's, so that a
-    # worker placed on cuda:i launches on cuda:i's stream
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
-        rc = lib.wf_windowed_reduce(
-            flat.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), B, int(pad), _OPS[op], _DTYPES[flat.dtype],
-            _ident_bits(op, flat.dtype), stream)
-    if rc != 0:
-        raise RuntimeError(f"windowed_reduce kernel launch failed: CUDA "
-                           f"error {rc}")
-    windowed_reduce.launches += 1
-    return out
+    if flat.device.type == "cuda":
+        flat, starts, lens = (flat.contiguous(), starts.contiguous(),
+                              lens.contiguous())
+    return windowed_reduce_many([(flat, op)], None, starts, lens, pad)[0]
 
 
 #: kernel launches since the count was last reset (chip_smoke.py resets it
 #: before the main path and reads it after)
 windowed_reduce.launches = 0
+
+
+def empty_launch():
+    """Launch the library's empty kernel (one block, no work) on the
+    current stream: the floor of a launch, which chip_smoke.py times
+    beside every kernel.  No path of the port calls it."""
+    lib = _load()
+    rc = lib.wf_empty(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
