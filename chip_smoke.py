@@ -15,16 +15,16 @@ catches its own failure):
    bit for bit, against its lane-order twin (plain torch, run on the card),
    for sum/count/min/max/prod over int32 and float32, at the
    restaging path's shape (32768 windows of 256 rows over a ~2.1M-row flat
-   buffer), in both of its designs (direct, the default, and staged), with
-   CUDA-graph timings beside the least time the card could take: hot (one
-   input set) and cold (inputs cycled through three times the L2), and the
-   empty-launch floor; then at edge cases (lengths 0 and pad, B = 1, 7, 8,
-   int32 wrap, NaN), windows that straddle blocks, every start offset mod
-   4, a span exactly at the staged design's shared-memory budget and one
-   16-byte group past it, and many evaluations in one launch (sum of an
-   int32 ring, max of a float32 ring and count over unsorted windows on
-   several rows; nine evaluations in two launches), the staged design's
-   per-block choice counted on the card against the twin's plan;
+   buffer), with CUDA-graph timings beside the least time the card could
+   take: hot (one input set) and cold (inputs cycled through three times
+   the L2), and the empty-launch floor; then at edge cases (lengths 0 and
+   pad, B = 1, 7, 8, int32 wrap, NaN), windows that straddle blocks, every
+   start offset mod 4, windows that end at the last row's end of a 16 MiB
+   buffer (the last trip of 32 cells holding one 16-byte group of the
+   window or seven), and many evaluations in one launch (sum of an int32
+   ring, max of a float32 ring and count over sliding windows of one row
+   and unsorted windows on several rows; nine evaluations in two
+   launches);
 4. ring_kernel: the fused ring_append_regular_sum (one launch a flush) and
    ring_append against their plain versions at the resident path's shape
    (a 64 x 262144 int32 ring, a 64 x 8192 int8 rectangle, 128 windows of
@@ -42,7 +42,8 @@ catches its own failure):
 4b. big_ring: a ring of 16 x 2^28 int32 cells (2^32 cells, 16 GiB) through
    ResidentWindowExecutor.launch: two appends at the ends of its rows, then
    sum, max and min of windows on its last row, whose cells lie past flat
-   offset 2^32, in one windowed-reduce launch, held against the plain
+   offset 2^32 (some ending at the ring's last cell), in one windowed-reduce
+   launch, held against the plain
    version on that row (the int32 flat starts of the kernel before could
    not reach them);
 5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
@@ -250,48 +251,23 @@ def compare(got, want, flat, starts, lens, op, rows=None):
     return float(err.max())
 
 
-def twin_module():
-    """The windowed-reduce kernel's lane-order twin and the staged design's
-    per-block plan (tests/test_torch_windowed_reduce.py: lane_order_twin,
-    staged_plan), loaded from the checkout by path."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "test_torch_windowed_reduce.py")
-    spec = importlib.util.spec_from_file_location("wr_twin", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def check_reduce(wr, tw, evals, rows, starts, lens, pad, name, plan=None):
-    """Both designs of the kernel against the plain version (compare) and
-    bit for bit against the twin; with `plan` (the twin's staged_plan) the
-    staged design's blocks that staged and that read device memory must be
-    the plan's.  Returns the largest error against the plain version."""
-    dev = starts.device
-    paths = torch.zeros(2, dtype=torch.int32, device=dev)
-    direct = wr.windowed_reduce_many(evals, rows, starts, lens, pad)
-    staged = wr.windowed_reduce_many(evals, rows, starts, lens, pad,
-                                     staged=True, paths=paths)
+def check_reduce(wr, evals, rows, starts, lens, pad, name):
+    """The kernel against the plain version (compare) and bit for bit
+    against the lane-order twin.  Returns the largest error against the
+    plain version."""
+    got = wr.windowed_reduce_many(evals, rows, starts, lens, pad)
     plain = wr.windowed_reduce_many_reference(evals, rows, starts, lens, pad)
-    twin = tw.lane_order_twin(evals, rows, starts, lens, pad)
+    twin = wr.lane_order_twin(evals, rows, starts, lens, pad)
     torch.cuda.synchronize()
     err = 0.0
-    for (buf, op), d, st, p, t in zip(evals, direct, staged, plain, twin):
-        for label, got in (("direct", d), ("staged", st)):
-            if not torch.equal(got.view(torch.int32), t.view(torch.int32)):
-                bad = int((got.view(torch.int32) != t.view(torch.int32))
-                          .nonzero()[0])
-                raise AssertionError(
-                    f"windowed_reduce {name} {op}/{buf.dtype} ({label}): "
-                    f"window {bad} gives {got[bad].item()}, the twin "
-                    f"{t[bad].item()}")
-        err = max(err, compare(d, p, buf, starts, lens, op, rows))
-    if plan is not None:
-        want = [int(plan.sum()), int((~plan).sum())]
-        if paths.tolist() != want:
-            raise AssertionError(f"windowed_reduce {name}: staged blocks "
-                                 f"{paths.tolist()}, the plan {want}")
+    for (buf, op), g, p, t in zip(evals, got, plain, twin):
+        if not torch.equal(g.view(torch.int32), t.view(torch.int32)):
+            bad = int((g.view(torch.int32) != t.view(torch.int32))
+                      .nonzero()[0])
+            raise AssertionError(
+                f"windowed_reduce {name} {op}/{buf.dtype}: window {bad} "
+                f"gives {g[bad].item()}, the twin {t[bad].item()}")
+        err = max(err, compare(g, p, buf, starts, lens, op, rows))
     return err
 
 
@@ -315,9 +291,8 @@ def cycled(copies, fn):
 
 def kernel_phase(wr, dev):
     """Kernel against its plain version and its twin at the main path's
-    shape, both designs, and at edge cases; returns the main-path row of
-    the kernels line (op sum, int32, the default design)."""
-    tw = twin_module()
+    shape and at edge cases; returns the main-path row of the kernels line
+    (op sum, int32)."""
     gen = np.random.default_rng(0)
     starts, lens, n = bench_layout(dev)
     max_err = 0.0
@@ -331,20 +306,15 @@ def kernel_phase(wr, dev):
             else:
                 host = gen.integers(0, 100, size=n)
             flat = torch.from_numpy(host).to(dev, dtype)
-            err = check_reduce(wr, tw, [(flat, op)], None, starts, lens, WIN,
-                               f"bench_shape {op}/{dtype}",
-                               tw.staged_plan(None, starts.cpu().numpy(),
-                                              lens.cpu().numpy(), WIN, n,
-                                              int(op != "count")))
+            err = check_reduce(wr, [(flat, op)], None, starts, lens, WIN,
+                               f"bench_shape {op}/{dtype}")
             max_err = max(max_err, err)
             b_ms, b_by = bound(op, n, BATCH_LEN, lens)
 
-            def kernel(staged=False):
-                wr.windowed_reduce_many([(flat, op)], None, starts, lens, WIN,
-                                        staged=staged)
+            def kernel():
+                wr.windowed_reduce_many([(flat, op)], None, starts, lens, WIN)
 
             k_ms = kernel_ms(kernel)
-            s_ms = kernel_ms(lambda: kernel(True))
             c_ms = call_ms(kernel)
             p_ms = call_ms(lambda: wr.windowed_reduce_reference(
                 flat, starts, lens, WIN, op))
@@ -352,49 +322,35 @@ def kernel_phase(wr, dev):
                                      bound_by=b_by)
             emit("kernel", case="bench_shape", op=op, dtype=str(dtype),
                  B=BATCH_LEN, pad=WIN, n=n, max_abs_err=err,
-                 twin_bitwise=True, kernel_ms=k_ms, staged_ms=s_ms,
+                 twin_bitwise=True, kernel_ms=k_ms,
                  kernel_call_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None)
-    # the main-path row: sum over int32, hot and cold, both designs, beside
-    # the bound and the empty-launch floor
+    # the main-path row: sum over int32, hot and cold, beside the bound and
+    # the empty-launch floor
     flat = torch.from_numpy(gen.integers(0, 100, size=n)).to(dev,
                                                              torch.int32)
     copies = cold_copies(dev, (flat, starts, lens))
-
-    def timed(staged):
-        return dict(
-            hot_ms=kernel_ms(lambda: wr.windowed_reduce_many(
-                [(flat, "sum")], None, starts, lens, WIN, staged=staged)),
-            cold_ms=kernel_ms(cycled(copies, lambda f, st, ln:
-                                     wr.windowed_reduce_many(
-                                         [(f, "sum")], None, st, ln, WIN,
-                                         staged=staged)),
-                              reps=10 * len(copies)))
-
-    designs = {"direct": timed(False), "staged": timed(True)}
+    hot = kernel_ms(lambda: wr.windowed_reduce_many(
+        [(flat, "sum")], None, starts, lens, WIN))
+    cold = kernel_ms(cycled(copies, lambda f, st, ln: wr.windowed_reduce_many(
+        [(f, "sum")], None, st, ln, WIN)), reps=10 * len(copies))
     floor = kernel_ms(wr.empty_launch)
     b_ms, b_by = bound("sum", n, BATCH_LEN, lens)
-    emit("kernel", case="bench_shape_designs", op="sum", dtype="torch.int32",
-         B=BATCH_LEN, pad=WIN, n=n, cold_copies=len(copies),
-         default="direct", **{f"{k}_{m}": v for k, d in designs.items()
-                              for m, v in d.items()},
-         floor_ms=floor, bound_ms=b_ms, bound_by=b_by,
-         bound_bytes=4 * n + 12 * BATCH_LEN)
+    emit("kernel", case="bench_shape_hot_cold", op="sum",
+         dtype="torch.int32", B=BATCH_LEN, pad=WIN, n=n,
+         cold_copies=len(copies), hot_ms=hot, cold_ms=cold, floor_ms=floor,
+         bound_ms=b_ms, bound_by=b_by, bound_bytes=4 * n + 12 * BATCH_LEN)
     del copies
     emit("kernel", case="edges_and_many_evaluations",
-         max_abs_err=edge_cases(wr, tw, dev, gen), ok=True)
+         max_abs_err=edge_cases(wr, dev, gen), ok=True)
     torch.cuda.synchronize()
     row = dict(rows[("sum", torch.int32)])
-    row["ms"] = designs["direct"]["hot_ms"]
-    return dict(max_abs_err=max_err, cold_ms=designs["direct"]["cold_ms"],
-                staged_ms=designs["staged"]["hot_ms"],
-                staged_cold_ms=designs["staged"]["cold_ms"],
-                floor_ms=floor, **row)
+    row["ms"] = hot
+    return dict(max_abs_err=max_err, cold_ms=cold, floor_ms=floor, **row)
 
 
-def edge_cases(wr, tw, dev, gen):
-    """The kernel against its plain version and its twin, both designs, at
-    its edges; returns the largest error against the plain version (float
+def edge_cases(wr, dev, gen):
+    """The kernel against its plain version and its twin at its edges; returns the largest error against the plain version (float
     products of up to 300 values near 1 included, so it can be large in
     absolute terms and still within FLOAT_RTOL of |want|)."""
     as32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
@@ -404,7 +360,7 @@ def edge_cases(wr, tw, dev, gen):
     def check(name, flat, starts, lens, pad, ops):
         nonlocal err
         flat = flat.to(dev)
-        err = max(err, check_reduce(wr, tw, [(flat, op) for op in ops], None,
+        err = max(err, check_reduce(wr, [(flat, op) for op in ops], None,
                                     as32(starts), as32(lens), pad, name))
         emit("kernel", case=name, ops=list(ops), dtype=str(flat.dtype),
              ok=True)
@@ -424,8 +380,8 @@ def edge_cases(wr, tw, dev, gen):
         flat = torch.from_numpy(values(600)).to(dtype)
         check("len0_and_len_pad", flat, [0, 5, 300, 44], [0, 256, 256, 0],
               256, all_ops)
-        # sliding windows that straddle the blocks of both designs (B not
-        # a multiple of 64), lengths 0..300 at pad 300
+        # sliding windows that straddle the kernel's blocks (B not a
+        # multiple of 64), lengths 0..300 at pad 300
         flat = torch.from_numpy(values(12000)).to(dtype)
         B = 64 * 5 + 37
         lens = gen.integers(0, 301, size=B)
@@ -448,29 +404,31 @@ def edge_cases(wr, tw, dev, gen):
     nan[5] = float("nan")
     check("nan_min_max", nan, [0, 4, 8, 6, 40], [8, 4, 8, 0, 16], 16,
           ("min", "max", "sum"))
-    # a span at the staged design's budget: 64 windows of one buffer
-    # covering exactly STAGE_CELLS cells from a 16-byte edge stage; one
-    # cell later (head 1) the span takes one 16-byte group more and the
-    # block reads device memory
-    n = 4 * wr.STAGE_CELLS
-    flat = torch.from_numpy(gen.integers(-50, 50, size=n)).to(dev,
-                                                               torch.int32)
-    lens = as32(np.full(wr.STAGED_WINDOWS, WIN))
-    for shift, want in ((0, [True]), (1, [False])):
-        st = np.r_[0, np.full(wr.STAGED_WINDOWS - 1,
-                              wr.STAGE_CELLS - WIN)] + shift
-        plan = tw.staged_plan(None, st, lens.cpu().numpy(), WIN, n, 1)
-        if plan.tolist() != want:
-            raise AssertionError(f"budget case shift {shift}: plan {plan}")
-        err = max(err, check_reduce(wr, tw, [(flat, "sum"), (flat, "max")],
-                                    None, as32(st), lens, WIN,
-                                    f"budget_shift{shift}", plan))
-    emit("kernel", case="stage_budget", stage_cells=wr.STAGE_CELLS,
-         at_budget_staged=True, one_group_past_direct=True, ok=True)
+    # windows that end at their row's end, the last row's included, on a
+    # 16 MiB buffer (its own allocation): the last trip of 32 cells holds
+    # one 16-byte group of the window or seven, so a lane that loaded every
+    # trip's group would read past the buffer
+    R, ncols = 64, 65536
+    for tail in (4, 28):
+        lens = np.array([k for k in range(1, 300)
+                         if ((-k) % 4 + k) % 32 == tail] + [300, 255, 33])
+        rows = np.arange(len(lens)) % R
+        rows[::2] = R - 1
+        d = [as32(a) for a in (rows, ncols - lens, lens)]
+        for dtype in (torch.int32, torch.float32):
+            ring = torch.from_numpy(
+                gen.integers(-1000, 1000, size=(R, ncols))
+                if dtype == torch.int32
+                else gen.uniform(0.5, 1.5, size=(R, ncols))).to(dev, dtype)
+            err = max(err, check_reduce(wr, [(ring, op) for op in all_ops],
+                                        *d, 300, f"row_end_tail{tail}"))
+            del ring
+        emit("kernel", case=f"row_end_tail{tail}", ring=[R, ncols],
+             windows=len(lens), ok=True)
     # many evaluations in one launch: sum of an int32 ring, max of a
-    # float32 ring and count, over sliding windows of one row (blocks that
-    # stage) then unsorted windows on several rows (blocks that read device
-    # memory); then nine evaluations (two launches)
+    # float32 ring and count, over sliding windows of one row then
+    # unsorted windows on several rows; then nine evaluations (two
+    # launches)
     R, ncols, B = 8, 20000, 64 * 6 + 21
     ri = torch.from_numpy(gen.integers(-1000, 1000, size=(R, ncols))).to(
         dev, torch.int32)
@@ -483,24 +441,19 @@ def edge_cases(wr, tw, dev, gen):
     lens = gen.integers(0, 300, size=B)
     lens[:192] = 256
     d = [as32(a) for a in (rows, starts, lens)]
-    plan = tw.staged_plan(rows, starts, lens, 300, ncols, 2)
-    if not (plan.any() and not plan.all()):
-        raise AssertionError(f"many-evaluation case: plan {plan}")
     evals = [(ri, "sum"), (rf, "max"), (ri, "count")]
     before = wr.windowed_reduce.launches
-    err = max(err, check_reduce(wr, tw, evals, *d, 300, "many_evaluations",
-                                plan))
-    if wr.windowed_reduce.launches - before != 2:    # one a design
+    err = max(err, check_reduce(wr, evals, *d, 300, "many_evaluations"))
+    if wr.windowed_reduce.launches - before != 1:
         raise AssertionError("three evaluations took more than one launch")
     evals9 = evals + [(rf, "min"), (ri, "prod"), (rf, "sum"), (ri, "max"),
                       (rf, "count"), (ri, "min")]
     before = wr.windowed_reduce.launches
-    err = max(err, check_reduce(wr, tw, evals9, *d, 300, "nine_evaluations"))
-    if wr.windowed_reduce.launches - before != 4:    # two a design
+    err = max(err, check_reduce(wr, evals9, *d, 300, "nine_evaluations"))
+    if wr.windowed_reduce.launches - before != 2:
         raise AssertionError("nine evaluations did not take two launches")
     emit("kernel", case="many_evaluations", evals=[op for _, op in evals9],
-         rows=R, B=B, staged_blocks=int(plan.sum()),
-         direct_blocks=int((~plan).sum()), ok=True)
+         rows=R, B=B, ok=True)
     return err
 
 
@@ -789,7 +742,6 @@ def ring_kernel_phase(dev):
 
     # -- the irregular evaluation: windowed_reduce over the ring's (row,
     # start, len) descriptors, every op in one launch
-    tw = twin_module()
     for acc in ACCS:
         ring = (torch.from_numpy(gen.integers(0, 100, size=(KP, CAP)))
                 .to(dev, acc))
@@ -806,7 +758,7 @@ def ring_kernel_phase(dev):
             dev, torch.int32)
         evals = [(ring, "sum"), (ring, "min"), (ring, "max"),
                  (ring_p, "prod")]
-        err = check_reduce(wr, tw, evals, rows_, starts, lens, WIN,
+        err = check_reduce(wr, evals, rows_, starts, lens, WIN,
                            f"ring_2d/{acc}")
         got = wr.windowed_reduce_many(evals, rows_, starts, lens, WIN)
         for (r, op), g in zip(evals, got):
@@ -849,6 +801,10 @@ def big_ring_phase(wr):
     starts = (BIG_CAP - 2 * R + gen.integers(0, 2 * R - 512, size=B)).astype(
         np.int32)
     starts[0] = BIG_CAP - 512          # a window that ends at the row's end
+    # ... and windows that end there whose last trip of 32 cells holds one
+    # 16-byte group of the window or seven (the ring's last cells)
+    lens[3:7] = (4, 28, 1, 25)
+    starts[3:7] = BIG_CAP - lens[3:7]
     rows = np.full(B, BIG_KEYS - 1, np.int32)
     empty = np.zeros(0, np.int32)
     before = wr.windowed_reduce.launches
@@ -1733,8 +1689,7 @@ def main() -> int:
         source="windflow_tpu_torch/ops/csrc/windowed_reduce.cu",
         replaces="windflow_tpu/ops/pallas_kernels.py:49",
         launches=restaging_launches, max_abs_err=row["max_abs_err"],
-        ms=row["ms"], cold_ms=row["cold_ms"], staged_ms=row["staged_ms"],
-        staged_cold_ms=row["staged_cold_ms"], plain_ms=row["plain_ms"],
+        ms=row["ms"], cold_ms=row["cold_ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
         library_ms=None)]
     # ring_append's row: the spatial resident run's launches (the per-field

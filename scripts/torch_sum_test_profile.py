@@ -40,7 +40,7 @@ archive``) on one card, in turns A, B, B, A: each turn is a fresh process
 in its checkout (its own kernels, built from its own sources) and prints
 one ``ab`` line with the rows of chip_smoke.py's windowed-reduce phase
 (the restaging shape, and where that checkout's chip_smoke.py measures
-them its cold times, its second design and the empty-launch floor), of
+them its cold times and the empty-launch floor), of
 its ring-kernel phase (the fused ring_append_regular_sum, ring_append at
 that shape), of its gather and skyline phases, ring_append at the inputs
 of the spatial resident run's launches (where that checkout's

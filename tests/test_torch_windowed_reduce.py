@@ -4,13 +4,13 @@ numpy from a seed; its 2-D (row, start, len) form against JAX's
 ``_ring_eval``, and its many-evaluation form, through the per-field
 executor, against ``_make_multi_step``'s stats.
 
-A lane-order CPU twin of the kernel (``lane_order_twin``: which lane
+The kernel's lane-order CPU twin (``wr.lane_order_twin``: which lane
 combines which cell, in which order, then the butterfly) is held against
 the plain version for every op and dtype, over one flat row and over
-rows, many evaluations, unsorted and cross-row windows; ``staged_plan``
-is the staged design's per-block decision.  The CUDA kernel itself is held
-against the plain version and, bit for bit, against the twin on the card:
-the `cuda`-marked tests here, and chip_smoke.py.
+rows, many evaluations, unsorted and cross-row windows, and windows that
+end at the last row's end.  The CUDA kernel itself is held against the
+plain version and, bit for bit, against the twin on the card: the
+`cuda`-marked tests here, and chip_smoke.py.
 
 Tolerances: integers must match exactly (including int32 wrap-around);
 float32 min/max/count must match exactly (no rounding is involved); float32
@@ -26,7 +26,6 @@ import pytest
 import torch
 
 from windflow_tpu_torch.ops import windowed_reduce as wr
-from windflow_tpu_torch.ops.monoid import identity
 
 OPS = ("sum", "count", "min", "max", "prod")
 RTOL = 1e-5
@@ -158,10 +157,10 @@ def make_2d(seed, dtype, layout, R=6, ncols=700, B=150, pad=64, op="sum"):
     """An (R, ncols) buffer and B window descriptors (rows, starts, lens):
 
     * ``sliding``: windows of one row after another, slide 16, as a key's
-      fired windows are (so blocks of the staged design stage their spans);
-    * ``unsorted``: random rows and starts (blocks read device memory);
+      fired windows are;
+    * ``unsorted``: random rows and starts;
     * ``mixed``: a sliding run, then unsorted windows, with B not a
-      multiple of the staged design's 64 windows a block;
+      multiple of the kernel's 64 windows a block;
     * ``past_end``: starts whose start + len passes the row's end (the
       last cell is read again, as the JAX gathers clamp).
 
@@ -223,100 +222,6 @@ def assert_match_2d(got, want, buf2d, rows, starts, lens, pad, op,
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
 
 
-def _wrap32(x):
-    """int64 values reduced modulo 2**32 into the int32 range."""
-    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
-
-
-def _combine(op, a, b, is_int):
-    """The kernel's combine(a, b): a + b and a * b (int32 wrapping), and
-    for min/max ``a`` where a is NaN or wins, else ``b``."""
-    if op == "sum":
-        return _wrap32(a + b) if is_int else a + b
-    if op == "prod":
-        return _wrap32(a * b) if is_int else a * b
-    first = a < b if op == "min" else a > b
-    if not is_int:
-        first = first | torch.isnan(a)
-    return torch.where(first, a, b)
-
-
-def lane_order_twin(evals, rows, starts, lens, pad):
-    """Plain torch that reproduces the kernel's ownership of cells and its
-    combine order (csrc/windowed_reduce.cu, "Order"): with len =
-    min(lens[w], pad), s = max(starts[w], 0) and a = (rows[w] * ncols + s)
-    mod 4, cell j of window w is column min(s + j, ncols - 1) of row
-    rows[w] and lies in the window's 16-byte group (a + j) // 4, which
-    belongs to lane group mod LANES; each lane combines its cells in
-    ascending j starting from the identity, skipping cells outside the
-    window; then a butterfly over LANES/2, ..., 2, 1 in which every lane
-    combines its own value with its partner's, own first; lane 0's value is
-    the result.  int32 sums and products run in int64 reduced modulo 2**32
-    after every step (the kernel's uint32)."""
-    outs = []
-    B = starts.numel()
-    lane = torch.arange(wr.LANES, device=starts.device)
-    trip = wr.LANES * wr.GROUP
-    for buf, op in evals:
-        if op == "count":
-            outs.append(lens.to(buf.dtype))
-            continue
-        buf2 = buf.reshape(1, -1) if buf.dim() == 1 else buf
-        ncols = buf2.shape[1]
-        is_int = buf.dtype == torch.int32
-        work = torch.int64 if is_int else buf.dtype
-        ident = torch.tensor(identity(op, buf.dtype).item(), dtype=work,
-                             device=buf.device)
-        lanes = ident.expand(B, wr.LANES).clone()
-        s = starts.long().clamp(min=0)
-        n = (lens.long().clamp(0, int(pad)) if ncols
-             else torch.zeros_like(s))
-        r = rows.long() if rows is not None else torch.zeros_like(s)
-        a = (r * ncols + s) % wr.GROUP
-        for t in range(-(-(int(pad) + wr.GROUP - 1) // trip)):
-            for k in range(wr.GROUP):
-                j = (trip * t + wr.GROUP * lane)[None, :] + k - a[:, None]
-                live = (j >= 0) & (j < n[:, None])
-                col = (s[:, None] + j).clamp(0, max(ncols - 1, 0))
-                v = buf2[r[:, None], col].to(work) if ncols else lanes
-                lanes = torch.where(live, _combine(op, lanes, v, is_int),
-                                    lanes)
-        off = wr.LANES // 2
-        while off:
-            lanes = _combine(op, lanes, lanes[:, lane ^ off], is_int)
-            off //= 2
-        outs.append(lanes[:, 0].to(buf.dtype))
-    return outs
-
-
-def staged_plan(rows, starts, lens, pad, ncols, nbuf):
-    """Which blocks of the staged design stage their spans (numpy, the
-    kernel's own decision): a block takes STAGED_WINDOWS consecutive
-    windows; it stages when the windows that read a cell all lie on one
-    row and nbuf * round_up(base % 4 + width, 4) <= STAGE_CELLS, with
-    [lo, hi) the span of the columns they read and base = row * ncols +
-    lo."""
-    starts = np.maximum(np.asarray(starts, np.int64), 0)
-    n = (np.clip(np.asarray(lens, np.int64), 0, pad) if ncols
-         else np.zeros(len(starts), np.int64))
-    rows = (np.zeros(len(starts), np.int64) if rows is None
-            else np.asarray(rows, np.int64))
-    plan = []
-    for b0 in range(0, len(starts), wr.STAGED_WINDOWS):
-        sl = slice(b0, b0 + wr.STAGED_WINDOWS)
-        live = n[sl] > 0
-        r, s, k = rows[sl][live], starts[sl][live], n[sl][live]
-        if nbuf == 0 or not live.any() or r.min() != r.max():
-            plan.append(False)
-            continue
-        lo = int(np.minimum(s, ncols - 1).min())
-        hi = int(np.minimum(s + k - 1, ncols - 1).max()) + 1
-        base = int(r[0]) * ncols + lo
-        plan.append(nbuf * ((base % 4 + hi - lo + 3) // 4 * 4)
-                    <= wr.STAGE_CELLS)
-    return np.array(plan, dtype=bool)
-
-
 LAYOUTS = ("sliding", "unsorted", "mixed", "past_end")
 
 
@@ -332,7 +237,7 @@ def test_twin_matches_plain(op, dtype, layout):
                                       op=op)
     args = [torch.from_numpy(a) for a in (buf, rows, starts, lens)]
     evals = [(args[0], op)]
-    twin = lane_order_twin(evals, *args[1:], 64)[0].numpy()
+    twin = wr.lane_order_twin(evals, *args[1:], 64)[0].numpy()
     plain = wr.windowed_reduce_many(evals, *args[1:], 64)[0].numpy()
     assert_match_2d(twin, plain, buf, rows, starts, lens, 64, op)
 
@@ -353,7 +258,7 @@ def test_twin_many_evaluations_one_row(pad):
     ti, tf, st, ln = (torch.from_numpy(a)
                       for a in (flat_i, flat_f, starts, lens))
     evals = [(t, op) for op in OPS for t in (ti, tf)]
-    twin = lane_order_twin(evals, None, st, ln, pad)
+    twin = wr.lane_order_twin(evals, None, st, ln, pad)
     plain = wr.windowed_reduce_many(evals, None, st, ln, pad)
     for (t, op), a, b in zip(evals, twin, plain):
         assert_match_2d(a.numpy(), b.numpy(), t.numpy()[None, :],
@@ -374,7 +279,7 @@ def test_twin_many_evaluations_mixed_rings():
     evals = [(ti, "sum"), (tf, "max"), (ti, "count"), (tf, "min"),
              (tp, "prod"), (ti, "max"), (tf, "sum"), (ti, "prod"),
              (tf, "count")]
-    twin = lane_order_twin(evals, *d, 64)
+    twin = wr.lane_order_twin(evals, *d, 64)
     plain = wr.windowed_reduce_many(evals, *d, 64)
     assert len(plain) == len(evals) == 9
     for (t, op), a, b in zip(evals, twin, plain):
@@ -393,7 +298,7 @@ def test_twin_nan_and_wrap():
     starts = torch.tensor([0, 6, 0, 30, 5], dtype=torch.int32)
     lens = torch.tensor([8, 8, 31, 5, 1], dtype=torch.int32)
     for op in ("min", "max", "sum"):
-        a = lane_order_twin([(buf, op)], rows, starts, lens, 8)[0]
+        a = wr.lane_order_twin([(buf, op)], rows, starts, lens, 8)[0]
         b = wr.windowed_reduce_many([(buf, op)], rows, starts, lens, 8)[0]
         assert torch.isnan(a).tolist() == [True, False, False, True, True]
         assert torch.equal(torch.isnan(a), torch.isnan(b))
@@ -402,12 +307,54 @@ def test_twin_nan_and_wrap():
     z = torch.zeros(2, dtype=torch.int32)
     for op, v in (("sum", 2 ** 30), ("prod", 2 ** 16)):
         wrap.fill_(v)
-        got = lane_order_twin([(wrap, op)], z, z,
+        got = wr.lane_order_twin([(wrap, op)], z, z,
                               torch.tensor([4, 3], dtype=torch.int32), 8)[0]
         want = wr.windowed_reduce_many([(wrap, op)], z, z,
                                        torch.tensor([4, 3],
                                                     dtype=torch.int32), 8)[0]
         assert torch.equal(got, want) and int(got[0]) == 0
+
+
+#: (a + len) % 32 of the row-end windows: the last trip of 32 cells holds
+#: one 16-byte group of the window (4) or seven (28)
+ROW_END_TAILS = (4, 28)
+
+
+def row_end_case(tail, dtype, R=8, ncols=1024, seed=5):
+    """An (R, ncols) buffer (ncols a multiple of 4) and windows that end
+    exactly at their row's end, every other one on the last row, whose
+    alignment a = (row * ncols + start) % 4 and length give (a + len) % 32
+    == tail; a few windows of other lengths end at the last row's end
+    too."""
+    rng = np.random.default_rng(seed + tail)
+    buf = (rng.integers(-1000, 1000, size=(R, ncols)) if dtype == np.int32
+           else rng.uniform(0.5, 1.5, size=(R, ncols))).astype(dtype)
+    # len ≡ -a mod 4 when the window ends on a 16-byte edge
+    lens = np.array([n for n in range(1, 300)
+                     if ((-n) % 4 + n) % 32 == tail])
+    rows = np.r_[np.arange(len(lens)) % R, np.full(4, R - 1)]
+    rows[:len(lens):2] = R - 1
+    lens = np.r_[lens, 300, 255, 33, 2]
+    return (buf, rows.astype(np.int32), (ncols - lens).astype(np.int32),
+            lens.astype(np.int32))
+
+
+@pytest.mark.parametrize("tail", ROW_END_TAILS)
+def test_twin_row_end_windows(tail):
+    """Windows that end at their row's end, on the last row too, with the
+    last trip of 32 cells holding one group of the window or seven: every
+    op of both dtypes, twin against plain."""
+    for dtype in (np.int32, np.float32):
+        buf, rows, starts, lens = row_end_case(tail, dtype)
+        tails = ((rows * buf.shape[1] + starts) % 4 + lens) % 32
+        assert len(tails) > 8 and (tails[:-4] == tail).all()
+        d = [torch.from_numpy(a) for a in (buf, rows, starts, lens)]
+        evals = [(d[0], op) for op in OPS]
+        twin = wr.lane_order_twin(evals, *d[1:], 300)
+        plain = wr.windowed_reduce_many(evals, *d[1:], 300)
+        for (_, op), a, b in zip(evals, twin, plain):
+            assert_match_2d(a.numpy(), b.numpy(), buf, rows, starts, lens,
+                            300, op)
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max", "prod"])
@@ -426,7 +373,7 @@ def test_2d_matches_jax_ring_eval(op, acc):
                                  starts, lens))
     d = [torch.from_numpy(a) for a in (ring, rows, starts, lens)]
     got = wr.windowed_reduce_many([(d[0], op)], *d[1:], 32)[0].numpy()
-    twin = lane_order_twin([(d[0], op)], *d[1:], 32)[0].numpy()
+    twin = wr.lane_order_twin([(d[0], op)], *d[1:], 32)[0].numpy()
     prefix = np.array([np.abs(ring[r, :s + n].astype(np.float64)).sum()
                        for r, s, n in zip(rows, starts, lens)])
     for a in (got, twin):
@@ -478,36 +425,6 @@ def test_many_matches_jax_multi_step():
                            for r, s, n in zip(rows, starts, lens)])
         assert_match_2d(g, np.asarray(w), ring, rows, starts, lens, pad, op,
                         scale=prefix)
-
-
-def test_staged_plan():
-    """The staged design's per-block decision: sliding windows of one row
-    stage; unsorted rows read device memory; a span exactly at the budget
-    stages and one 16-byte group more does not; windows of length 0 do not
-    count toward a block's rows or span."""
-    n = wr.STAGED_WINDOWS
-    starts = np.arange(2 * n) * 64
-    lens = np.full(2 * n, 256)
-    assert staged_plan(None, starts, lens, 256, 10 ** 6, 1).tolist() == [
-        True, True]
-    rows = np.arange(2 * n) % 3
-    assert staged_plan(rows, starts, lens, 256, 10 ** 6, 1).tolist() == [
-        False, False]
-    rows = np.zeros(n, np.int64)
-    rows[5] = 1
-    lens1 = np.full(n, 256)
-    lens1[5] = 0                       # the other row's window reads nothing
-    assert staged_plan(rows, starts[:n], lens1, 256, 10 ** 6, 1).tolist() \
-        == [True]
-    # two buffers, the span at the budget exactly (base ≡ 0 mod 4), then
-    # four cells more
-    width = wr.STAGE_CELLS // 2
-    st = np.array([0] + [width - 256] * (n - 1))
-    ln = np.full(n, 256)
-    assert staged_plan(None, st, ln, 256, 10 ** 6, 2).tolist() == [True]
-    assert staged_plan(None, st + 1, ln, 256, 10 ** 6, 2).tolist() == [False]
-    assert staged_plan(None, st * 0 + 1, ln, 256, 10 ** 6, 2).tolist() == [
-        True]
 
 
 def test_refuses_bad_evaluations():
@@ -579,13 +496,11 @@ def bits(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("staged", [False, True], ids=["direct", "staged"])
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_kernel_equals_twin_bitwise_on_card(dtype, layout, staged):
+def test_kernel_equals_twin_bitwise_on_card(dtype, layout):
     """Every op over 2-D descriptors in one launch: the kernel equals the
-    lane-order twin bit for bit, two launches are bitwise equal, and the
-    staged design stages exactly the blocks staged_plan names."""
+    lane-order twin bit for bit, and two launches are bitwise equal."""
     need_card()
     for pad in (64, 256, 300):
         buf, rows, starts, lens = make_2d(pad + (dtype == np.float32),
@@ -593,19 +508,32 @@ def test_kernel_equals_twin_bitwise_on_card(dtype, layout, staged):
                                           pad=pad)
         d = [torch.from_numpy(a).cuda() for a in (buf, rows, starts, lens)]
         evals = [(d[0], op) for op in OPS]
-        paths = torch.zeros(2, dtype=torch.int32, device="cuda")
-        got = [wr.windowed_reduce_many(evals, *d[1:], pad, staged=staged,
-                                       paths=paths if staged else None)
-               for _ in range(2)]
-        twin = lane_order_twin(evals, *d[1:], pad)
+        got = [wr.windowed_reduce_many(evals, *d[1:], pad) for _ in range(2)]
+        twin = wr.lane_order_twin(evals, *d[1:], pad)
         torch.cuda.synchronize()
         for a, b, t in zip(got[0], got[1], twin):
             assert torch.equal(bits(a), bits(b))
             assert torch.equal(bits(a), bits(t))
-        if staged:
-            plan = staged_plan(rows, starts, lens, pad, buf.shape[1], 1)
-            assert paths.tolist() == [2 * int(plan.sum()),
-                                      2 * int((~plan).sum())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ROW_END_TAILS)
+def test_row_end_windows_on_card(tail):
+    """Windows that end at their row's end, the last row's included, on a
+    16 MiB buffer of its own allocation: the kernel equals the twin bit for
+    bit (its vector loads stop at the window's last 16-byte group, so
+    none reaches past the buffer)."""
+    need_card()
+    for dtype in (np.int32, np.float32):
+        buf, rows, starts, lens = row_end_case(tail, dtype, R=64,
+                                               ncols=65536)
+        d = [torch.from_numpy(a).cuda() for a in (buf, rows, starts, lens)]
+        evals = [(d[0], op) for op in OPS]
+        got = wr.windowed_reduce_many(evals, *d[1:], 300)
+        twin = wr.lane_order_twin(evals, *d[1:], 300)
+        torch.cuda.synchronize()
+        for a, t in zip(got, twin):
+            assert torch.equal(bits(a), bits(t))
 
 
 @pytest.mark.cuda
@@ -626,7 +554,7 @@ def test_many_evaluations_on_card():
     before = wr.windowed_reduce.launches
     got = wr.windowed_reduce_many(evals, *d, 256)
     assert wr.windowed_reduce.launches - before == 2
-    twin = lane_order_twin(evals, *d, 256)
+    twin = wr.lane_order_twin(evals, *d, 256)
     plain = wr.windowed_reduce_many_reference(evals, *d, 256)
     torch.cuda.synchronize()
     for (t, op), a, b, p in zip(evals, got, twin, plain):

@@ -37,52 +37,37 @@
 // lane g mod 8; a lane combines its cells in ascending j, starting from the
 // identity, then the window's lanes combine by a butterfly of
 // __shfl_xor_sync over 4, 2, 1 (each lane combines its own value with its
-// partner's, own first); the first lane writes.  Every path below combines
-// in exactly this order and differs only in where a load comes from and how
-// wide it is, so the result does not depend on the path, two launches agree
-// bit for bit, and a CPU twin (tests/test_torch_windowed_reduce.py)
-// reproduces it.
+// partner's, own first); the first lane writes.  Vector and cell-by-cell
+// loads combine in exactly this order, so the result does not depend on
+// how the cells were loaded, two launches agree bit for bit, and a CPU
+// twin (ops/windowed_reduce.py: lane_order_twin) reproduces it.
 //
 // Design.  One launch evaluates up to kMaxEvals evaluations (the wrapper
-// splits more).  A lane loads its groups as 16-byte vectors, kUnroll of
-// them before the first combine waits on one, and combines the 4 cells of a
-// group without a mask where the 32 cells its window's lanes cover in that
-// trip all lie inside the window: a window of 256 cells is 8 loads and 32
-// combines a lane.  (A first version gave each of the 32 lanes of a warp
+// splits more).  A block takes kWindows consecutive windows, a warp 4 of
+// them at a time, read straight from device memory (overlapping windows
+// re-read their cells through L1 and L2).  A lane loads its groups as
+// 16-byte vectors, kUnroll of them before the first combine waits on one,
+// and combines the 4 cells of a group without a mask where the 32 cells
+// its window's lanes cover in that trip all lie inside the window: a
+// window of 256 cells is 8 loads and 32 combines a lane.  A lane loads
+// only the groups g < ceil((a + len) / 4) of its window, so no vector load
+// leaves the window's first and last groups; those lie inside the row, or
+// the window takes cell-by-cell loads in the same order (as it does where
+// it passes its row's end, with clamped cells, or where a buffer is not
+// 16-byte aligned).  (A first version gave each of the 32 lanes of a warp
 // one cell at a time, one window a warp, with 64-bit index arithmetic on
 // every cell: on the H100 it was issue-bound, more than twice as slow as
-// the kernel it replaced; PERF.md.)  A window that passes its row's end
-// (clamped cells), or whose groups would leave the row, or a buffer not
-// 16-byte aligned, takes cell-by-cell loads in the same order.  A block
-// takes a run of consecutive windows, in one of two designs:
-//  * direct (the default): kDirectWindows windows a block, 4 a warp at a
-//    time, read straight from device memory (overlapping windows re-read
-//    their cells through L1 and L2);
-//  * staged (the variant it was measured against; `staged` of the C
-//    entry): kStagedWindows windows a block.  Their descriptors are loaded
-//    once into shared memory; two warps reduce them to the block's row
-//    range and the span [min s, max end) of the cells they read (from the
-//    clamped lengths, so nothing past a row's end).  If every window that
-//    reads a cell lies on one row and the span of every distinct buffer
-//    fits kStageCells cells together, the block stages the spans with
-//    16-byte loads (head and tail of any alignment peeled cell by cell,
-//    as the ring append does; cell by cell throughout when a buffer is not
-//    16-byte aligned), and the lanes reduce from shared memory: each cell
-//    of the span crosses from L2 or device memory once, however many of
-//    the block's windows and evaluations read it (evaluations over one
-//    buffer share its span).  Otherwise the block reads device memory
-//    directly.  The choice is made per block, from the data.  On the H100
-//    it moves a quarter of the bytes and is slower all the same: the
-//    blocks' dependent phases (descriptors, staging, reduction) run in one
-//    wave in lock step and nothing overlaps them (PERF.md).
+// the kernel it replaced.  A staged variant, each block copying its
+// windows' span to shared memory once, moved a quarter of the bytes and
+// was slower all the same: the blocks' dependent phases ran in one wave
+// in lock step; PERF.md.)
 //
 // Bound on an H100 SXM (3.35 TB/s), by bytes: the cells the windows cover
 // read once per distinct buffer, the descriptors read once, every output
 // written once; one 32-bit combine per cell and evaluation is far below the
 // card's peak rate.  At the restaging shape (32,768 windows of 256 cells,
-// slide 64) the windows cover each cell 4 times: reading each window's
-// cells straight from device memory pulls four times the bytes through L2
-// that the staged design does.
+// slide 64) the windows cover each cell 4 times, so this design pulls four
+// times the bound's bytes through L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,14 +85,7 @@ constexpr int kLanes = 8;             // lanes that reduce one window
 constexpr int kWinPerWarp = 32 / kLanes;
 constexpr int kTrip = kGroup * kLanes;  // cells a window's lanes cover a trip
 constexpr int kUnroll = 4;            // 16-byte loads in flight a lane
-constexpr int kStagedWindows = 64;    // windows a block, staged design
-constexpr int kDirectWindows = 64;    // windows a block, direct design
-constexpr int kStageUnroll = 8;       // 16-byte staging loads a thread
-// shared-memory cells a staged block may fill, over all its buffers (44 KB:
-// with the descriptors the block stays under the 48 KB of static shared
-// memory, and 4 blocks fit an SM)
-constexpr int kStageCells = 11264;
-constexpr int kStagedBlocksPerSM = 4;
+constexpr int kWindows = 64;          // windows a block
 
 struct Evals {
   const uint32_t* buf[kMaxEvals];   // the distinct buffers read (nbuf)
@@ -157,7 +135,7 @@ __device__ __forceinline__ uint32_t to_bits(W v) {
 
 // where a window's cells come from: one row of a buffer in device memory
 // (`grp` is the window's first 16-byte group, valid where `vec` holds)
-struct GlobalSrc {
+struct Src {
   const uint32_t* row;
   const uint4* grp;
   __device__ __forceinline__ uint4 group(int g) const {
@@ -168,24 +146,10 @@ struct GlobalSrc {
   }
 };
 
-// ... or a buffer's staged span: the window's first group at span[gbase],
-// column c at span[c - shift]
-struct SharedSrc {
-  const uint32_t* span;
-  int gbase;
-  long long shift;      // lo - head
-  __device__ __forceinline__ uint4 group(int g) const {
-    return *reinterpret_cast<const uint4*>(span + gbase + kGroup * g);
-  }
-  __device__ __forceinline__ uint32_t cell(long long col) const {
-    return span[(int)(col - shift)];
-  }
-};
-
 // One evaluation over one window, by its kLanes lanes (q = 0 .. kLanes-1;
 // the order at the top); every lane of the warp calls it (the butterfly
 // needs them all), a lane without a window with len = 0.
-template <int OP, typename T, class Src>
+template <int OP, typename T>
 __device__ __forceinline__ void reduce_window(const Src& src, bool vec,
                                               int a, long long s, int len,
                                               long long last, uint32_t ident,
@@ -194,29 +158,33 @@ __device__ __forceinline__ void reduce_window(const Src& src, bool vec,
   W acc = from_bits<W>(ident);
   const int trips = len > 0 ? (a + len + kTrip - 1) / kTrip : 0;
   if (vec) {
+    const int groups = (a + len + kGroup - 1) / kGroup;   // its groups
     for (int t0 = 0; t0 < trips; t0 += kUnroll) {
+      // A group past the window's last is not loaded, so the last trip's
+      // loads stay inside the window.  v[i] is then left unset (zeroing it
+      // cost 5% at the restaging shape on the H100) and never read: a cell
+      // is read only where it lies in the window, hence in a loaded group.
       uint4 v[kUnroll];
 #pragma unroll
       for (int i = 0; i < kUnroll; ++i) {
-        if (t0 + i < trips) v[i] = src.group(q + kLanes * (t0 + i));
+        const int g = q + kLanes * (t0 + i);
+        if (g < groups) v[i] = src.group(g);
       }
 #pragma unroll
       for (int i = 0; i < kUnroll; ++i) {
         if (t0 + i < trips) {
           const int c0 = kTrip * (t0 + i) - a;   // the trip's first cell
-          const W x = from_bits<W>(v[i].x), y = from_bits<W>(v[i].y);
-          const W z = from_bits<W>(v[i].z), u = from_bits<W>(v[i].w);
           if (c0 >= 0 && c0 + kTrip <= len) {
-            acc = combine<OP, W>(acc, x);
-            acc = combine<OP, W>(acc, y);
-            acc = combine<OP, W>(acc, z);
-            acc = combine<OP, W>(acc, u);
+            acc = combine<OP, W>(acc, from_bits<W>(v[i].x));
+            acc = combine<OP, W>(acc, from_bits<W>(v[i].y));
+            acc = combine<OP, W>(acc, from_bits<W>(v[i].z));
+            acc = combine<OP, W>(acc, from_bits<W>(v[i].w));
           } else {
             const unsigned j = (unsigned)(c0 + kGroup * q), n = len;
-            if (j < n) acc = combine<OP, W>(acc, x);
-            if (j + 1 < n) acc = combine<OP, W>(acc, y);
-            if (j + 2 < n) acc = combine<OP, W>(acc, z);
-            if (j + 3 < n) acc = combine<OP, W>(acc, u);
+            if (j < n) acc = combine<OP, W>(acc, from_bits<W>(v[i].x));
+            if (j + 1 < n) acc = combine<OP, W>(acc, from_bits<W>(v[i].y));
+            if (j + 2 < n) acc = combine<OP, W>(acc, from_bits<W>(v[i].z));
+            if (j + 3 < n) acc = combine<OP, W>(acc, from_bits<W>(v[i].w));
           }
         }
       }
@@ -241,7 +209,6 @@ __device__ __forceinline__ void reduce_window(const Src& src, bool vec,
   if (q == 0 && out != nullptr) *out = to_bits<W>(acc);
 }
 
-template <class Src>
 __device__ __forceinline__ void reduce_eval(int op, bool f, uint32_t id,
                                             const Src& src, bool vec, int a,
                                             long long s, int len, int count,
@@ -277,150 +244,28 @@ __device__ __forceinline__ void reduce_eval(int op, bool f, uint32_t id,
   }
 }
 
-template <typename V>
-__device__ __forceinline__ V warp_min(V v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const V o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-template <typename V>
-__device__ __forceinline__ V warp_max(V v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const V o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// Copy span [base, base + width) of every distinct buffer into the stage,
-// buffer u's from stage[u * stride + head] on (head = base & 3, so the
-// 16-byte groups of device memory land on 16-byte groups of the stage).
-__device__ __forceinline__ void stage_spans(const Evals& ev, uint32_t* stage,
-                                            int stride, long long base,
-                                            int width, bool vec, int tid) {
-  const int head = (int)(base & 3);
-  const int hh = min((4 - head) & 3, width);    // cells up to a 16-byte edge
-  const int nb = (width - hh) >> 2;             // 16-byte groups
-  const int tail = (width - hh) & 3;
-  for (int u = 0; u < ev.nbuf; ++u) {
-    const uint32_t* src = ev.buf[u] + base;
-    uint32_t* dst = stage + u * stride + head;
-    if (!vec) {
-      for (int k = tid; k < width; k += kThreads) dst[k] = __ldg(src + k);
-      continue;
-    }
-    if (tid < hh + tail) {
-      const int off = tid < hh ? tid : hh + 4 * nb + (tid - hh);
-      dst[off] = __ldg(src + off);
-    }
-    const uint4* from = reinterpret_cast<const uint4*>(src + hh);
-    uint4* to = reinterpret_cast<uint4*>(dst + hh);
-    for (int k0 = tid; k0 < nb; k0 += kThreads * kStageUnroll) {
-      uint4 r[kStageUnroll];
-#pragma unroll
-      for (int i = 0; i < kStageUnroll; ++i) {
-        if (k0 + i * kThreads < nb) r[i] = __ldg(from + k0 + i * kThreads);
-      }
-#pragma unroll
-      for (int i = 0; i < kStageUnroll; ++i) {
-        if (k0 + i * kThreads < nb) to[k0 + i * kThreads] = r[i];
-      }
-    }
-  }
-}
-
-// kStaged: the staged design (kStagedWindows windows a block, each block
-// staging its spans where they fit); otherwise the direct design
-// (kDirectWindows windows a block).
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads, kStaged ? kStagedBlocksPerSM : 1)
+__global__ void __launch_bounds__(kThreads)
 windowed_reduce_kernel(const __grid_constant__ Evals ev, long long ncols,
                        const int32_t* __restrict__ rows,
                        const int32_t* __restrict__ starts,
                        const int32_t* __restrict__ lens, int B, int pad,
-                       bool vec, unsigned int* __restrict__ paths) {
-  constexpr int kWin = kStaged ? kStagedWindows : kDirectWindows;
-  __shared__ __align__(16) uint32_t stage[kStaged ? kStageCells : 4];
-  __shared__ int s_row[kWin], s_start[kWin], s_len[kWin], s_count[kWin];
-  constexpr int kDescWarps = (kWin + 31) / 32;   // warps holding them
-  __shared__ long long s_lo[kDescWarps], s_hi[kDescWarps];
-  __shared__ int s_rmin[kDescWarps], s_rmax[kDescWarps];
+                       bool vec) {
+  __shared__ int s_row[kWindows], s_start[kWindows], s_len[kWindows],
+      s_count[kWindows];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long w0 = (long long)blockIdx.x * kWin;
-  const int nw = (int)(B - w0 < kWin ? B - w0 : kWin);
+  const long long w0 = (long long)blockIdx.x * kWindows;
+  const int nw = (int)(B - w0 < kWindows ? B - w0 : kWindows);
   const long long last = ncols - 1;
 
-  if (tid < kDescWarps * 32) {   // whole warps: the span needs shuffles
-    int row = 0, s = 0, len = 0, count = 0;
-    if (tid < nw) {
-      const long long w = w0 + tid;
-      row = rows != nullptr ? rows[w] : 0;
-      s = max(starts[w], 0);
-      count = lens[w];
-      len = ncols > 0 ? max(0, min(count, pad)) : 0;
-    }
-    if (tid < kWin) {
-      s_row[tid] = row;
-      s_start[tid] = s;
-      s_len[tid] = len;
-      s_count[tid] = count;
-    }
-    if constexpr (kStaged) {
-      // the block's row range and span over the windows that read a cell
-      long long lo = 0x7fffffffffffffffLL, hi = -1;
-      int rmin = 0x7fffffff, rmax = -0x7fffffff - 1;
-      if (len > 0) {
-        lo = (long long)s < last ? (long long)s : last;
-        const long long e = (long long)s + len - 1;
-        hi = (e < last ? e : last) + 1;
-        rmin = rmax = row;
-      }
-      lo = warp_min(lo);
-      hi = warp_max(hi);
-      rmin = warp_min(rmin);
-      rmax = warp_max(rmax);
-      if (lane == 0) {
-        s_lo[warp] = lo;
-        s_hi[warp] = hi;
-        s_rmin[warp] = rmin;
-        s_rmax[warp] = rmax;
-      }
-    }
+  if (tid < nw) {
+    const long long w = w0 + tid;
+    const int count = lens[w];
+    s_row[tid] = rows != nullptr ? rows[w] : 0;
+    s_start[tid] = max(starts[w], 0);
+    s_len[tid] = ncols > 0 ? max(0, min(count, pad)) : 0;
+    s_count[tid] = count;
   }
   __syncthreads();
-
-  bool staged = false;
-  int stride = 0;
-  long long shift = 0;
-  if constexpr (kStaged) {
-    long long lo = s_lo[0], hi = s_hi[0];
-    int row = s_rmin[0], rmax = s_rmax[0];
-#pragma unroll
-    for (int i = 1; i < kDescWarps; ++i) {
-      lo = min(lo, s_lo[i]);
-      hi = max(hi, s_hi[i]);
-      row = min(row, s_rmin[i]);
-      rmax = max(rmax, s_rmax[i]);
-    }
-    if (ev.nbuf > 0 && hi > lo && row == rmax) {
-      const long long base = (long long)row * ncols + lo;
-      const long long width = hi - lo;
-      const long long padded = ((base & 3) + width + 3) & ~3LL;
-      if ((long long)ev.nbuf * padded <= kStageCells) {
-        staged = true;
-        stride = (int)padded;
-        shift = lo - (base & 3);
-        stage_spans(ev, stage, stride, base, (int)width, vec, tid);
-        __syncthreads();
-      }
-    }
-    if (paths != nullptr && tid == 0) atomicAdd(paths + (staged ? 0 : 1), 1u);
-  }
 
   const int q = lane % kLanes;
   for (int k0 = warp * kWinPerWarp; k0 < nw; k0 += kWarps * kWinPerWarp) {
@@ -432,27 +277,17 @@ windowed_reduce_kernel(const __grid_constant__ Evals ev, long long ncols,
     const long long f0 = row_base + s;     // the window's first cell
     const int a = (int)(f0 & 3);
     const long long g0 = f0 - a;           // its first 16-byte group
-    // no clamped cell; in device memory also the groups inside the row
-    const bool inside = s + len <= ncols;
-    const bool gvec = vec && inside && g0 >= row_base &&
+    // no clamped cell, and the window's groups inside the row
+    const bool gvec = vec && s + len <= ncols && g0 >= row_base &&
                       g0 + (((long long)a + len + 3) & ~3LL) <=
                           row_base + ncols;
     for (int e = 0; e < ev.n; ++e) {
-      const int op = ev.op[e], u = ev.src[e] < 0 ? 0 : ev.src[e];
-      const bool f = ev.dtype[e] == DT_FLOAT32;
+      const int u = ev.src[e] < 0 ? 0 : ev.src[e];
       uint32_t* out = live ? ev.out[e] + w0 + k : nullptr;
-      if (staged) {
-        const uint32_t* span = stage + u * stride;
-        reduce_eval(op, f, ev.ident[e],
-                    SharedSrc{span, (int)(g0 - row_base - shift), shift},
-                    inside, a, s, len, count, last, q, out);
-      } else {
-        const uint32_t* row = ev.buf[u] + row_base;
-        reduce_eval(op, f, ev.ident[e],
-                    GlobalSrc{row, reinterpret_cast<const uint4*>(
-                                       ev.buf[u] + (gvec ? g0 : 0))},
-                    gvec, a, s, len, count, last, q, out);
-      }
+      reduce_eval(ev.op[e], ev.dtype[e] == DT_FLOAT32, ev.ident[e],
+                  Src{ev.buf[u] + row_base, reinterpret_cast<const uint4*>(
+                                                ev.buf[u] + (gvec ? g0 : 0))},
+                  gvec, a, s, len, count, last, q, out);
     }
   }
 }
@@ -469,18 +304,14 @@ bool aligned16(const void* p) {
 // `stream`: evaluation e reduces buffer bufs[e] (int32 or float32 per
 // dtypes[e], all buffers of one (R, ncols) shape, row-major) with ops[e]
 // over the B windows (rows, starts, lens; rows may be null: row 0) and
-// writes B values to outs[e]; idents[e] is the identity's bits.  `staged`
-// selects the staged design; `paths`, when not null, gets the number of
-// its blocks that staged added to paths[0] and of those that read device
-// memory directly to paths[1] (staged design only).  Returns
+// writes B values to outs[e]; idents[e] is the identity's bits.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int wf_windowed_reduce(const void* const* bufs, void* const* outs,
                                   const int* ops, const int* dtypes,
                                   const unsigned int* idents, int n,
                                   long long ncols, const void* rows,
                                   const void* starts, const void* lens, int B,
-                                  int pad, int staged, void* paths,
-                                  void* stream) {
+                                  int pad, void* stream) {
   if (n <= 0 || n > kMaxEvals || B <= 0 || ncols < 0 || pad < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -511,19 +342,10 @@ extern "C" int wf_windowed_reduce(const void* const* bufs, void* const* outs,
   const int32_t* r = static_cast<const int32_t*>(rows);
   const int32_t* s = static_cast<const int32_t*>(starts);
   const int32_t* l = static_cast<const int32_t*>(lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned int* p = static_cast<unsigned int*>(paths);
-  if (staged) {
-    const unsigned grid =
-        (unsigned)((B + kStagedWindows - 1) / kStagedWindows);
-    windowed_reduce_kernel<true><<<grid, kThreads, 0, st>>>(
-        ev, ncols, r, s, l, B, pad, vec, p);
-  } else {
-    const unsigned grid =
-        (unsigned)((B + kDirectWindows - 1) / kDirectWindows);
-    windowed_reduce_kernel<false><<<grid, kThreads, 0, st>>>(
-        ev, ncols, r, s, l, B, pad, vec, nullptr);
-  }
+  const unsigned grid = (unsigned)((B + kWindows - 1) / kWindows);
+  windowed_reduce_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      ev, ncols, r, s, l, B, pad, vec);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,9 @@ _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4}
 #: value dtypes the kernel is instantiated for (enum Dtype)
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 
-# the kernel's geometry (constants of csrc/windowed_reduce.cu; the tests and
-# chip_smoke.py build their cases from them)
+# the kernel's geometry (constants of csrc/windowed_reduce.cu; the
+# lane-order twin follows them, the tests and chip_smoke.py build their
+# cases from them)
 #: evaluations one launch takes (kMaxEvals)
 EVALS_PER_LAUNCH = 8
 #: lanes that reduce one window (kLanes) and cells of a 16-byte group
@@ -52,12 +53,6 @@ EVALS_PER_LAUNCH = 8
 #: ncols + start) is combined by lane ((f0 % GROUP + j) // GROUP) % LANES
 LANES = 8
 GROUP = 4
-#: windows a block of the staged design takes (kStagedWindows)
-STAGED_WINDOWS = 64
-#: shared-memory cells a staged block fills over all its buffers
-#: (kStageCells): a block stages when nbuf * round_up(base % 4 + width, 4)
-#: is at most this
-STAGE_CELLS = 11264
 
 _lock = threading.Lock()
 _lib = None
@@ -77,7 +72,7 @@ def _load():
             c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
             fn = lib.wf_windowed_reduce
             fn.argtypes = [c_p] * 5 + [c_int, c_ll] + [c_p] * 3 + [
-                c_int, c_int, c_int, c_p, c_p]
+                c_int, c_int, c_p]
             fn.restype = c_int
             lib.wf_empty.argtypes = [c_p]
             lib.wf_empty.restype = c_int
@@ -155,6 +150,75 @@ def windowed_reduce_reference(flat: torch.Tensor, starts: torch.Tensor,
                                           pad)[0]
 
 
+def _wrap32(x):
+    """int64 values reduced modulo 2**32 into the int32 range."""
+    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def _combine(op, a, b, is_int):
+    """The kernel's combine(a, b): a + b and a * b (int32 wrapping), and
+    for min/max ``a`` where a is NaN or wins, else ``b``."""
+    if op == "sum":
+        return _wrap32(a + b) if is_int else a + b
+    if op == "prod":
+        return _wrap32(a * b) if is_int else a * b
+    first = a < b if op == "min" else a > b
+    if not is_int:
+        first = first | torch.isnan(a)
+    return torch.where(first, a, b)
+
+
+def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
+    """Plain torch that reproduces the kernel's ownership of cells and its
+    combine order (csrc/windowed_reduce.cu, "Order"), so that the kernel
+    can be held to it bit for bit; no path of the port calls it.
+
+    With len = min(lens[w], pad), s = max(starts[w], 0) and a = (rows[w] *
+    ncols + s) mod 4, cell j of window w is column min(s + j, ncols - 1) of
+    row rows[w] and lies in the window's 16-byte group (a + j) // 4, which
+    belongs to lane group mod LANES; each lane combines its cells in
+    ascending j starting from the identity, skipping cells outside the
+    window; then a butterfly over LANES/2, ..., 2, 1 in which every lane
+    combines its own value with its partner's, own first; lane 0's value is
+    the result.  int32 sums and products run in int64 reduced modulo 2**32
+    after every step (the kernel's uint32)."""
+    outs = []
+    B = starts.numel()
+    lane = torch.arange(LANES, device=starts.device)
+    trip = LANES * GROUP
+    for buf, op in evals:
+        _check_op(op)
+        if op == "count":
+            outs.append(lens.to(buf.dtype))
+            continue
+        buf2 = _as_rows(buf)
+        ncols = buf2.shape[1]
+        is_int = buf.dtype == torch.int32
+        work = torch.int64 if is_int else buf.dtype
+        ident = torch.tensor(identity(op, buf.dtype).item(), dtype=work,
+                             device=buf.device)
+        lanes = ident.expand(B, LANES).clone()
+        s = starts.long().clamp(min=0)
+        n = (lens.long().clamp(0, int(pad)) if ncols
+             else torch.zeros_like(s))
+        r = rows.long() if rows is not None else torch.zeros_like(s)
+        a = (r * ncols + s) % GROUP
+        for t in range(-(-(int(pad) + GROUP - 1) // trip)):
+            for k in range(GROUP):
+                j = (trip * t + GROUP * lane)[None, :] + k - a[:, None]
+                live = (j >= 0) & (j < n[:, None])
+                col = (s[:, None] + j).clamp(0, max(ncols - 1, 0))
+                v = buf2[r[:, None], col].to(work) if ncols else lanes
+                lanes = torch.where(live, _combine(op, lanes, v, is_int),
+                                    lanes)
+        off = LANES // 2
+        while off:
+            lanes = _combine(op, lanes, lanes[:, lane ^ off], is_int)
+            off //= 2
+        outs.append(lanes[:, 0].to(buf.dtype))
+    return outs
+
+
 def _check_many(evals, rows, starts, lens):
     if not evals:
         raise ValueError("windowed_reduce_many needs at least one evaluation")
@@ -183,8 +247,7 @@ def _check_many(evals, rows, starts, lens):
     return device
 
 
-def windowed_reduce_many(evals, rows, starts, lens, pad: int, *,
-                         staged: bool = False, paths=None) -> list:
+def windowed_reduce_many(evals, rows, starts, lens, pad: int) -> list:
     """Reduce the B windows ``(rows[w], starts[w], min(lens[w], pad))`` of
     every evaluation ``(buf, op)`` in `evals`; returns one (B,) tensor an
     evaluation, in the buffer's dtype.
@@ -192,13 +255,7 @@ def windowed_reduce_many(evals, rows, starts, lens, pad: int, *,
     All buffers share one shape (their dtypes may differ) and lie on one
     device with the int32 descriptors; ``rows=None`` reads row 0.  A CUDA
     buffer launches the kernel, once for every :data:`EVALS_PER_LAUNCH`
-    evaluations (none for B = 0); a CPU buffer runs the plain version.
-    ``staged=True`` launches the kernel's staged design (each block stages
-    its windows' span in shared memory where it fits: the variant
-    chip_smoke.py times the default direct design against; the results are
-    the same bit for bit); ``paths``, an int32 (2,) CUDA tensor, then gets
-    the count of blocks that staged and of blocks that read device memory
-    directly added (chip_smoke.py and the tests read it)."""
+    evaluations (none for B = 0); a CPU buffer runs the plain version."""
     evals = [(buf, op) for buf, op in evals]
     device = _check_many(evals, rows, starts, lens)
     if device.type == "cpu":
@@ -210,11 +267,6 @@ def windowed_reduce_many(evals, rows, starts, lens, pad: int, *,
                                            lens)) or (
             rows is not None and not rows.is_contiguous()):
         raise ValueError("windowed_reduce takes contiguous tensors")
-    if paths is not None and (not staged or paths.dtype != torch.int32
-                              or paths.shape != (2,)
-                              or paths.device != device):
-        raise TypeError("paths takes the staged design's int32 (2,) tensor "
-                        "on the card")
     B, pad = starts.numel(), int(pad)
     outs = [torch.empty(B, dtype=buf.dtype, device=device)
             for buf, _ in evals]
@@ -240,8 +292,7 @@ def windowed_reduce_many(evals, rows, starts, lens, pad: int, *,
             rc = lib.wf_windowed_reduce(
                 bufs, dsts, ops, dts, ids, n, ncols,
                 rows.data_ptr() if rows is not None else None,
-                starts.data_ptr(), lens.data_ptr(), B, pad, int(staged),
-                paths.data_ptr() if paths is not None else None, stream)
+                starts.data_ptr(), lens.data_ptr(), B, pad, stream)
             if rc != 0:
                 raise RuntimeError(f"windowed_reduce kernel launch failed: "
                                    f"CUDA error {rc}")
