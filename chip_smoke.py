@@ -96,17 +96,48 @@ catches its own failure):
    and 64 keys, 4M tuples, through the native core's per-field rings
    (NativeResidentCore._multi -> MultiFieldResidentExecutor), byte for
    byte against the port's host core, with one windowed-reduce launch for
-   each of the executor's launches that evaluates windows.
+   each of the executor's launches that evaluates windows;
+14. ysb_deterministic: the Yahoo Streaming Benchmark (apps/ysb.py) at its
+   published shape (100 campaigns x 10 ads, TB tumbling windows of 10 s,
+   COUNT + MAX(ts) + SUM(revenue) per campaign, pardegree2 4, chunks of
+   262,144 events) over 16M deterministic events whose ts steps 2 us an
+   event: kf-gpu (KeyFarmGPU, the revenue ring on the native core) and
+   wmr-gpu (WinMapReduceGPU, the MAP stage on the card), every window's
+   (count, lastUpdate, revenue) against a numpy bincount oracle, a 1M-event
+   prefix of each row for row against the port's host kf, and each run's
+   kernel launches (ring_append and windowed_reduce both launched); then
+   windowed_reduce against its plain version at the descriptors of every
+   kf-gpu evaluation (YSB's long TB windows), timed on the largest beside
+   its bound (ysb_reduce);
+15. ysb_timed: apps.ysb.run("kf-gpu") and run("wmr-gpu") at the app's
+   defaults (a warm-up, then 10 s of full-speed generation): events/s,
+   ingest events/s, p95/p99 latency, the launch diagnostics
+   (stats_snapshot) and the kernel launches;
+16. pipe_test: apps.pipe.run (pipe_test_gpu: Source -> Map -> Filter ->
+   WinFarmGPU(sum, CB 256/64, 64 keys, pardegree 2) -> Sink): a warm-up,
+   then one timed run of 8M tuples whose total and window count must equal
+   expected(); tuples/s, p95 latency, and the kernel launches (fused
+   ring_append_regular_sum launched);
+17. two_stage: the 9 device compositions of the test_all mirror (WinSeqGPU,
+   WinFarmGPU, KeyFarmGPU, PaneFarmGPU with the PLQ or the WLQ on the card,
+   WinMapReduceGPU with the MAP or the REDUCE stage on the card,
+   KeyFarmOf(PaneFarmGPU), WinFarmOf(WinMapReduceGPU)) at sum_test's shape
+   over 1M tuples, each total equal to the host WinSeq's, with each one's
+   kernel launches.
 
-Then it prints the kernels' JSON line (each kernel with the empty-launch
+The new paths' launch counts are printed together (new_path_launches), and
+each of ring_append, windowed_reduce and ring_append_regular_sum must have
+been launched on one of them.  Then it prints the kernels' JSON line (each kernel with the empty-launch
 floor beside its times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
 result when no CUDA device is visible or when the package is missing.
 """
 
 import contextlib
+import inspect
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -764,11 +795,20 @@ def ring_kernel_phase(dev):
         for (r, op), g in zip(evals, got):
             want = rk.ring_eval_reference(op, r, rows_, starts, lens, WIN)
             err = max(err, compare(g, want, r, starts, lens, op, rows_))
+        # the bound (PERF.md table row 4, _ring_eval): the cells the
+        # windows cover read once from each of the two rings, the (row,
+        # start, len) descriptors, one result a window and op; an op a cell
+        cells = covered(starts.cpu().numpy().astype(np.int64),
+                        lens.cpu().numpy().astype(np.int64),
+                        rows_.cpu().numpy())
+        nbytes = 2 * cells * ring.element_size() + 12 * B + 4 * 4 * B
+        bound = bytes_bound(nbytes, 4 * int(lens.sum()))
         emit("ring_kernel", kernel="windowed_reduce", case="ring_2d",
              ops=[op for _, op in evals], acc=str(acc), ring=[KP, CAP], B=B,
              pad=WIN, max_abs_err=err, twin_bitwise=True,
              kernel_ms=kernel_ms(lambda: wr.windowed_reduce_many(
-                 evals, rows_, starts, lens, WIN)))
+                 evals, rows_, starts, lens, WIN)),
+             bound_bytes=nbytes, bound_ms=bound[0], bound_by=bound[1])
         del ring, ring_p
     return rows
 
@@ -838,53 +878,115 @@ def big_ring_phase(wr):
 
 
 @contextlib.contextmanager
-def recorded_appends():
-    """Records every ring_append call the resident executors make while
-    active (the ring's shape and dtype, copies of the rectangle and the
-    offsets); each call goes on to the wrapper unchanged."""
+def recorded(name, record):
+    """Records every call the resident executors make to the kernel wrapper
+    `name` (as ops/resident.py imports it) while active: the yielded list
+    gets record(*args) of each call, which goes on to the wrapper
+    unchanged."""
     from windflow_tpu_torch.ops import resident
-    orig, calls = resident.ring_append, []
+    orig, calls = getattr(resident, name), []
 
-    def recording(ring, blk, offs):
-        calls.append(dict(shape=tuple(ring.shape), dtype=ring.dtype,
-                          blk=blk.clone(), offs=offs.clone()))
-        return orig(ring, blk, offs)
+    def recording(*args):
+        calls.append(record(*args))
+        return orig(*args)
 
-    resident.ring_append = recording
+    setattr(resident, name, recording)
     try:
         yield calls
     finally:
-        resident.ring_append = orig
+        setattr(resident, name, orig)
 
 
-def ring_append_phase(dev, calls):
-    """ring_append against its plain version on the inputs of every call in
-    `calls` (the recorded rectangles and offsets into a ring of the
-    recorded shape and dtype with seeded contents: rings identical), timed
-    on the largest.  Its rectangle and the cells it writes fit in the
-    card's L2, so a replay of the same inputs would find them there: the
-    timed calls cycle through copies of the inputs whose sum is three
-    times the L2 (at most 16 copies), each call on cold cells (the same inputs back to back
-    are reported beside, as hot_l2_ms).  Returns the kernels-line row."""
+def recorded_appends():
+    """Records every ring_append call (the ring's shape and dtype, copies
+    of the rectangle and the offsets)."""
+    return recorded("ring_append", lambda ring, blk, offs: dict(
+        shape=tuple(ring.shape), dtype=ring.dtype, blk=blk.clone(),
+        offs=offs.clone()))
+
+
+def recorded_fused():
+    """Records every ring_append_regular_sum call (the ring's shape and
+    dtype, copies of the rectangle, offsets and window descriptors, C and
+    the slide)."""
+    return recorded("ring_append_regular_sum", lambda ring, blk, offs, rstart0,
+                    rlen, C, slide: dict(
+                        shape=tuple(ring.shape), dtype=ring.dtype,
+                        blk=blk.clone(), offs=offs.clone(),
+                        rstart0=rstart0.clone(), rlen=rlen.clone(), C=int(C),
+                        slide=int(slide)))
+
+
+def recorded_reduces():
+    """Records every windowed_reduce_many call (the ring's shape and dtype,
+    the ops, copies of the descriptors, the pad)."""
+    def record(evals, rows, starts, lens, pad):
+        return dict(shape=tuple(evals[0][0].shape), dtype=evals[0][0].dtype,
+                    ops=[op for _, op in evals], rows=rows.clone(),
+                    starts=starts.clone(), lens=lens.clone(), pad=pad)
+    return recorded("windowed_reduce_many", record)
+
+
+def seeded_ring(gen, shape, dtype):
+    """A ring of `shape` and `dtype` on the card with seeded contents in
+    [-100, 100)."""
+    return (torch.rand(shape, generator=gen, device=gen.device) * 200
+            - 100).to(dtype)
+
+
+def check_appends(calls, name):
+    """ring_append against its plain version on the inputs of every call
+    in `calls` (the recorded rectangles and offsets into a seeded ring of
+    the recorded shape and dtype): the rings must be identical.  Returns
+    the number of calls checked."""
     from windflow_tpu_torch.ops import ring as rk
-    gen = torch.Generator(device=dev).manual_seed(5)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
     rings = {}
     for c in calls:
         key = (c["shape"], c["dtype"])
         if key not in rings:
-            rings[key] = (torch.rand(c["shape"], generator=gen, device=dev)
-                          * 200 - 100).to(c["dtype"])
+            rings[key] = seeded_ring(gen, *key)
         got = rk.ring_append(rings[key].clone(), c["blk"], c["offs"])
         want = rk.ring_append_reference(rings[key].clone(), c["blk"],
                                         c["offs"])
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"ring_append {c['blk'].dtype} -> "
+            raise AssertionError(f"{name}: ring_append {c['blk'].dtype} -> "
                                  f"{c['dtype']} {c['shape']}: rings differ")
         del got, want
+    return len(calls)
+
+
+def check_fused(calls, name):
+    """ring_append_regular_sum against its plain version (check_ring: the
+    rings identical, int32 sums exact, float32 sums within FLOAT_RTOL of
+    the window's sum of |x|) on the inputs of every call in `calls`, each
+    over a seeded ring of the recorded shape and dtype.  Returns (calls
+    checked, the sums' largest error)."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    err = 0.0
+    for i, c in enumerate(calls):
+        case = dict(ring=seeded_ring(gen, c["shape"], c["dtype"]),
+                    **{k: c[k] for k in ("blk", "offs", "rstart0", "rlen",
+                                         "C", "slide")})
+        err = max(err, check_ring(rk, case, f"{name} call {i}"))
+    return len(calls), err
+
+
+def ring_append_phase(dev, calls):
+    """ring_append against its plain version on the inputs of every call in
+    `calls` (check_appends), timed on the largest.  Its rectangle and the
+    cells it writes fit in the card's L2, so a replay of the same inputs
+    would find them there: the timed calls cycle through copies of the
+    inputs whose sum is three times the L2 (at most 16 copies), each call
+    on cold cells (the same inputs back to back are reported beside, as
+    hot_l2_ms).  Returns the kernels-line row."""
+    from windflow_tpu_torch.ops import ring as rk
+    check_appends(calls, "spatial resident run")
     big = max(calls, key=lambda c: c["blk"].numel())
-    ring = rings.pop((big["shape"], big["dtype"]))
-    rings.clear()
+    ring = seeded_ring(torch.Generator(device=dev).manual_seed(5),
+                       big["shape"], big["dtype"])
     blk, offs = big["blk"], big["offs"]
     nbytes = (blk.numel() * (blk.element_size() + ring.element_size())
               + 4 * offs.numel())
@@ -1655,6 +1757,336 @@ def multi_field_native(wr, rk):
          launches=counts, dispatches=dispatches)
 
 
+# the Yahoo Streaming Benchmark at its published shape (apps/ysb.py, the
+# reference's src/yahoo_test_cpu, -DN_CAMPAIGNS=100): 100 campaigns x 10
+# ads, TB tumbling windows of 10 s, COUNT + MAX(ts) + SUM(revenue) per
+# campaign, 4 window workers, chunks of 262,144 events; the deterministic
+# stream steps ts 2 us an event (16M events = 32 s of event time, ~16.7k
+# kept events a campaign a full window)
+YSB_EVENTS = 16_000_000
+YSB_PREFIX = 1 << 20
+YSB_CHUNK = 262_144
+YSB_TS_STEP_US = 2
+YSB_WIN_SEC = 10.0
+YSB_PARDEGREE2 = 4
+YSB_TIMED_SEC = 10.0
+PIPE_TUPLES = 8_000_000
+TWO_STAGE_TUPLES = 1 << 20
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from windflow_tpu_torch.ops import gather, skyline
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    return {"windowed_reduce": wr.windowed_reduce,
+            "ring_append": rk.ring_append,
+            "ring_append_regular_sum": rk.ring_append_regular_sum,
+            "window_gather": gather.window_gather,
+            "skyline_windows": skyline.skyline_windows}
+
+
+@contextlib.contextmanager
+def kernel_launches():
+    """Sets every kernel's launch count to 0; on exit the yielded dict
+    holds each kernel's launches inside the block."""
+    wrappers, counts = kernel_wrappers(), {}
+    for w in wrappers.values():
+        w.launches = 0
+    yield counts
+    counts.update({name: w.launches for name, w in wrappers.items()})
+
+
+def require_launches(phase, counts, names, every=True):
+    """Fail unless every one of the kernels `names` (with every=False: one
+    of them) was launched."""
+    launched = [counts[n] > 0 for n in names]
+    if not (all(launched) if every else any(launched)):
+        raise AssertionError(f"{phase}: launches {counts}, wanted "
+                             f"{'each' if every else 'one'} of {names}")
+
+
+def ysb_batches(n_events):
+    """The deterministic YSB stream (tests/test_ysb.py's fixed_batches at
+    YSB_TS_STEP_US an event): the reference's ad / event-type recurrences,
+    revenue 1..97."""
+    from windflow_tpu_torch import batch_from_columns
+    from windflow_tpu_torch.apps import ysb
+    n_ads = ysb.CampaignGenerator().n_ads
+    out = []
+    for lo in range(0, n_events, YSB_CHUNK):
+        v = np.arange(lo, min(lo + YSB_CHUNK, n_events), dtype=np.int64)
+        vm = v % 100000
+        out.append(batch_from_columns(
+            ysb.EVENT_SCHEMA, key=np.zeros(len(v), dtype=np.int64), id=v,
+            ts=v * YSB_TS_STEP_US, ad_id=vm % n_ads,
+            event_type=(vm % 3).astype(np.int8), revenue=(vm % 97) + 1))
+    return out
+
+
+def ysb_oracle(n_events):
+    """{campaign: [(count, lastUpdate, revenue), ...]} over the non-empty
+    windows in window order, by bincount over (campaign, window)."""
+    from windflow_tpu_torch.apps import ysb
+    camp = ysb.CampaignGenerator()
+    v = np.arange(n_events, dtype=np.int64)
+    vm = v % 100000
+    keep = vm % 3 == 0
+    cmp_ids = camp.ad_to_cmp[(vm % camp.n_ads)[keep]]
+    ts = v[keep] * YSB_TS_STEP_US
+    rev = ((vm % 97) + 1)[keep]
+    wins = ts // int(YSB_WIN_SEC * 1e6)
+    n_w = int(wins.max()) + 1
+    g = cmp_ids * n_w + wins
+    size = camp.n_campaigns * n_w
+    count = np.bincount(g, minlength=size)
+    revenue = np.bincount(g, weights=rev, minlength=size)   # exact < 2**53
+    last = np.full(size, -1, dtype=np.int64)
+    np.maximum.at(last, g, ts)
+    out = {}
+    for c in range(camp.n_campaigns):
+        out[c] = [(int(count[i]), int(last[i]), int(revenue[i]))
+                  for i in range(c * n_w, (c + 1) * n_w) if count[i]]
+    return out
+
+
+def run_ysb(variant, batches, full_rows=False):
+    """One deterministic YSB run through apps.ysb.build_pipeline; returns
+    (seconds, {campaign: rows in arrival order}): (count, lastUpdate,
+    revenue), or with full_rows every result column."""
+    from windflow_tpu_torch.apps import ysb
+    by_key, fields = {}, ("count", "lastUpdate", "revenue")
+
+    def collect(live):
+        for r in live:
+            by_key.setdefault(int(r["key"]), []).append(
+                r.tobytes() if full_rows else tuple(int(r[f])
+                                                    for f in fields))
+
+    pipe, sink, sent = ysb.build_pipeline(
+        variant, 0, 1, YSB_PARDEGREE2, YSB_WIN_SEC, YSB_CHUNK,
+        batches=batches, on_result=collect,
+        device=DEVICE if variant.endswith("-gpu") else None)
+    t0 = time.perf_counter()
+    pipe.run_and_wait_end()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sent[0] != sum(len(b) for b in batches):
+        raise AssertionError(f"ysb {variant}: sent {sent[0]}")
+    return dt, by_key
+
+
+def ysb_reduce_phase(calls, variant):
+    """windowed_reduce against its plain version on the descriptors of
+    every call in `calls` (YSB's long TB windows, over a seeded ring of the
+    recorded shape), timed on the call with the most cells beside its
+    bound."""
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    err = 0.0
+    for c in calls:
+        ring = torch.randint(1, 98, c["shape"], generator=gen, device=dev,
+                             dtype=torch.int32).to(c["dtype"])
+        evals = [(ring, op) for op in c["ops"]]
+        args = (c["rows"], c["starts"], c["lens"], c["pad"])
+        got = wr.windowed_reduce_many(evals, *args)
+        want = wr.windowed_reduce_many_reference(evals, *args)
+        for (_, op), g, w in zip(evals, got, want):
+            err = max(err, compare(g, w, ring, c["starts"], c["lens"], op,
+                                   c["rows"]))
+        del ring, evals, got, want
+    big = max(calls, key=lambda c: int(c["lens"].sum()))
+    ring = torch.randint(1, 98, big["shape"], generator=gen, device=dev,
+                         dtype=torch.int32).to(big["dtype"])
+    evals = [(ring, op) for op in big["ops"]]
+    args = (big["rows"], big["starts"], big["lens"], big["pad"])
+    B = len(big["lens"])
+    cells = covered(big["starts"].cpu().numpy().astype(np.int64),
+                    big["lens"].cpu().numpy().astype(np.int64),
+                    big["rows"].cpu().numpy())
+    nbytes = cells * ring.element_size() + 12 * B + 4 * B * len(evals)
+    bound = bytes_bound(nbytes, int(big["lens"].sum()) * len(evals))
+    ms = kernel_ms(lambda: wr.windowed_reduce_many(evals, *args), reps=10)
+    plain = call_ms(lambda: wr.windowed_reduce_many_reference(evals, *args),
+                    reps=2)
+    emit("ysb_reduce", variant=variant, kernel="windowed_reduce",
+         calls_checked=len(calls),
+         max_abs_err=err, ring=list(big["shape"]), ops=big["ops"], B=B,
+         pad=big["pad"], cells=int(big["lens"].sum()), kernel_ms=ms,
+         plain_ms=plain, bound_bytes=nbytes, bound_ms=bound[0],
+         bound_by=bound[1])
+
+
+def ysb_deterministic():
+    """kf-gpu and wmr-gpu over 16M deterministic events, every window's
+    (count, lastUpdate, revenue) against the bincount oracle, and a
+    1M-event prefix row for row against the port's host kf; every
+    ring_append and windowed_reduce call of the runs against its plain
+    version; returns each variant's kernel launches."""
+    from windflow_tpu_torch.ops.resident import ResidentWindowExecutor
+    prefix = ysb_batches(YSB_PREFIX)
+    _, host = run_ysb("kf", prefix, full_rows=True)
+    for variant in ("kf-gpu", "wmr-gpu"):
+        _, dev = run_ysb(variant, prefix, full_rows=True)
+        if dev != host or not host:
+            raise AssertionError(f"ysb {variant}: the 1M-event prefix "
+                                 "differs from the host kf")
+    emit("ysb_prefix_vs_host_kf", events=YSB_PREFIX,
+         windows=sum(len(v) for v in host.values()), identical=True)
+
+    batches = ysb_batches(YSB_EVENTS)
+    want = ysb_oracle(YSB_EVENTS)
+    out = {}
+    for variant in ("kf-gpu", "wmr-gpu"):
+        with kernel_launches() as counts, recorded_reduces() as reduces, \
+                recorded_appends() as appends, \
+                counted_launches(ResidentWindowExecutor) as dispatches:
+            dt, got = run_ysb(variant, batches)
+        if got != want:
+            bad = [c for c in want if got.get(c) != want[c]]
+            raise AssertionError(
+                f"ysb {variant}: campaigns {bad[:5]} differ from the oracle "
+                f"(first: {got.get(bad[0])} != {want[bad[0]]})")
+        # the revenue ring: ring_append + one windowed_reduce a launch
+        # that evaluates windows (TB windows are irregular)
+        require_launches(f"ysb {variant}", counts,
+                         ("ring_append", "windowed_reduce"))
+        out[variant] = counts
+        emit("ysb_deterministic", variant=variant,
+             workload="YSB 100 campaigns x 10 ads, TB tumbling 10 s, "
+             "COUNT + MAX(ts) + SUM(revenue), pardegree2 4",
+             events=YSB_EVENTS, seconds=dt, events_per_s=YSB_EVENTS / dt,
+             windows=sum(len(v) for v in got.values()),
+             kept_events=sum(r[0] for v in got.values() for r in v),
+             oracle_match=True, launches=counts, dispatches=dispatches,
+             ring_append_calls_checked=check_appends(
+                 appends, f"ysb {variant}"))
+        ysb_reduce_phase(reduces, variant)
+    return out
+
+
+def ysb_timed(length=YSB_TIMED_SEC, around=contextlib.nullcontext):
+    """apps.ysb.run for kf-gpu and wmr-gpu, `length` seconds of full-speed
+    generation each, after a warm-up (ysb.warmup) outside the counts; the
+    timed run alone is counted and runs inside `around()` (a context
+    manager whose yielded dict, if any, is added to the phase line); every
+    ring_append call of it is checked against its plain version.  At
+    YSB_TIMED_SEC every campaign has one window, which closes at the end
+    of the stream.  Returns each variant's launches."""
+    from windflow_tpu_torch.apps import ysb
+    out = {}
+    for variant in ("kf-gpu", "wmr-gpu"):
+        ysb.warmup(variant, 1, YSB_PARDEGREE2, YSB_WIN_SEC, YSB_CHUNK,
+                   device=DEVICE)
+        with around() as extra, kernel_launches() as counts, \
+                recorded_appends() as appends:
+            m = ysb.run(variant, length, pardegree2=YSB_PARDEGREE2,
+                        win_sec=YSB_WIN_SEC, chunk=YSB_CHUNK, warm=False,
+                        device=DEVICE)
+        if not (m["generated"] > 0 and m["results"] > 0):
+            raise AssertionError(f"ysb {variant} timed run: {m}")
+        require_launches(f"ysb timed {variant}", counts,
+                         ("ring_append", "windowed_reduce"))
+        out[variant] = counts
+        emit("ysb_timed", variant=variant, length_sec=length,
+             windows_per_campaign=math.ceil(length / YSB_WIN_SEC),
+             launches=counts, ring_append_calls_checked=check_appends(
+                 appends, f"ysb timed {variant}"), **m, **(extra or {}))
+    return out
+
+
+def pipe_test(around=contextlib.nullcontext):
+    """apps.pipe at its defaults (8M tuples): a warm-up run outside the
+    counts, then one timed run, counted and inside `around()` (as in
+    ysb_timed), whose total and window count must equal expected(); every
+    ring_append_regular_sum call of it is checked against its plain
+    version.  Returns its launches."""
+    from windflow_tpu_torch.apps import pipe
+    kw = {k: p.default for k, p in inspect.signature(pipe.run).parameters
+          .items() if k in ("pardegree", "flush_rows", "depth", "capacity",
+                            "chunk")}
+    chunks = pipe.make_values(PIPE_TUPLES, kw.pop("chunk"))
+    want = pipe.expected(chunks)
+    pipe.run_once(chunks, **kw, device=DEVICE)        # the warm-up
+    with around() as extra, kernel_launches() as counts, \
+            recorded_fused() as fused:
+        dt, state, diag = pipe.run_once(chunks, **kw, device=DEVICE)
+    if (state["total"], state["rcv"]) != want:
+        raise AssertionError(f"pipe_test: total and windows "
+                             f"{(state['total'], state['rcv'])} != {want}")
+    # a regular flush is one fused ring_append_regular_sum launch
+    require_launches("pipe_test", counts, ("ring_append_regular_sum",))
+    n, err = check_fused(fused, "pipe_test")
+    emit("pipe_test", tuples=PIPE_TUPLES, seconds=dt,
+         tuples_per_s=PIPE_TUPLES / dt, total=state["total"],
+         windows=state["rcv"], expected=want, launches=counts,
+         fused_calls_checked=n, fused_max_abs_err=err,
+         **pipe.latency_stats(state), **diag, **(extra or {}))
+    return counts
+
+
+def two_stage():
+    """The 9 device compositions of the sum_test_gpu test_all mirror on
+    the card at sum_test's shape (CB 256/64, 64 keys, 1M tuples), each
+    total equal to the host WinSeq's, every ring_append and
+    ring_append_regular_sum call against its plain version; returns the
+    launches summed."""
+    import windflow_tpu_torch as wt
+    schema = wt.Schema(value=np.int64)
+    batches = make_stream(schema, TWO_STAGE_TUPLES)
+    _, want_n, want, _ = run_pipeline(
+        wt.WinSeq(wt.Reducer("sum"), WIN, SLIDE, wt.WinType.CB), batches,
+        schema)
+    s = lambda: wt.Reducer("sum")
+    cb = wt.WinType.CB
+    dev = dict(device=DEVICE, batch_len=BATCH_LEN, flush_rows=FLUSH_ROWS)
+    comps = {
+        "seq": lambda: wt.WinSeqGPU(s(), WIN, SLIDE, cb, **dev),
+        "wf": lambda: wt.WinFarmGPU(s(), WIN, SLIDE, cb, pardegree=2, **dev),
+        "kf": lambda: wt.KeyFarmGPU(s(), WIN, SLIDE, cb, pardegree=2, **dev),
+        "pf_plq": lambda: wt.PaneFarmGPU(s(), s(), WIN, SLIDE, cb,
+                                         plq_degree=2, wlq_degree=2,
+                                         wlq_on_device=False, **dev),
+        "pf_wlq": lambda: wt.PaneFarmGPU(s(), s(), WIN, SLIDE, cb,
+                                         plq_degree=2, wlq_degree=2,
+                                         plq_on_device=False, **dev),
+        "wmr_map": lambda: wt.WinMapReduceGPU(s(), s(), WIN, SLIDE, cb,
+                                              map_degree=2, **dev),
+        "wmr_red": lambda: wt.WinMapReduceGPU(s(), s(), WIN, SLIDE, cb,
+                                              map_degree=2,
+                                              map_on_device=False,
+                                              reduce_on_device=True, **dev),
+        "kf+pf": lambda: wt.KeyFarmOf(wt.PaneFarmGPU(
+            s(), s(), WIN, SLIDE, cb, plq_degree=2, wlq_degree=2,
+            wlq_on_device=False, **dev), pardegree=2),
+        "wf+wmr": lambda: wt.WinFarmOf(wt.WinMapReduceGPU(
+            s(), s(), WIN, SLIDE, cb, map_degree=2, reduce_on_device=False,
+            **dev), pardegree=2),
+    }
+    total_counts = dict.fromkeys(kernel_wrappers(), 0)
+    for name, make in comps.items():
+        with kernel_launches() as counts, recorded_appends() as appends, \
+                recorded_fused() as fused:
+            dt, n, total, _ = run_pipeline(make(), batches, schema)
+        if total != want:
+            raise AssertionError(f"two_stage {name}: total {total} != the "
+                                 f"host WinSeq's {want}")
+        require_launches(f"two_stage {name}", counts, tuple(counts),
+                         every=False)
+        for k, v in counts.items():
+            total_counts[k] += v
+        n_fused, err = check_fused(fused, f"two_stage {name}")
+        emit("two_stage", composition=name, tuples=TWO_STAGE_TUPLES,
+             seconds=dt, tuples_per_s=TWO_STAGE_TUPLES / dt, windows=n,
+             host_windows=want_n, total=total, host_total=want,
+             launches=counts,
+             ring_append_calls_checked=check_appends(
+                 appends, f"two_stage {name}"),
+             fused_calls_checked=n_fused, fused_max_abs_err=err)
+    return total_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -1683,6 +2115,18 @@ def main() -> int:
     rows["ring_append"] = ring_append_phase(dev, spatial_appends)
     spatial_app()
     multi_field_native(wr, rk)
+
+    # the new paths: each kernel's launches on them, and each of the three
+    # kernels these paths run launched at least once
+    new_paths = {"ysb_deterministic": ysb_deterministic(),
+                 "ysb_timed": ysb_timed(), "pipe_test": pipe_test(),
+                 "two_stage": two_stage()}
+    emit("new_path_launches", **new_paths)
+    runs = [c for path in new_paths.values()
+            for c in (path.values() if "kf-gpu" in path else [path])]
+    for name in ("ring_append", "windowed_reduce", "ring_append_regular_sum"):
+        if not any(c[name] for c in runs):
+            raise AssertionError(f"no new path launched {name}")
 
     kernels = [dict(
         name="windowed_reduce", route="cuda",

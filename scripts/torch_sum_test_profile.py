@@ -34,6 +34,21 @@ WinFarmGPU(device_skyline(), pardegree=2, batch_len=256)):
 * ``spatial_host_core``: the port's host WinSeq(SkylineWindow()) over the
   stream's first 16 windows — the host skyline's cost per window.
 
+With ``--apps`` it runs chip_smoke.py's app phases with their timed runs
+under torch.profiler (each after its warm-up, outside the profiler and the
+launch counts), adding to each phase line the device busy ms, split into
+copies and kernels, and its share of the profiled block's wall time:
+
+* ``ysb_timed`` (kf-gpu, wmr-gpu): apps.ysb.run for APPS_YSB_SEC = 40 s
+  of full-speed generation (100 campaigns, TB 10 s, pardegree2 4), so
+  each campaign has 4 windows and 3 of them close under the watermark
+  before the end of the stream (chip_smoke.py's own 10 s run closes its
+  one window a campaign at the end of the stream): the app's metrics
+  (events/s, p95/p99 latency, launch diagnostics) and the kernels'
+  launches;
+* ``pipe_test``: one timed apps.pipe run of 8M tuples (its total and
+  window count held against expected()).
+
 With ``--ab DIR`` it compares this checkout (B) with another checkout of
 the repository at DIR (A, e.g. the parent commit unpacked with ``git
 archive``) on one card, in turns A, B, B, A: each turn is a fresh process
@@ -53,12 +68,14 @@ launches and device time (under torch.profiler).
 
 Usage, from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_sum_test_profile.py [--spatial | --ab DIR]
+    python3 scripts/torch_sum_test_profile.py [--spatial | --apps | --ab DIR]
 """
 
+import contextlib
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -68,6 +85,10 @@ import chip_smoke as cs  # noqa: E402  (the workload's one definition)
 import windflow_tpu_torch as wt  # noqa: E402
 from windflow_tpu_torch.ops import resident  # noqa: E402
 from windflow_tpu_torch.utils import profile as phases  # noqa: E402
+
+# YSB's timed runs under --apps: 4 windows a campaign, 3 of them closed by
+# the watermark before the end of the stream
+APPS_YSB_SEC = 40.0
 
 
 def restaging_stage():
@@ -271,11 +292,46 @@ def ab_main(other, device, smi):
     return 0
 
 
+@contextlib.contextmanager
+def device_busy_share():
+    """Runs the block under torch.profiler; on exit the yielded dict holds
+    the device busy ms (split into copies and kernels) and their share of
+    the block's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the block alone: not the profiler's start (seconds, the first
+        # time in a process) nor its teardown
+        t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    busy = device_busy(prof)
+    out.update(profiled_seconds=seconds,
+               device_busy_ms=sum(busy.values()),
+               device_busy_share=sum(busy.values()) / (seconds * 1e3),
+               **split(busy), by_activity_ms=busy)
+
+
+def apps_main(device, smi):
+    """chip_smoke.py's ysb_timed (at APPS_YSB_SEC) and pipe_test phases,
+    their timed runs under the profiler."""
+    print(json.dumps({"run": "apps", "device": device, "nvidia_smi": smi}),
+          flush=True)
+    cs.ysb_timed(APPS_YSB_SEC, around=device_busy_share)
+    cs.pipe_test(around=device_busy_share)
+    return 0
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spatial", action="store_true",
                     help="profile the spatial skyline path instead")
+    ap.add_argument("--apps", action="store_true",
+                    help="profile the YSB device variants and pipe_test "
+                         "instead")
     ap.add_argument("--ab", metavar="DIR",
                     help="compare the windowed-reduce, ring, gather and "
                          "skyline kernels, sum_test's resident route, the "
@@ -291,6 +347,8 @@ def main(argv=None):
         return ab_main(args.ab, device, smi)
     if args.spatial:
         return spatial_main(device, smi)
+    if args.apps:
+        return apps_main(device, smi)
     schema = wt.Schema(value=cs.np.int64)
     batches = cs.make_stream(schema, cs.N_TUPLES)
     want = cs.expected_total(batches)

@@ -47,13 +47,18 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from windflow_tpu_torch.ops import gather, skyline\n"
         "from windflow_tpu_torch.patterns import native_core\n"
         "from windflow_tpu_torch.utils import latency, profile\n"
-        "from windflow_tpu_torch.apps import spatial\n"
-        "from windflow_tpu_torch.api import MultiPipe\n"
+        "from windflow_tpu_torch.apps import micro, pipe, spatial, ysb\n"
+        "from windflow_tpu_torch.api import MultiPipe, builders\n"
+        "from windflow_tpu_torch import PaneFarmGPU, WinMapReduceGPU\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
     for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
               "ops.ring", "ops.gather", "ops.skyline", "utils.profile",
-              "utils.latency", "apps.spatial", "api.multipipe"):
+              "utils.latency", "apps.spatial", "api.multipipe",
+              "api.builders", "apps.ysb", "apps.pipe", "apps.micro",
+              "patterns.pane_farm", "patterns.win_mapreduce",
+              "patterns.nesting", "obs.registry", "recovery.store",
+              "runtime.overload"):
         assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
 

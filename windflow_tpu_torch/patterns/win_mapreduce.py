@@ -109,7 +109,7 @@ class _MapStage(_Pattern):
                    map_indexes=(i, map_degree))
             for i in range(map_degree)]
         self.spec = spec
-        self._device_fn = device_fn       # raw Reducer/JaxWindowFunction
+        self._device_fn = device_fn       # raw Reducer/TorchWindowFunction
         self._device_opts = device_opts   # not None => device-batched MAP
 
     @property

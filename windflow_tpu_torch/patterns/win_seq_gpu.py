@@ -20,9 +20,11 @@ is copied once into a per-key ring on the card, one ring per field when
 several fields ship, ops/resident.py; the C++ twin is
 patterns/native_core.py).  ``make_core_for`` routes between them and the
 host core with the JAX package's rules, and ``WinFarmGPU``/``KeyFarmGPU``
-are the host farms with device cores as workers.  Meshes (multi-GPU) and
-the two-stage device patterns are later slices (ROADMAP.md); meshes raise
-``NotImplementedError`` naming theirs.
+are the host farms with device cores as workers.  ``PaneFarmGPU`` and
+``WinMapReduceGPU`` are the two-stage patterns with a per-stage device
+placement (an incremental stage stays on the host).  Meshes (multi-GPU)
+are a later slice (ROADMAP.md) and raise ``NotImplementedError`` naming
+it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from ..ops.functions import MultiReducer, Reducer
 from ..runtime.node import RuntimeContext
 from .basic import _Pattern
 from .key_farm import KeyFarm
+from .pane_farm import PaneFarm
 from .win_farm import WinFarm
+from .win_mapreduce import WinMapReduce
 from .win_seq import WinSeqNode
 
 _MESH_SLICE = ("mesh execution: multi-GPU is ROADMAP.md Queue 1 slice 8, not "
@@ -1074,3 +1078,107 @@ class KeyFarmGPU(_DeviceCoreFactory, KeyFarm):
         super().__init__(_host_standin(winfunc), win_len, slide_len, win_type,
                          pardegree=pardegree, name=name, routing=routing,
                          config=config, role=role)
+
+
+class PaneFarmGPU(PaneFarm):
+    """Pane_Farm with per-stage device placement — the 4 constructor
+    families of the reference's Pane_Farm_GPU (pane_farm_gpu.hpp:176-480)
+    become two booleans; an incremental stage always runs on the host (the
+    reference likewise pairs INC stages with host execution)."""
+
+    def __init__(self, plq_func, wlq_func, win_len, slide_len,
+                 win_type=WinType.CB, plq_degree=1, wlq_degree=1,
+                 name="pane_farm_gpu", plq_on_device=True, wlq_on_device=True,
+                 batch_len=512, device=None, depth=None,
+                 use_reduce_kernel=False, compute_dtype=None,
+                 use_resident=None, flush_rows=1 << 20, **kw):
+        self._on_device = {"plq": plq_on_device, "wlq": wlq_on_device}
+        self._dev_kw = dict(batch_len=batch_len, device=device, depth=depth,
+                            use_reduce_kernel=use_reduce_kernel,
+                            compute_dtype=compute_dtype,
+                            use_resident=use_resident, flush_rows=flush_rows)
+        super().__init__(plq_func, wlq_func, win_len, slide_len, win_type,
+                         plq_degree=plq_degree, wlq_degree=wlq_degree,
+                         name=name, **kw)
+
+    def _make_stage(self, which, func, win, slide, wt, degree, name,
+                    incremental, result_fields, ordered, role):
+        if not self._on_device.get(which) or incremental:
+            return super()._make_stage(which, func, win, slide, wt, degree,
+                                       name, incremental, result_fields,
+                                       ordered, role)
+        cfg = self.config
+        if degree > 1:
+            return WinFarmGPU(func, win, slide, wt, pardegree=degree,
+                              name=name, ordered=ordered, config=cfg,
+                              role=role, **self._dev_kw)
+        seq_cfg = PatternConfig(cfg.id_inner, cfg.n_inner, cfg.slide_inner,
+                                0, 1, slide)
+        return WinSeqGPU(func, win, slide, wt, name=name, config=seq_cfg,
+                         role=role, **self._dev_kw)
+
+    def clone_with(self, name, slide_len=None, config=None, ordered=False):
+        kw = dict(self._proto)
+        if slide_len is not None:
+            kw["slide_len"] = slide_len
+        return PaneFarmGPU(name=name, config=config, ordered=ordered,
+                           plq_on_device=self._on_device["plq"],
+                           wlq_on_device=self._on_device["wlq"],
+                           **self._dev_kw, **kw)
+
+
+class WinMapReduceGPU(WinMapReduce):
+    """Win_MapReduce with per-stage device placement — the reference's
+    Win_MapReduce_GPU (win_mapreduce_gpu.hpp:171-521); an incremental
+    stage always runs on the host."""
+
+    def __init__(self, map_func, reduce_func, win_len, slide_len,
+                 win_type=WinType.CB, map_degree=2, reduce_degree=1,
+                 name="win_mr_gpu", map_on_device=True,
+                 reduce_on_device=False, batch_len=512, device=None,
+                 depth=None, use_reduce_kernel=False, compute_dtype=None,
+                 use_resident=None, flush_rows=1 << 20, max_delay_ms=None,
+                 **kw):
+        self._on_device = {"map": map_on_device, "reduce": reduce_on_device}
+        self._dev_kw = dict(batch_len=batch_len, device=device, depth=depth,
+                            use_reduce_kernel=use_reduce_kernel,
+                            compute_dtype=compute_dtype,
+                            use_resident=use_resident, flush_rows=flush_rows,
+                            max_delay_ms=max_delay_ms)
+        super().__init__(map_func, reduce_func, win_len, slide_len, win_type,
+                         map_degree=map_degree, reduce_degree=reduce_degree,
+                         name=name, **kw)
+
+    def _make_map_stage(self, map_func, n, name, incremental, result_fields):
+        from .win_mapreduce import _MapStage
+        if not self._on_device["map"] or incremental:
+            return super()._make_map_stage(map_func, n, name, incremental,
+                                           result_fields)
+        return _MapStage(_host_standin(map_func), self.spec, n, name, None,
+                         result_fields, self.config, device_fn=map_func,
+                         device_opts=self._dev_kw)
+
+    def _make_reduce_stage(self, reduce_func, n, degree, name, incremental,
+                           result_fields, ordered):
+        if not self._on_device["reduce"] or incremental:
+            return super()._make_reduce_stage(reduce_func, n, degree, name,
+                                              incremental, result_fields,
+                                              ordered)
+        cfg = self.config
+        if degree > 1:
+            return WinFarmGPU(reduce_func, n, n, WinType.CB, pardegree=degree,
+                              name=name, ordered=ordered, config=cfg,
+                              role=Role.REDUCE, **self._dev_kw)
+        red_cfg = PatternConfig(cfg.id_inner, cfg.n_inner, cfg.slide_inner,
+                                0, 1, n)
+        return WinSeqGPU(reduce_func, n, n, WinType.CB, name=name,
+                         config=red_cfg, role=Role.REDUCE, **self._dev_kw)
+
+    def clone_with(self, name, slide_len=None, config=None, ordered=False):
+        kw = dict(self._proto)
+        if slide_len is not None:
+            kw["slide_len"] = slide_len
+        return WinMapReduceGPU(name=name, config=config, ordered=ordered,
+                               map_on_device=self._on_device["map"],
+                               reduce_on_device=self._on_device["reduce"],
+                               **self._dev_kw, **kw)
