@@ -123,7 +123,24 @@ catches its own failure):
    WinMapReduceGPU with the MAP or the REDUCE stage on the card,
    KeyFarmOf(PaneFarmGPU), WinFarmOf(WinMapReduceGPU)) at sum_test's shape
    over 1M tuples, each total equal to the host WinSeq's, with each one's
-   kernel launches.
+   kernel launches;
+18. layers: sum_test's 16M tuples through MultiPipe(check="error",
+   trace=, recovery= (one epoch a source batch), control=) over
+   KeyFarmGPU(sum, pardegree 2, flush_rows 2^19, depth 48) on the native
+   core, rescaled 2 -> 4 -> 2 by the controller mid-stream (the source
+   waits for each request, so the first seals with all but a batch or two
+   to go and the second at the middle), against the same stream through a
+   fixed-width KeyFarmGPU with no layers in the same call: the total
+   against the oracle, every key's results in order, the history (2, 4),
+   (4, 2), the ctl_width_kf gauge at 2, the four workers' native cores on
+   the card with the state ABI, the fused kernel launched by each of them
+   (launches per kernel and per worker, layers_launches), every ring
+   kernel call of the run against its plain version, the trace read back
+   by scripts/wf_trace.py (hops of the source, the workers and the sink, a
+   dispatch launch span under a worker's hop, one rescale ctrl span a
+   seal), the profile recorder uninstalled after; then a max_delay_ms
+   KeyFarmGPU under recovery= and check="error" must raise CheckError
+   (WF202) before any thread starts (layers_wf202).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append, windowed_reduce and ring_append_regular_sum must have
@@ -133,16 +150,21 @@ floor beside its times), the nvidia-smi line, and last
 result when no CUDA device is visible or when the package is missing.
 """
 
+import collections
 import contextlib
 import inspect
 import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1876,17 +1898,15 @@ def run_ysb(variant, batches, full_rows=False):
     return dt, by_key
 
 
-def ysb_reduce_phase(calls, variant):
-    """windowed_reduce against its plain version on the descriptors of
-    every call in `calls` (YSB's long TB windows, over a seeded ring of the
-    recorded shape), timed on the call with the most cells beside its
-    bound."""
+def check_reduces(calls, gen):
+    """windowed_reduce against its plain version (compare) on the
+    descriptors of every call in `calls`, each over a ring of the recorded
+    shape and dtype seeded from `gen`.  Returns the largest error."""
     from windflow_tpu_torch.ops import windowed_reduce as wr
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(9)
     err = 0.0
     for c in calls:
-        ring = torch.randint(1, 98, c["shape"], generator=gen, device=dev,
+        ring = torch.randint(1, 98, c["shape"], generator=gen,
+                             device=gen.device,
                              dtype=torch.int32).to(c["dtype"])
         evals = [(ring, op) for op in c["ops"]]
         args = (c["rows"], c["starts"], c["lens"], c["pad"])
@@ -1896,6 +1916,18 @@ def ysb_reduce_phase(calls, variant):
             err = max(err, compare(g, w, ring, c["starts"], c["lens"], op,
                                    c["rows"]))
         del ring, evals, got, want
+    return err
+
+
+def ysb_reduce_phase(calls, variant):
+    """windowed_reduce against its plain version on the descriptors of
+    every call in `calls` (YSB's long TB windows, over a seeded ring of the
+    recorded shape), timed on the call with the most cells beside its
+    bound."""
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    err = check_reduces(calls, gen)
     big = max(calls, key=lambda c: int(c["lens"].sum()))
     ring = torch.randint(1, 98, big["shape"], generator=gen, device=dev,
                          dtype=torch.int32).to(big["dtype"])
@@ -2087,6 +2119,269 @@ def two_stage():
     return total_counts
 
 
+# the layered sum_test (phase 18): sum_test's stream through a KeyFarmGPU
+# rescaled 2 -> 4 -> 2 under check=, trace=, recovery= and control=; one
+# epoch a source batch (16), 1 source batch in 4 traced (0.05 would trace
+# one of the 16, whose worker services may launch nothing)
+LAYERS_PARDEGREE = 2
+LAYERS_MAX_WORKERS = 4
+LAYERS_EPOCH_BATCHES = 1
+LAYERS_SAMPLE_RATE = 0.25
+LAYERS_CAPACITY = 4
+
+
+@contextlib.contextmanager
+def calls_by_thread():
+    """Counts the resident executors' kernel calls by the thread that made
+    them: on exit the yielded dict maps each kernel to {thread name:
+    calls}.  Under recovery= a native core launches in its worker's node
+    thread, named "<dataflow>/<node>"."""
+    names = {"ring_append_regular_sum": "ring_append_regular_sum",
+             "ring_append": "ring_append",
+             "windowed_reduce_many": "windowed_reduce"}
+    counts = {}
+    with contextlib.ExitStack() as stack:
+        seen = {kernel: stack.enter_context(recorded(
+            name, lambda *a: threading.current_thread().name))
+            for name, kernel in names.items()}
+        yield counts
+    counts.update({k: dict(collections.Counter(v)) for k, v in seen.items()})
+
+
+def layered_pipe(wt, schema, batches, trace_dir, asked):
+    """The layered sum_test pipe.  ``asked`` holds three events: its
+    source waits for the first (the 2 -> 4 request) before its second
+    batch, sets the second on reaching the middle batch, and waits for the
+    third (the 4 -> 2 request) before the batch after it: the first
+    rescale seals with all but a batch or two of the stream to go, the
+    second with half of it, and each finds a barrier to seal at."""
+    from windflow_tpu_torch.control import ControlPolicy, Rescale
+    from windflow_tpu_torch.obs.trace import TracePolicy
+    mid = len(batches) // 2
+
+    def gated(_replica):
+        for i, b in enumerate(batches):
+            if i == mid:
+                asked[1].set()
+            gate = {1: asked[0], mid + 1: asked[2]}.get(i)
+            if gate is not None and not gate.wait(300):
+                raise AssertionError(f"layers: no rescale request before "
+                                     f"source batch {i}")
+            yield b
+
+    rows = []
+
+    def consume(r):
+        if r is not None and len(r):
+            rows.append(r.copy())
+
+    pipe = wt.MultiPipe(
+        "layers", capacity=LAYERS_CAPACITY, metrics=True, check="error",
+        trace=TracePolicy(sample_rate=LAYERS_SAMPLE_RATE),
+        trace_dir=trace_dir,
+        recovery=wt.RecoveryPolicy(epoch_batches=LAYERS_EPOCH_BATCHES),
+        control=ControlPolicy([Rescale(
+            "kf", max_workers=LAYERS_MAX_WORKERS, min_workers=1,
+            up_depth=10 ** 9, down_depth=-1, cooldown=10 ** 9)]))
+    pipe.add_source(wt.Source(batches=gated, schema=schema, name="src"))
+    pipe.add(layers_farm(wt))
+    pipe.add_sink(wt.Sink(consume, vectorized=True, name="sink"))
+    return pipe, rows
+
+
+def layers_farm(wt, **kw):
+    return wt.KeyFarmGPU(wt.Reducer("sum", value_range=(0, 100)), WIN,
+                         SLIDE, wt.WinType.CB, pardegree=LAYERS_PARDEGREE,
+                         batch_len=BATCH_LEN, flush_rows=FLUSH_ROWS,
+                         depth=DEPTH, name="kf", device=DEVICE, **kw)
+
+
+def read_trace(trace_dir):
+    """scripts/wf_trace.py's --json summary of trace_dir (in a
+    subprocess), and the records of its trace.jsonl."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "wf_trace.py")
+    out = subprocess.run([sys.executable, script, trace_dir, "--json"],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    with open(os.path.join(trace_dir, "trace.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return json.loads(out.stdout), records
+
+
+def check_layers_trace(summary, records):
+    """Hop spans of the source, the kf workers and the sink; a dispatch
+    launch span under a kf worker's hop; one rescale ctrl span a seal.
+    Returns the epochs the checkpoint spans name."""
+    def stage(node):                    # "layers_03_kf.1" -> "kf.1"
+        return node.split("_", 2)[2]
+    hops = {stage(s["node"]) for s in summary["stages"]}
+    workers = {h for h in hops if h.startswith("kf.") and h[3:].isdigit()}
+    if not ({"src.0", "sink.0"} <= hops and workers):
+        raise AssertionError(f"layers trace: hops of {sorted(hops)}")
+    spans = {r["span"]: r for r in records}
+    under_kf = [r for r in records if r["kind"] == "launch"
+                and r["phase"] == "dispatch"
+                and stage(spans.get(r["parent"], {}).get("node", "x_x_x"))
+                in workers]
+    if not under_kf:
+        raise AssertionError("layers trace: no dispatch launch span under "
+                             f"a kf worker hop ({summary['launch_phases']})")
+    ctrl = summary.get("ctrl", {})
+    if ctrl.get("rescale", {}).get("n") != 2:
+        raise AssertionError(f"layers trace: ctrl spans {ctrl}")
+    epochs = sorted({r["epoch"] for r in records if r["kind"] == "ctrl"
+                     and r["name"] == "checkpoint"})
+    return sorted(workers), len(under_kf), epochs
+
+
+def layers(around=contextlib.nullcontext):
+    """sum_test's 16M tuples through KeyFarmGPU(sum, pardegree 2) under
+    MultiPipe(check="error", trace=, recovery=, control=), rescaled 2 -> 4
+    -> 2 by the controller mid-stream, against the same stream through a
+    fixed-width KeyFarmGPU with no layers (per key in order, and the
+    total against the oracle); the four workers' native cores with the
+    state ABI on the card, the fused kernel launched on each of them, every
+    ring kernel call of the run against its plain version, the trace read
+    back by scripts/wf_trace.py, the controller's width gauge, the profile
+    recorder uninstalled after; then a max_delay_ms KeyFarmGPU under
+    recovery= and check="error" raising CheckError (WF202) before any
+    thread.  The layered run is counted and runs inside `around()` (as in
+    ysb_timed).  Returns its launches."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.check import CheckError, CheckWarning
+    from windflow_tpu_torch.native import enabled
+    from windflow_tpu_torch.obs import trace as tr
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    from windflow_tpu_torch.utils import profile
+
+    lib = enabled()
+    if lib is None or not getattr(lib, "wf_has_state_abi", False):
+        raise AssertionError("layers: the native library lacks the state "
+                             "ABI (keyed migration)")
+    schema = wt.Schema(value=np.int64)
+    batches = make_stream(schema, N_TUPLES)
+    want = expected_total(batches)
+    dt0, n0, total0, fixed_rows = run_pipeline(layers_farm(wt), batches,
+                                               schema, keep=True)
+    if total0 != want:
+        raise AssertionError(f"layers fixed width: total {total0} != "
+                             f"oracle {want}")
+
+    trace_dir = tempfile.mkdtemp(prefix="wf_layers_")
+    try:
+        asked = (threading.Event(), threading.Event(), threading.Event())
+        pipe, rows = layered_pipe(wt, schema, batches, trace_dir, asked)
+        df = pipe._build()
+        workers = [n for n in df.nodes if n.name.startswith("kf.")
+                   and n.name[3:].isdigit()]
+        if not (len(workers) == LAYERS_MAX_WORKERS and all(
+                isinstance(w.core, NativeResidentCore)
+                and w.core.has_state_abi and w.core.keyed_migratable
+                and {str(e.device) for e in w.core.executors} == {DEVICE}
+                for w in workers)):
+            raise AssertionError(f"layers: workers {workers}")
+        with around() as extra, kernel_launches() as counts, \
+                calls_by_thread() as threads, recorded_fused() as fused, \
+                recorded_appends() as appends, \
+                recorded_reduces() as reduces, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            pipe.run()
+            ctl = pipe.controller
+            for i, width in enumerate((LAYERS_MAX_WORKERS, LAYERS_PARDEGREE)):
+                if i and not asked[1].wait(300):
+                    raise AssertionError("layers: the source never reached "
+                                         "the middle of the stream")
+                if not ctl.request_rescale("kf", width):
+                    raise AssertionError(f"layers: rescale to {width} "
+                                         "refused")
+                asked[2 * i].set()
+                t_ask = time.monotonic()
+                while ctl.width_of("kf") != width:
+                    if time.monotonic() - t_ask > 300:
+                        raise AssertionError(f"layers: rescale to {width} "
+                                             "did not land")
+                    time.sleep(0.005)
+            pipe.wait(timeout=600)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        history = [h for fc in ctl.farms for h in fc.history]
+        if [h[:2] for h in history] != [(2, 4), (4, 2)]:
+            raise AssertionError(f"layers: rescale history {history}")
+        total = int(sum(int(r["value"].sum()) for r in rows))
+        if total != want or by_key(rows) != by_key(fixed_rows):
+            raise AssertionError(f"layers: total {total} (oracle {want}) "
+                                 "or the per-key results differ from the "
+                                 "fixed-width run")
+        gauge = pipe.metrics.snapshot()["gauges"].get("ctl_width_kf")
+        if gauge != LAYERS_PARDEGREE:
+            raise AssertionError(f"layers: ctl_width_kf ends at {gauge}")
+        names = [f"layers/{w.name}" for w in workers]
+        fused_by = threads["ring_append_regular_sum"]
+        if not all(fused_by.get(n, 0) > 0 for n in names):
+            raise AssertionError(f"layers: fused launches by worker "
+                                 f"{fused_by}")
+        n_fused, fused_err = check_fused(fused, "layers")
+        n_appends = check_appends(appends, "layers")
+        reduce_err = check_reduces(
+            reduces, torch.Generator(device=DEVICE).manual_seed(10))
+        summary, records = read_trace(trace_dir)
+        traced_workers, dispatch_spans, epochs = check_layers_trace(
+            summary, records)
+        if tr._RECORDER_REFS != 0 or profile._RECORDER is not None:
+            raise AssertionError("layers: the profile recorder is still "
+                                 "installed after the traced run closed")
+        emit("layers_launches", launches=counts, by_worker=threads)
+        emit("layers", workload="sum_test CB win=256 slide=64 keys=64 "
+             "KeyFarmGPU 2->4->2 check+trace+recovery+control",
+             tuples=N_TUPLES, seconds=dt, tuples_per_s=N_TUPLES / dt,
+             fixed_width_seconds=dt0, fixed_width_tuples_per_s=N_TUPLES / dt0,
+             windows=sum(len(r) for r in rows), fixed_width_windows=n0,
+             total=total, oracle=want, per_key_identical=True,
+             rescales=[list(h) for h in history], ctl_width_kf=gauge,
+             epochs_sealed=len(epochs), spans=pipe._df.tracer.spans,
+             spans_written=pipe._df.tracer.written,
+             spans_dropped=pipe._df.tracer.dropped,
+             traced_workers=traced_workers,
+             dispatch_spans_under_kf=dispatch_spans,
+             trace_summary={k: summary[k] for k in (
+                 "n_spans", "n_traces", "launch_phases", "ctrl")},
+             check_warnings=sorted({str(w.message).split()[0]
+                                    for w in caught
+                                    if issubclass(w.category, CheckWarning)}),
+             fused_calls_checked=n_fused, fused_max_abs_err=fused_err,
+             ring_append_calls_checked=n_appends,
+             windowed_reduce_calls_checked=len(reduces),
+             windowed_reduce_max_abs_err=reduce_err,
+             recorder_uninstalled=True, nvidia_smi=nvidia_smi_line(),
+             **(extra or {}))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+    bad = wt.MultiPipe("layers_wf202", check="error",
+                       recovery=wt.RecoveryPolicy(epoch_batches=1))
+    bad.add_source(wt.Source(batches=batches[:1], schema=schema,
+                             name="src"))
+    bad.add(layers_farm(wt, max_delay_ms=5.0))
+    bad.add_sink(wt.Sink(lambda r: None, vectorized=True, name="sink"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the WF204 sink warning
+        try:
+            bad.run()
+        except CheckError as e:
+            err, report = str(e), e.report
+        else:
+            raise AssertionError("layers_wf202: run() raised no CheckError")
+    if "WF202" not in err or bad._df._threads or bad._df._sampler:
+        raise AssertionError(f"layers_wf202: {err!r}, threads "
+                             f"{bad._df._threads}")
+    emit("layers_wf202", raised="CheckError", codes=sorted(
+        {d.code for d in report.diagnostics}), threads_started=0)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -2120,7 +2415,7 @@ def main() -> int:
     # kernels these paths run launched at least once
     new_paths = {"ysb_deterministic": ysb_deterministic(),
                  "ysb_timed": ysb_timed(), "pipe_test": pipe_test(),
-                 "two_stage": two_stage()}
+                 "two_stage": two_stage(), "layers": layers()}
     emit("new_path_launches", **new_paths)
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]

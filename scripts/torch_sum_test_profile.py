@@ -47,7 +47,10 @@ copies and kernels, and its share of the profiled block's wall time:
   (events/s, p95/p99 latency, launch diagnostics) and the kernels'
   launches;
 * ``pipe_test``: one timed apps.pipe run of 8M tuples (its total and
-  window count held against expected()).
+  window count held against expected());
+* ``layers``: the layered sum_test run (16M tuples through KeyFarmGPU
+  rescaled 2 -> 4 -> 2 under check=, trace=, recovery= and control=,
+  beside the fixed-width run) with all of chip_smoke.py's checks.
 
 With ``--ab DIR`` it compares this checkout (B) with another checkout of
 the repository at DIR (A, e.g. the parent commit unpacked with ``git
@@ -315,12 +318,13 @@ def device_busy_share():
 
 
 def apps_main(device, smi):
-    """chip_smoke.py's ysb_timed (at APPS_YSB_SEC) and pipe_test phases,
-    their timed runs under the profiler."""
+    """chip_smoke.py's ysb_timed (at APPS_YSB_SEC), pipe_test and layers
+    phases, their timed runs under the profiler."""
     print(json.dumps({"run": "apps", "device": device, "nvidia_smi": smi}),
           flush=True)
     cs.ysb_timed(APPS_YSB_SEC, around=device_busy_share)
     cs.pipe_test(around=device_busy_share)
+    cs.layers(around=device_busy_share)
     return 0
 
 
@@ -330,8 +334,8 @@ def main(argv=None):
     ap.add_argument("--spatial", action="store_true",
                     help="profile the spatial skyline path instead")
     ap.add_argument("--apps", action="store_true",
-                    help="profile the YSB device variants and pipe_test "
-                         "instead")
+                    help="profile the YSB device variants, pipe_test and "
+                         "the layered sum_test instead")
     ap.add_argument("--ab", metavar="DIR",
                     help="compare the windowed-reduce, ring, gather and "
                          "skyline kernels, sum_test's resident route, the "

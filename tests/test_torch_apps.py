@@ -3,9 +3,10 @@ through the port against the JAX package's apps: pipe_test at ~256k
 tuples with device="cpu" (the fused ring kernel's plain version), its
 total and window count against the app's own oracle ``expected()`` and
 its windows, per key in order, against the JAX pipe run; micro's counters
-against JAX's under one fake clock; the unported ``trace=`` knob refused;
-and no device visible without device="cpu" raising."""
+against JAX's under one fake clock; the pipe app span-traced against its
+untraced run; and no device visible without device="cpu" raising."""
 
+import json
 import threading
 import types
 
@@ -72,15 +73,28 @@ def test_pipe_run_checks_and_reports(monkeypatch):
     assert "WinFarmGPU" in out["metric"]
 
 
-def test_pipe_trace_refused():
-    """The tracing layer is not in the port yet: trace= raises before
-    anything runs (ROADMAP.md Queue 1 item 9a)."""
-    with pytest.raises(NotImplementedError, match="trace"):
-        pipe.build_pipe([], 2, FLUSH_ROWS, DEPTH, 4, trace=0.1,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="trace"):
-        pipe.run(n_tuples=4096, chunk=4096, flush_rows=FLUSH_ROWS,
-                 depth=DEPTH, runs=1, trace=0.1, device="cpu")
+def test_pipe_trace_refused(monkeypatch, tmp_path):
+    """The pipe app span-traced (trace=, trace_dir=): the same windows per
+    key as the untraced run, and trace.jsonl holds hops of the fused
+    source stage, the farm's emitter and both workers, and the workers'
+    ship phases as launch spans under their hops."""
+    _, state, _, rows = run_pipe(pipe, monkeypatch, device="cpu")
+    monkeypatch.undo()      # the second run records through a fresh Sink
+    _, tstate, _, trows = run_pipe(pipe, monkeypatch, device="cpu",
+                                   trace=1.0, trace_dir=str(tmp_path))
+    assert (tstate["total"], tstate["rcv"]) == (state["total"], state["rcv"])
+    assert trows == rows
+    recs = [json.loads(line)
+            for line in (tmp_path / "trace.jsonl").read_text().splitlines()]
+    def stage(node):                    # "pipe_test_gpu_02_x" -> "x"
+        return node.split("_", 4)[4]
+    hops = {stage(r["node"]) for r in recs if r["kind"] == "hop"}
+    assert {"src.0+map.0+filter.0", "win_farm_gpu.emitter",
+            "win_farm_gpu.0", "win_farm_gpu.1"} <= hops, hops
+    spans = {r["span"]: r for r in recs}
+    launches = [r for r in recs if r["kind"] == "launch"]
+    assert {r["phase"] for r in launches} >= {"native_bookkeeping"}
+    assert {stage(spans[r["parent"]]["node"]) for r in launches} == {"win_farm_gpu.0", "win_farm_gpu.1"}
 
 
 @pytest.mark.filterwarnings("ignore:resident device path accumulates")

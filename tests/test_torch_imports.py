@@ -28,6 +28,15 @@ def test_forbidden_matches_names_not_prefixes():
     assert not forbidden("windflow_tpu_torch.ops.device")
 
 
+#: the check, control and span-tracing layers: imported only when their
+#: knobs are set
+LAYER_MODULES = (
+    "check", "check.diagnostics", "check.directives", "check.closures",
+    "check.effects", "check.config", "check.graph", "check.plane",
+    "control", "control.policy", "control.rescale", "control.controller",
+    "obs.trace", "obs.expo")
+
+
 def run_isolated(code: str, **env):
     """Run `code` in a fresh interpreter from the repo root."""
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -50,6 +59,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from windflow_tpu_torch.apps import micro, pipe, spatial, ysb\n"
         "from windflow_tpu_torch.api import MultiPipe, builders\n"
         "from windflow_tpu_torch import PaneFarmGPU, WinMapReduceGPU\n"
+        "from windflow_tpu_torch import check, control\n"
+        "from windflow_tpu_torch.check import closures, config, effects\n"
+        "from windflow_tpu_torch.check import directives, graph, plane\n"
+        "from windflow_tpu_torch.control import controller, rescale\n"
+        "from windflow_tpu_torch.obs import expo, trace\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
     for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
@@ -58,7 +72,7 @@ def test_import_loads_no_jax_and_no_reference_package():
               "api.builders", "apps.ysb", "apps.pipe", "apps.micro",
               "patterns.pane_farm", "patterns.win_mapreduce",
               "patterns.nesting", "obs.registry", "recovery.store",
-              "runtime.overload"):
+              "runtime.overload", *LAYER_MODULES):
         assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
 
@@ -125,3 +139,26 @@ def test_default_device_raises_without_cuda():
         "    print('raised:', e)\n",
         CUDA_VISIBLE_DEVICES="")
     assert "raised: no CUDA device" in out
+
+
+def test_unset_knobs_import_no_layer():
+    """check=, control= and trace= unset: a port pipeline's run imports
+    none of the layer modules (the engine imports each lazily)."""
+    out = run_isolated(
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from windflow_tpu_torch.api import MultiPipe\n"
+        "from windflow_tpu_torch.core.tuples import Schema\n"
+        "from windflow_tpu_torch.patterns.basic import Sink, Source\n"
+        "def gen(sh):\n"
+        "    sh.push(key=0, id=0, ts=0, value=1)\n"
+        "got = []\n"
+        "(MultiPipe('seed').add_source(Source(gen, Schema(value=np.int64)))\n"
+        " .chain_sink(Sink(lambda b: got.append(b), vectorized=True))\n"
+        " .run_and_wait_end())\n"
+        "assert any(b is not None and len(b) for b in got)\n"
+        "print(json.dumps(sorted(sys.modules)))\n", WF_LOG_DIR="")
+    mods = set(json.loads(out.strip().splitlines()[-1]))
+    assert "windflow_tpu_torch.runtime.engine" in mods
+    assert [m for m in LAYER_MODULES
+            if f"windflow_tpu_torch.{m}" in mods] == []

@@ -215,7 +215,8 @@ def test_device_farm_workers_each_own_an_executor():
 
 def test_multipipe_matches_jax_and_refuses_unported_layers():
     """The carried MultiPipe composes Source -> WinFarmGPU -> Sink like the
-    JAX package's; the knobs of layers the port lacks raise at once."""
+    JAX package's; the knob of the layer the port lacks (federate=) raises
+    at once, and those of the layers it carries are taken."""
     from windflow_tpu.api import MultiPipe as JaxMultiPipe
     from windflow_tpu.core.tuples import Schema as JaxSchema
     from windflow_tpu.patterns.basic import Sink as JaxSink
@@ -239,7 +240,10 @@ def test_multipipe_matches_jax_and_refuses_unported_layers():
         rows = np.concatenate(got)
         outs.append(np.sort(rows, order=["key", "id"]).tobytes())
     assert outs[0] == outs[1]
-    for knob in ({"check": "warn"}, {"control": object()}, {"trace": 0.5},
-                 {"federate": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            wt.MultiPipe("p", **knob)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        wt.MultiPipe("p", federate=True)
+    from windflow_tpu_torch.control import Admission, ControlPolicy
+    ctl = ControlPolicy([Admission(max_rate=10, min_rate=1, high_depth=8,
+                                   low_depth=2)])
+    p = wt.MultiPipe("p", check="warn", control=ctl, trace=0.5)
+    assert (p.check, p.control, p.trace) == ("warn", ctl, 0.5)

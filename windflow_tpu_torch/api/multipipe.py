@@ -1,9 +1,9 @@
 """MultiPipe — the linear pipeline composer (reference multipipe.hpp:
 ``add_source / add / chain / add_sink / chain_sink / unionMultiPipes /
 run / run_and_wait_end``).  A copy of ``windflow_tpu/api/multipipe.py``;
-the knobs of layers the port does not have yet (``check=``, ``control=``,
-``trace=``, ``federate=``: ROADMAP.md Queue 1 item 9) are refused when the
-pipe is made, as the port's engine refuses them.
+``federate=``, whose layer the port does not have yet (ROADMAP.md Queue 1
+item 9b), is refused when the pipe is made, as the port's engine refuses
+it.
 
 The reference builds nested ff_a2a "matrioskas" and splices emitters onto
 producer pipelines at add time (multipipe.hpp:174-240).  Here composition is
@@ -124,18 +124,18 @@ class MultiPipe:
             raise ValueError(f"check= wants one of {Dataflow.CHECK_MODES}, "
                              f"got {check!r}")
         self.check = check
-        refuse_unported_layers("MultiPipe", check, control, trace, federate)
+        refuse_unported_layers("MultiPipe", federate)
         #: control/policy.ControlPolicy — the closed-loop control plane
         #: (docs/CONTROL.md): elastic rescale at epoch barriers, adaptive
         #: shedding, source admission.  None (default) keeps seed-
-        #: identical behavior and never imports a control package.
+        #: identical behavior and never imports windflow_tpu_torch.control.
         self.control = control
         #: obs/trace.TracePolicy (or a sample-rate fraction) — end-to-end
         #: span tracing (docs/OBSERVABILITY.md §tracing): sampled source
         #: batches leave per-hop queue-wait/service spans (+ device
         #: launch child spans) in <trace_dir>/trace.jsonl.  Falsy
         #: (default) keeps seed-identical behavior and never imports
-        #: an obs.trace module.
+        #: windflow_tpu_torch.obs.trace.
         self.trace = trace
         #: obs/federation.FederationPolicy (or True) — the plane-wide
         #: telemetry tier (docs/OBSERVABILITY.md "Federation & SLOs"):
@@ -413,7 +413,7 @@ class MultiPipe:
         """Gate every source and wait for in-flight work to settle —
         the quiesce leg of a rolling restart (docs/ROBUSTNESS.md
         "Cross-host recovery").  Needs a running pipe whose ``control=``
-        policy declares a ``Drain`` rule."""
+        policy declares a :class:`~windflow_tpu_torch.control.Drain` rule."""
         if self._df is None:
             raise RuntimeError("request_drain() needs a running pipe — "
                                "call after run()")

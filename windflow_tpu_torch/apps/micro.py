@@ -75,6 +75,15 @@ def build_micro(duration_sec=5.0, chunk=4096, pardegree=1, capacity=2):
     return pipe, {"sent": sent, "rcv": rcv, "lat_sum": lat_sum}
 
 
+def wf_check_pipelines():
+    """Static-analysis entry (docs/CHECKS.md): a tiny never-run instance
+    of the benchmark topology.  pardegree 2 so the closure race analyzer
+    sees the replica-shared generator (whose counter updates are
+    lock-guarded — the pattern it must NOT flag)."""
+    pipe, _counters = build_micro(0.0, chunk=1024, pardegree=2)
+    return [pipe]
+
+
 def run(duration_sec=5.0, chunk=4096, pardegree=1, capacity=2):
     pipe, counters = build_micro(duration_sec, chunk, pardegree, capacity)
     sent, rcv, lat_sum = (counters["sent"], counters["rcv"],

@@ -19,9 +19,8 @@ per-window close-to-delivery latency (ysb_nodes.hpp:231-238).
 Prints one JSON line with tuples/sec, latency, and the launch diagnostics
 (dispatches / merges / mean launch service) of each timed run.  The farm
 runs on the card unless ``device="cpu"`` is passed; run it there with
-``python3 -m windflow_tpu_torch.apps.pipe``.  Span tracing (the functions'
-``trace=``; the command line has no such option) is refused until the
-port carries the tracing layer.
+``python3 -m windflow_tpu_torch.apps.pipe``; ``--trace`` / ``--trace-dir``
+span-trace a sampled fraction of its batches into ``trace.jsonl``.
 """
 
 from __future__ import annotations
@@ -112,11 +111,12 @@ def build_pipe(chunks, pardegree, flush_rows, depth, capacity,
                device=None):
     """Assemble the pipe_test_gpu MultiPipe without running it; returns
     ``(pipe, state)`` where ``state`` is the sink's result-accumulator
-    dict.  The farm's workers run on ``device`` (the card by default,
-    "cpu" for the kernels' plain versions).  ``trace`` (a sample-rate
-    fraction) + ``trace_dir`` are the JAX package's span-tracing knobs:
-    the port's MultiPipe refuses a set ``trace`` with
-    ``NotImplementedError`` until it carries the tracing layer."""
+    dict — shared by the timed ``run_once`` and the static analyzer
+    (``wf_check_pipelines``).  The farm's workers run on ``device`` (the
+    card by default, "cpu" for the kernels' plain versions).  ``trace``
+    (a sample-rate fraction or obs.trace.TracePolicy) + ``trace_dir`` opt
+    the run into end-to-end span tracing: <trace_dir>/trace.jsonl feeds
+    scripts/wf_trace.py (docs/OBSERVABILITY.md §tracing)."""
     state = {"rcv": 0, "total": 0, "lat_us": []}
 
     def gen(shipper):
@@ -166,6 +166,14 @@ def build_pipe(chunks, pardegree, flush_rows, depth, capacity,
                             max_delay_ms=max_delay_ms, device=device))
             .chain_sink(Sink(consume, vectorized=True)))
     return pipe, state
+
+
+def wf_check_pipelines(device=None):
+    """Static-analysis entry (docs/CHECKS.md): a tiny never-run instance
+    of the benchmark topology, its farm on ``device``."""
+    pipe, _state = build_pipe([], pardegree=2, flush_rows=1 << 16,
+                              depth=2, capacity=16, device=device)
+    return [pipe]
 
 
 def run_once(chunks, pardegree, flush_rows, depth, capacity,
@@ -273,9 +281,17 @@ def main(argv=None):
     ap.add_argument("--rate", type=float, default=None,
                     help="paced source, tuples/sec (latency-budget mode "
                          "needs a sub-capacity pace; default full speed)")
+    ap.add_argument("--trace", type=float, default=None,
+                    help="span-trace a sampled fraction of batches "
+                         "(0..1]; spans land in <trace-dir>/trace.jsonl "
+                         "for scripts/wf_trace.py / Perfetto")
+    ap.add_argument("--trace-dir", default=None,
+                    help="span/telemetry output directory (defaults to "
+                         "WF_LOG_DIR)")
     a = ap.parse_args(argv)
     out = run(a.tuples, a.pardegree, a.chunk, a.flush_rows, a.depth,
-              a.capacity, a.runs, a.max_delay_ms, a.rate)
+              a.capacity, a.runs, a.max_delay_ms, a.rate,
+              trace=a.trace, trace_dir=a.trace_dir)
     print(json.dumps(out))
     return 0
 

@@ -423,6 +423,19 @@ def build_spatial(variant: str, duration_sec: float, pardegree: int,
     return pipe, sink, n_gen
 
 
+def wf_check_pipelines():
+    """Static-analysis entry (docs/CHECKS.md): tiny never-run instances
+    of the host skyline topologies (whole-window farm and the pane
+    decomposition — 50/12.5 ms keeps the pane factor divisible, the
+    WF103-clean geometry)."""
+    out = []
+    for variant in ("wf", "pf"):
+        pipe, _sink, _n = build_spatial(variant, 0.0, 2, 50.0, 12.5, 256,
+                                        batches=[])
+        out.append(pipe)
+    return out
+
+
 def run(variant="wf", duration_sec=8.0, pardegree=2, win_ms=50.0,
         slide_ms=12.5, chunk=2048, rate=80_000.0, warm=True,
         max_delay_ms=None, device=None):

@@ -334,6 +334,14 @@ def build_pipeline(variant: str, duration_sec: float, pardegree1: int,
     return pipe, sink, sent
 
 
+def wf_check_pipelines():
+    """Static-analysis entry (docs/CHECKS.md): a tiny never-run instance
+    of the benchmark topology (host KeyFarm variant — the device variants
+    share the same shell wiring)."""
+    pipe, _sink, _sent = build_pipeline("kf", 0.0, 1, 2, batches=[])
+    return [pipe]
+
+
 def warmup(variant, pardegree1, pardegree2, win_sec, chunk,
            force_device=False, rich_stats=False, device=None):
     """Warm the device path before the timed run: pushes a few synthetic

@@ -352,18 +352,14 @@ def _make_inbox(capacity: int, failed: threading.Event,
     return Inbox(capacity, failed, policy)
 
 
-def refuse_unported_layers(owner: str, check, control, trace, federate):
-    """The static checker, the control plane, span tracing and telemetry
-    federation are not in the port yet (ROADMAP.md Queue 1 item 9): refuse
-    their knobs instead of running without them."""
-    for opt, on in (("check", check not in (None, "off")),
-                    ("control", control is not None),
-                    ("trace", bool(trace)),
-                    ("federate", bool(federate))):
-        if on:
-            raise NotImplementedError(
-                f"{owner}({opt}=...) is not ported to windflow_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 9)")
+def refuse_unported_layers(owner: str, federate):
+    """Telemetry federation is not in the port yet (ROADMAP.md Queue 1
+    item 9b, with the row plane it ships over): refuse ``federate=``
+    instead of running without it."""
+    if federate:
+        raise NotImplementedError(
+            f"{owner}(federate=...) is not ported to windflow_tpu_torch "
+            "yet (ROADMAP.md Queue 1 item 9b)")
 
 
 class Dataflow:
@@ -417,7 +413,28 @@ class Dataflow:
         if check not in self.CHECK_MODES:
             raise ValueError(f"check= wants one of {self.CHECK_MODES}, "
                              f"got {check!r}")
-        refuse_unported_layers("Dataflow", check, control, trace, federate)
+        refuse_unported_layers("Dataflow", federate)
+        # `control` (control/policy.ControlPolicy) opts the graph into the
+        # closed-loop control plane (docs/CONTROL.md): a controller fed by
+        # the observability sampler drives elastic rescale, adaptive
+        # shedding, and source admission.  None = seed behavior, and the
+        # control package is never imported (same contract as check=).
+        if control is not None:
+            from ..control.policy import ControlPolicy
+            if not isinstance(control, ControlPolicy):
+                raise TypeError(f"control= wants a ControlPolicy, got "
+                                f"{type(control).__name__}")
+            if control.has_rescale and recovery is None:
+                # a rescale seals at an epoch barrier; without recovery=
+                # no source ever injects a marker, so the rule could
+                # never fire — refuse the silently-inert pair outright
+                # (check/ reports it as WF211 on a not-yet-built
+                # MultiPipe, mirroring the WF208 split)
+                raise ValueError(
+                    f"[WF211] Dataflow {name!r}: control= has Rescale "
+                    f"rules but recovery= is unset — live rescale seals "
+                    f"at epoch barriers, which only a RecoveryPolicy's "
+                    f"epoch triggers inject (docs/CONTROL.md)")
         self.control = control
         self._controller = None
         #: rescalable-farm registry stamped by runtime/farm.py at wiring
@@ -478,12 +495,57 @@ class Dataflow:
         else:
             self.metrics = None
             self.events = None
-        self.trace = None
-        self.tracer = None
-        self._Stamped = None
+        # `trace` (obs/trace.TracePolicy, or a sample-rate fraction; any
+        # falsy value = OFF) opts the graph into end-to-end span tracing
+        # (docs/OBSERVABILITY.md §tracing): a sampled fraction of source
+        # batches carries a trace context, every traversed node records
+        # queue-wait + service spans, device launches become child spans,
+        # and <trace_dir>/trace.jsonl feeds scripts/wf_trace.py.  Unset
+        # means the obs.trace module is never imported — the same
+        # contract as check=/control=.
+        if trace:
+            from ..obs.trace import Tracer, as_policy
+            self.trace = as_policy(trace)
+            if not self.trace_dir:
+                # the WF207 shape of silent no-op (docs/CHECKS.md
+                # WF213): spans stay in the bounded in-memory ring and
+                # trace.jsonl is never written.  The live percentile
+                # sensors still work, so this is a warning, not an
+                # error — but it is almost always a missing trace_dir.
+                import warnings
+                warnings.warn(
+                    f"[WF213] Dataflow {name!r}: trace= is set but no "
+                    f"trace_dir resolves (trace_dir= or WF_LOG_DIR) — "
+                    f"sampled spans stay in the in-memory ring and "
+                    f"trace.jsonl is never written", stacklevel=2)
+            #: per-graph span tracer; file opens lazily, so a never-run
+            #: preview graph still creates nothing on disk
+            self.tracer = Tracer(self.name, self.trace,
+                                 trace_dir=self.trace_dir,
+                                 metrics=self.metrics, events=self.events)
+            from ..obs.trace import Stamped as _StampedCls
+            self._Stamped = _StampedCls
+        else:
+            self.trace = None
+            self.tracer = None
+            self._Stamped = None
         self.federate = None
+        #: the federation shipper and black box: None until federate=
+        #: is ported (ROADMAP.md Queue 1 item 9b)
         self.federation = None
         self._blackbox = None
+        if control is not None and self.metrics is None:
+            # the controller's only sensor is the sampler (obs/sampler.py
+            # subscription); with neither metrics= nor sample_period= it
+            # never receives a snapshot and every rule is silently inert
+            # — the WF207 shape of silent no-op, warned once here and
+            # reported by check/ as WF209 (docs/CHECKS.md)
+            import warnings
+            warnings.warn(
+                f"[WF209] Dataflow {name!r}: control= is set but neither "
+                f"metrics= nor sample_period= is — the controller is "
+                f"blind (no sampler snapshots) and no rule will ever "
+                f"fire", stacklevel=2)
         self.nodes: list[Node] = []
         self._inboxes: dict[int, Inbox] = {}
         self._edges: list[tuple[Node, Node]] = []
@@ -1080,10 +1142,25 @@ class Dataflow:
         if self._threads:
             raise RuntimeError(
                 f"Dataflow {self.name!r} already started; a graph runs once")
+        if self.check not in (None, "off"):
+            # pre-flight static analysis (docs/CHECKS.md): warn or — in
+            # 'error' mode — raise CheckError BEFORE any thread (node,
+            # sampler, supervisor writer) starts.  Lazily imported: the
+            # unset default never touches the check package.
+            from ..check import enforce
+            enforce(self)
         if self.recovery is not None and self._supervisor is None:
             from ..recovery.supervisor import Supervisor
             self._supervisor = Supervisor(self, self.recovery)
             self._supervisor.attach_all()
+        if (self.control is not None and self._controller is None
+                and self.metrics is not None):
+            # after the supervisor (rescale validation needs the
+            # NodeRecovery records), before any thread (the controller
+            # wraps source emission and installs epoch hooks)
+            from ..control.controller import Controller
+            self._controller = Controller(self, self.control)
+            self._controller.attach()
         if self.events is not None:
             self.events.emit("dataflow_start", dataflow=self.name,
                              nodes=len(self.nodes),
@@ -1094,9 +1171,15 @@ class Dataflow:
             self._threads.append(t)
             t.start()
         period = self.sample_period
+        if period is None and self._controller is not None:
+            # control without an explicit cadence: the sampler is the
+            # controller's sensor bus, so run it at the policy's period
+            period = self.control.period
         if period is not None and self._sampler is None:
             from ..obs.sampler import Sampler
             self._sampler = Sampler(self, period)
+            if self._controller is not None:
+                self._sampler.subscribe(self._controller.on_sample)
             self._sampler.start()
 
     def wait(self, timeout: float = None):
