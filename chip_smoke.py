@@ -140,12 +140,37 @@ catches its own failure):
    dispatch launch span under a worker's hop, one rescale ctrl span a
    seal), the profile recorder uninstalled after; then a max_delay_ms
    KeyFarmGPU under recovery= and check="error" must raise CheckError
-   (WF202) before any thread starts (layers_wf202).
+   (WF202) before any thread starts (layers_wf202);
+19. mesh: the single-process device mesh on the one card, its device
+   repeated (parallel/mesh.py make_mesh(devices=["cuda:0"] * n)): (a)
+   sum_test's 16M tuples through WinSeqGPU(Reducer("sum", value_range=(0,
+   100)), ..., mesh=make_mesh(n_kf=4)) — the C++ core feeding
+   MeshResidentExecutor.launch_regular, one fused ring_append_regular_sum
+   launch on each of the 4 shards a regular flush — against the oracle,
+   its 1M-tuple prefix per key against the un-meshed resident route; (b)
+   a 1M-tuple Reducer("max") prefix on the mesh (irregular launches:
+   ring_append and windowed_reduce on every shard); (c) the two-field
+   MultiReducer's 4M tuples on the mesh (the native _multi branch over
+   MeshMultiFieldResidentExecutor); (b) and (c) per key against the
+   un-meshed route; each run's launches per shard (from the shards'
+   streams) and every ring kernel call against its plain version; (d)
+   MeshStreamStep at pipe_test's chain (map 3v+1, filter v % 5 != 0) over
+   a (kf, wf, sp) = (2, 2, 2) mesh and a (2, 2^24) int32 buffer: 262,144
+   CB 256/64 windows a group, 1,024 long windows across the sp boundary
+   and 8 past N, ops sum, count, min, max, prod and mean in int32 and sum
+   and mean in float32, each with the psum and the ring fold, against a
+   numpy oracle; every sp_window_partial and sp_merge call against its
+   plain version (float32 partials and every merge bit for bit against
+   the CPU twin of its order, run on the card), the partial launches per
+   (kf, wf, sp) shard, and both kernels timed at the run's largest call
+   beside their bound (the merge beside torch.sum over its partials).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append, windowed_reduce and ring_append_regular_sum must have
-been launched on one of them.  Then it prints the kernels' JSON line (each kernel with the empty-launch
-floor beside its times), the nvidia-smi line, and last
+been launched on one of them; the mesh runs' launches follow
+(mesh_launches).  Then it prints the kernels' JSON line (seven kernels,
+each with the empty-launch floor beside its times), the nvidia-smi line,
+and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
 result when no CUDA device is visible or when the package is missing.
 """
@@ -517,7 +542,7 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from windflow_tpu_torch import native
-    from windflow_tpu_torch.ops import gather, skyline
+    from windflow_tpu_torch.ops import gather, mesh_reduce, skyline
     from windflow_tpu_torch.ops import ring as rk
     from windflow_tpu_torch.ops import windowed_reduce as wr
 
@@ -528,6 +553,7 @@ def build_all():
 
     jobs = {"windowed_reduce.cu": wr.build, "resident.cu": rk.build,
             "gather.cu": gather.build, "skyline.cu": skyline.build,
+            "mesh_reduce.cu": mesh_reduce.build,
             "libwfnative.so": native.load}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
@@ -1728,10 +1754,9 @@ def counted_launches(cls):
         cls.launch = orig
 
 
-def multi_field_native(wr, rk):
-    """sum(a) + max(b) + count over CB 256/64, 64 keys, 4M tuples: the
-    native core's per-field rings against the port's host core."""
-    import windflow_tpu_torch as wt
+def multi_stream(wt):
+    """(schema, batches) of the two-field stream: MULTI_TUPLES tuples of
+    N_KEYS keys, a in [0, 100), b in [-30000, 30000)."""
     schema = wt.Schema(a=np.int64, b=np.int64)
     per_key = MULTI_TUPLES // N_KEYS
     rng = np.random.default_rng(13)
@@ -1743,10 +1768,22 @@ def multi_field_native(wr, rk):
             schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
             a=rng.integers(0, 100, size=m * N_KEYS),
             b=rng.integers(-30000, 30000, size=m * N_KEYS)))
+    return schema, batches
+
+
+def multi_agg(wt):
+    return wt.MultiReducer(("sum", "a", "sa"), ("max", "b", "mb"),
+                           ("count", None, "n"))
+
+
+def multi_field_native(wr, rk):
+    """sum(a) + max(b) + count over CB 256/64, 64 keys, 4M tuples: the
+    native core's per-field rings against the port's host core."""
+    import windflow_tpu_torch as wt
+    schema, batches = multi_stream(wt)
 
     def agg():
-        return wt.MultiReducer(("sum", "a", "sa"), ("max", "b", "mb"),
-                               ("count", None, "n"))
+        return multi_agg(wt)
 
     from windflow_tpu_torch.ops.resident import MultiFieldResidentExecutor
     cores = []
@@ -1799,13 +1836,16 @@ TWO_STAGE_TUPLES = 1 << 20
 def kernel_wrappers():
     """Every kernel wrapper of the port, by kernel name."""
     from windflow_tpu_torch.ops import gather, skyline
+    from windflow_tpu_torch.ops import mesh_reduce as mr
     from windflow_tpu_torch.ops import ring as rk
     from windflow_tpu_torch.ops import windowed_reduce as wr
     return {"windowed_reduce": wr.windowed_reduce,
             "ring_append": rk.ring_append,
             "ring_append_regular_sum": rk.ring_append_regular_sum,
             "window_gather": gather.window_gather,
-            "skyline_windows": skyline.skyline_windows}
+            "skyline_windows": skyline.skyline_windows,
+            "sp_window_partial": mr.sp_window_partial,
+            "sp_merge": mr.sp_merge}
 
 
 @contextlib.contextmanager
@@ -2382,6 +2422,497 @@ def layers(around=contextlib.nullcontext):
     return counts
 
 
+# the mesh phase (19): the single-process device mesh on one card, its
+# device repeated: kf = 4 shards for the resident executors, a (kf, wf,
+# sp) = (2, 2, 2) mesh for MeshStreamStep at pipe_test's chain
+MESH_KF = 4
+MESH_STEP_SHAPE = (2, 2, 2)            # (n_kf, n_wf, n_sp)
+MESH_STEP_ROWS = 1 << 24               # a group's rows: (2, 2^24) int32
+MESH_LONG_WINDOWS = 1024               # windows across the sp boundary
+MESH_PAST_N = 8                        # windows that run past N
+MESH_STEP_RUNS = (("sum", "int32"), ("count", "int32"), ("min", "int32"),
+                  ("max", "int32"), ("prod", "int32"), ("mean", "int32"),
+                  ("sum", "float32"), ("mean", "float32"))
+
+
+def _stream_of(first, *_args):
+    """The current CUDA stream of a kernel call whose first argument is
+    the ring (or, for windowed_reduce_many, its evaluations)."""
+    t = first[0][0] if isinstance(first, list) else first
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def per_shard(streams, executors):
+    """Launches per mesh shard: the recorded calls' streams mapped to the
+    shard whose stream each is (a list, shard order)."""
+    shard_of = {st.cuda_stream: s for ex in executors
+                for s, st in enumerate(ex._streams)}
+    counts = [0] * MESH_KF
+    for st in streams:
+        counts[shard_of[st]] += 1
+    return counts
+
+
+def mesh_stage(wt, mesh, reducer):
+    return wt.WinSeqGPU(reducer, WIN, SLIDE, wt.WinType.CB,
+                        batch_len=BATCH_LEN, flush_rows=FLUSH_ROWS,
+                        depth=DEPTH, shards=1, mesh=mesh)
+
+
+def mesh_core_of(cores, cls, name):
+    """The one native core of a mesh run, with its mesh executors."""
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    if not (len(cores) == 1 and isinstance(cores[0], NativeResidentCore)
+            and cores[0]._delegate is None
+            and all(isinstance(ex, cls) for ex in cores[0].executors)):
+        raise AssertionError(f"{name}: the stage's core is {cores}")
+    return cores[0]
+
+
+def mesh_resident(mesh):
+    """(a) sum_test 16M on the kf mesh (the fused kernel on every shard a
+    regular flush), (b) a 1M-tuple Reducer("max") prefix (irregular
+    launches), (c) the two-field MultiReducer 4M (per-field rings); each
+    against the un-meshed resident route per key in order (and (a)'s
+    total against the oracle), every ring kernel call against its plain
+    version.  Returns {run: launches}."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.ops import resident
+    from windflow_tpu_torch.ops.resident import (
+        MeshMultiFieldResidentExecutor, MeshResidentExecutor)
+    schema = wt.Schema(value=np.int64)
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    sum_r = lambda: wt.Reducer("sum", value_range=(0, 100))    # noqa: E731
+    max_r = lambda: wt.Reducer("max", value_range=(0, 100))    # noqa: E731
+    launches = {}
+
+    # (a) a 1M-tuple prefix (the warm-up) per key against the un-meshed
+    # resident route, then the 16M run counted
+    prefix = make_stream(schema, PREFIX_TUPLES)
+    _, n_mesh, _, rows = run_pipeline(mesh_stage(wt, mesh, sum_r()), prefix,
+                                      schema, True)
+    _, n_flat, _, flat = run_pipeline(resident_stage(wt), prefix, schema,
+                                      True)
+    if n_mesh != n_flat or by_key(rows) != by_key(flat):
+        raise AssertionError("mesh sum_test prefix differs from the "
+                             "un-meshed resident route")
+    emit("mesh_prefix_vs_resident", tuples=PREFIX_TUPLES, windows=n_mesh,
+         identical=True)
+    batches = make_stream(schema, N_TUPLES)
+    want = expected_total(batches)
+    cores = []
+    stage = stage_with_core(lambda: mesh_stage(wt, mesh, sum_r()), cores)
+    resident.stats_snapshot(reset=True)
+    with kernel_launches() as counts, recorded_fused() as fused, \
+            recorded("ring_append_regular_sum", _stream_of) as fstreams, \
+            recorded_appends() as appends, \
+            recorded("ring_append", _stream_of) as astreams, \
+            recorded_reduces() as reduces:
+        dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
+    stats = resident.stats_snapshot(reset=True)
+    core = mesh_core_of(cores, MeshResidentExecutor, "mesh sum_test")
+    if total != want:
+        raise AssertionError(f"mesh sum_test total {total} != oracle {want}")
+    shards = {"ring_append_regular_sum": per_shard(fstreams, core.executors),
+              "ring_append": per_shard(astreams, core.executors)}
+    # a dispatch launches on every shard: the fused kernel for a regular
+    # flush, ring_append (+ windowed_reduce where a shard has windows) for
+    # an irregular one
+    if not (min(shards["ring_append_regular_sum"]) > 0
+            and len(set(shards["ring_append_regular_sum"])) == 1
+            and len(set(shards["ring_append"])) == 1
+            and stats["dispatches"] * MESH_KF
+            == counts["ring_append_regular_sum"] + counts["ring_append"]):
+        raise AssertionError(f"mesh sum_test: launches {counts}, per shard "
+                             f"{shards}, dispatches {stats['dispatches']}")
+    n_fused, err = check_fused(fused, "mesh sum_test")
+    emit("mesh_sum_test", workload="sum_test CB win=256 slide=64 keys=64 "
+         f"resident, kf mesh of {MESH_KF} x {DEVICE}", tuples=N_TUPLES,
+         seconds=dt, tuples_per_s=N_TUPLES / dt, windows=n_windows,
+         total=total, oracle=want, launches=counts,
+         launches_per_shard=shards, dispatches=stats["dispatches"],
+         fused_calls_checked=n_fused, fused_max_abs_err=err,
+         ring_append_calls_checked=check_appends(appends, "mesh sum_test"),
+         reduce_calls_checked=len(reduces),
+         reduce_max_abs_err=check_reduces(reduces, gen))
+    launches["sum_test"] = counts
+
+    # (b) irregular launches: Reducer("max"), a 1M-tuple prefix
+    cores = []
+    stage = stage_with_core(lambda: mesh_stage(wt, mesh, max_r()), cores)
+    with kernel_launches() as counts, recorded_appends() as appends, \
+            recorded("ring_append", _stream_of) as astreams, \
+            recorded_reduces() as reduces:
+        _, n_mesh, _, rows = run_pipeline(stage, prefix, schema, True)
+    core = mesh_core_of(cores, MeshResidentExecutor, "mesh max")
+    _, n_flat, _, flat = run_pipeline(resident_stage(wt, max_r()), prefix,
+                                      schema, True)
+    if n_mesh != n_flat or by_key(rows) != by_key(flat):
+        raise AssertionError("mesh max prefix differs from the un-meshed "
+                             "resident route")
+    require_launches("mesh max", counts, ("ring_append", "windowed_reduce"))
+    shards = {"ring_append": per_shard(astreams, core.executors)}
+    emit("mesh_irregular", op="max", tuples=PREFIX_TUPLES, windows=n_mesh,
+         identical=True, launches=counts, launches_per_shard=shards,
+         ring_append_calls_checked=check_appends(appends, "mesh max"),
+         reduce_calls_checked=len(reduces),
+         reduce_max_abs_err=check_reduces(reduces, gen))
+    launches["irregular_max"] = counts
+
+    # (c) the two-field MultiReducer: the native _multi branch over
+    # MeshMultiFieldResidentExecutor
+    mschema, mbatches = multi_stream(wt)
+    cores = []
+    stage = stage_with_core(lambda: mesh_stage(wt, mesh, multi_agg(wt)),
+                            cores)
+    with kernel_launches() as counts, recorded_appends() as appends, \
+            recorded("ring_append", _stream_of) as astreams, \
+            recorded_reduces() as reduces:
+        dt, rows = run_rows(stage, mbatches, mschema)
+    core = mesh_core_of(cores, MeshMultiFieldResidentExecutor, "mesh multi")
+    if not core._multi:
+        raise AssertionError("mesh multi: not the native _multi branch")
+    _, flat = run_rows(wt.WinSeqGPU(
+        multi_agg(wt), WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
+        flush_rows=FLUSH_ROWS, depth=DEPTH, device=DEVICE), mbatches, mschema)
+    if by_key([rows]) != by_key([flat]):
+        raise AssertionError("mesh multi differs from the un-meshed "
+                             "resident route")
+    require_launches("mesh multi", counts, ("ring_append", "windowed_reduce"))
+    emit("mesh_multi_field", workload="MultiReducer(sum(a), max(b), count) "
+         "CB win=256 slide=64 keys=64", tuples=MULTI_TUPLES, seconds=dt,
+         tuples_per_s=MULTI_TUPLES / dt, windows=len(rows), identical=True,
+         launches=counts,
+         launches_per_shard={"ring_append": per_shard(astreams,
+                                                      core.executors)},
+         ring_append_calls_checked=check_appends(appends, "mesh multi"),
+         reduce_calls_checked=len(reduces),
+         reduce_max_abs_err=check_reduces(reduces, gen))
+    launches["multi_field"] = counts
+    return launches
+
+
+def mesh_step_inputs(seed=21):
+    """(flat, starts, lens) of the stream step: (2, 2^24) int32 rows in
+    [-1000, 1000); per group pipe_test's CB 256/64 windows (262,144), then
+    MESH_LONG_WINDOWS windows of N/1024 to N/128 rows (16k-128k) across
+    the sp boundary and
+    MESH_PAST_N windows that run past N."""
+    rng = np.random.default_rng(seed)
+    kf, N = MESH_STEP_SHAPE[0], MESH_STEP_ROWS
+    half = N // MESH_STEP_SHAPE[2]
+    flat = rng.integers(-1000, 1000, size=(kf, N)).astype(np.int32)
+    starts, lens = [], []
+    for _ in range(kf):
+        cb = np.arange(N // SLIDE) * SLIDE
+        long_lens = rng.integers(N >> 10, N >> 7, MESH_LONG_WINDOWS)
+        long_starts = half - rng.integers(1, long_lens)
+        past = N - rng.integers(1, 200, MESH_PAST_N)
+        starts.append(np.concatenate([cb, long_starts, past]))
+        lens.append(np.concatenate([np.full(len(cb), WIN), long_lens,
+                                    rng.integers(300, 5000, MESH_PAST_N)]))
+    return (flat, np.stack(starts).astype(np.int32),
+            np.stack(lens).astype(np.int32))
+
+
+def _wrap32(x):
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int64)
+
+
+def mesh_step_groups(flat, starts, lens, rows):
+    """Per group, what the oracle reads: the rows padded with zeros to
+    `rows` (Ns * n_sp), mapped (3v+1) and filtered (v % 5 != 0), the
+    windows clipped to them, and prefix sums of the kept values, their
+    absolute values and the kept count."""
+    groups = []
+    for g in range(starts.shape[0]):
+        v = np.zeros(rows, dtype=np.int64)
+        v[:flat.shape[1]] = flat[g]
+        v = 3 * v + 1
+        kept = v % 5 != 0
+        s = np.clip(starts[g].astype(np.int64), 0, rows)
+        e = np.clip(starts[g].astype(np.int64) + lens[g], 0, rows)
+        groups.append(dict(
+            v=v, kept=kept, s=s, e=e,
+            csv=np.concatenate([[0], np.cumsum(np.where(kept, v, 0))]),
+            csa=np.concatenate([[0], np.cumsum(np.where(kept, np.abs(v),
+                                                        0))]),
+            csc=np.concatenate([[0], np.cumsum(kept)])))
+    return groups
+
+
+def mesh_step_oracle(groups, op, dtype):
+    """numpy, over mesh_step_groups: sums exact (the int32 ones wrapped by
+    the caller), an int32 mean the float32 quotient of the wrapped sum,
+    int32 products wrapped.  Also returns the float tolerance's scale: the
+    sum of |x| over each window's kept rows (over its count for a mean).
+    A CB window (SLIDE-aligned, WIN long) folds its WIN / SLIDE blocks of
+    SLIDE rows; any other window is folded alone."""
+    ident = {"min": np.iinfo(np.int32).max, "max": np.iinfo(np.int32).min,
+             "prod": 1}
+    outs, scales = [], []
+    for gr in groups:
+        s, e, kept, v = gr["s"], gr["e"], gr["kept"], gr["v"]
+        cnt = gr["csc"][e] - gr["csc"][s]
+        scales.append((gr["csa"][e] - gr["csa"][s])
+                      / (np.maximum(cnt, 1) if op == "mean" else 1))
+        tot = gr["csv"][e] - gr["csv"][s]
+        if op == "count":
+            outs.append(cnt.astype(np.float64))
+        elif op == "sum" or (op == "mean" and dtype == "float32"):
+            outs.append(tot.astype(np.float64) if op == "sum"
+                        else tot / np.maximum(cnt, 1))
+        elif op == "mean":
+            outs.append((_wrap32(tot).astype(np.float32)
+                         / np.maximum(cnt, 1).astype(np.float32))
+                        .astype(np.float64))
+        else:
+            ufunc = {"min": np.minimum, "max": np.maximum,
+                     "prod": np.multiply}[op]
+            masked = np.where(kept, v, ident[op])
+            pad = -len(masked) % SLIDE
+            blocks = ufunc.reduce(np.concatenate(
+                [masked, np.full(pad, ident[op])]).reshape(-1, SLIDE),
+                axis=1)
+            res = np.full(len(s), ident[op], dtype=np.int64)
+            full = (e - s == WIN) & (s % SLIDE == 0)
+            first = s[full] // SLIDE
+            acc = blocks[first]
+            for k in range(1, WIN // SLIDE):
+                acc = ufunc(acc, blocks[first + k])
+            res[full] = acc
+            for i in np.nonzero(~full & (e > s))[0]:
+                res[i] = ufunc.reduce(masked[s[i]:e[i]])
+            # an int64 product modulo 2^64 has the int32 product's low
+            # bits: wrap it before the float64 result rounds it
+            outs.append((_wrap32(res) if op == "prod" else res)
+                        .astype(np.float64))
+    return np.stack(outs), np.stack(scales)
+
+
+def _check_step_result(got, want, scale, op, dtype, name):
+    """The step's result against the oracle: int32 results (and int mean)
+    exact; float32 sums and means within FLOAT_RTOL of the sum of |x| (over
+    the count for a mean).  Returns the largest error."""
+    if dtype == "int32" and op in ("sum", "prod"):
+        want = _wrap32(want.astype(np.int64))
+    err = np.abs(got.astype(np.float64) - want)
+    if dtype == "int32":
+        if err.max() > 0:
+            bad = np.unravel_index(int(err.argmax()), err.shape)
+            raise AssertionError(f"{name}: window {bad} gives {got[bad]}, "
+                                 f"the oracle {want[bad]}")
+        return 0.0
+    if not bool((err <= FLOAT_RTOL * scale).all()):
+        raise AssertionError(f"{name}: error {err.max()} beyond rtol "
+                             f"{FLOAT_RTOL}")
+    return float(err.max())
+
+
+@contextlib.contextmanager
+def checked_mesh_kernels():
+    """While active, every sp_window_partial and sp_merge call of the mesh
+    step is held against its plain version on the same inputs (ints,
+    counts, min and max equal; float32 sums and means within FLOAT_RTOL of
+    the sum of |x|) and, for float32 and for every merge, bit for bit
+    against the CPU twin of its order run on the card; the yielded dict
+    counts the checks, keeps the largest errors, counts partial launches
+    per (kf, wf, sp) shard in the mesh's order and keeps the inputs of the
+    largest partial and merge (for the timings)."""
+    from windflow_tpu_torch.ops import mesh_reduce as mr
+    from windflow_tpu_torch.parallel import mesh as pm
+    orig_p, orig_m = pm.sp_window_partial, pm.sp_merge
+    n_shards = int(np.prod(MESH_STEP_SHAPE))
+    seen = dict(partials=0, merges=0, partial_err=0.0, merge_err=0.0,
+                twins=0, per_shard=[0] * n_shards, big_partial=None,
+                long_partial=None, big_merge=None)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def partial(vals, keep, starts, lens, base, op):
+        got = orig_p(vals, keep, starts, lens, base, op)
+        seen["per_shard"][seen["partials"] % n_shards] += 1
+        seen["partials"] += 1
+        want = mr.sp_window_partial_reference(vals, keep, starts, lens,
+                                              base, op)
+        if (got[1] is None) != (want[1] is None) or (
+                got[1] is not None and not torch.equal(got[1], want[1])):
+            raise AssertionError(f"sp_window_partial {op}: counts differ")
+        if vals.dtype == torch.int32 or op in ("count", "min", "max"):
+            if not same(got[0], want[0]):
+                raise AssertionError(f"sp_window_partial {op}/{vals.dtype}:"
+                                     " the kernel differs from the plain "
+                                     "version")
+        else:
+            twin = mr.partial_order_twin(vals, keep, starts, lens, base, op)
+            seen["twins"] += 1
+            if not same(got[0], twin[0]):
+                raise AssertionError(f"sp_window_partial {op}/{vals.dtype}:"
+                                     " the kernel differs from its twin")
+            scale = mr.sp_window_partial_reference(
+                vals.abs(), keep, starts, lens, base, "sum")[0].double()
+            e = (got[0].double() - want[0].double()).abs()
+            if not bool((e <= FLOAT_RTOL * scale).all()):
+                raise AssertionError(f"sp_window_partial {op}: error "
+                                     f"{float(e.max())} beyond rtol")
+            seen["partial_err"] = max(seen["partial_err"], float(e.max()))
+        call = (vals, keep, starts, lens, base, op)
+        if (seen["big_partial"] is None or starts.numel()
+                > seen["big_partial"][2].numel()):
+            seen["big_partial"] = call
+        if (seen["long_partial"] is None or int(lens.max())
+                > int(seen["long_partial"][3].max())):
+            seen["long_partial"] = call
+        return got
+
+    def merge(partials, counts, op, ring=False, device=None):
+        got = orig_m(partials, counts, op, ring=ring, device=device)
+        seen["merges"] += 1
+        parts = torch.stack([p.to(got.device) for p in partials])
+        cnts = (torch.stack([c.to(got.device) for c in counts])
+                if counts is not None else None)
+        twin = mr.merge_order_twin(parts, cnts, op, ring)
+        want = mr.sp_merge_reference(parts, cnts, op, ring)
+        if not same(got, twin):
+            raise AssertionError(f"sp_merge {op}/{parts.dtype} ring={ring}: "
+                                 "the kernel differs from its twin")
+        e = (got.double() - want.double()).abs()
+        scale = (parts.double().abs().sum(dim=0) if op != "mean" else
+                 parts.double().abs().sum(dim=0)
+                 / cnts.long().sum(dim=0).clamp(min=1))
+        exact = parts.dtype == torch.int32 or op in ("count", "min", "max")
+        if not bool((e <= (0 if exact else FLOAT_RTOL) * scale).all()):
+            raise AssertionError(f"sp_merge {op}/{parts.dtype}: error "
+                                 f"{float(e.max())} against the plain "
+                                 "version")
+        seen["merge_err"] = max(seen["merge_err"], float(e.max()))
+        if (seen["big_merge"] is None
+                or parts.shape[1] > seen["big_merge"][0].shape[1]):
+            seen["big_merge"] = (parts, cnts, op, ring)
+        return got
+
+    pm.sp_window_partial, pm.sp_merge = partial, merge
+    try:
+        yield seen
+    finally:
+        pm.sp_window_partial, pm.sp_merge = orig_p, orig_m
+
+
+def mesh_step_rows(seen):
+    """The kernels-line rows of sp_window_partial and sp_merge: each timed
+    at the largest call of the step's run (the partial cold, its inputs
+    cycled through three times the L2, and hot; the merge hot: it reads
+    partials just written), beside its bound, its plain version and, for
+    the merge, torch.sum over the partials.  The partial is also timed at
+    the call with the longest windows (few windows of many cells)."""
+    from windflow_tpu_torch.ops import mesh_reduce as mr
+    timed = {}
+    for case in ("big_partial", "long_partial"):
+        vals, keep, starts, lens, base, op = seen[case]
+        Ns, B = vals.numel(), starts.numel()
+        s = np.clip(starts.cpu().numpy().astype(np.int64) - base, 0, Ns)
+        e = np.clip(starts.cpu().numpy().astype(np.int64)
+                    + lens.cpu().numpy() - base, 0, Ns)
+        cells = covered(s, np.maximum(e - s, 0))
+        nbytes = (cells * (vals.element_size() + 1) + 8 * B
+                  + (8 if mr.needs_count(op) else 4) * B)
+        pb = bytes_bound(nbytes, int(np.maximum(e - s, 0).sum()))
+        copies = cold_copies(vals.device, (vals, keep))
+        cold = kernel_ms(cycled(copies, lambda v, k: mr.sp_window_partial(
+            v, k, starts, lens, base, op)), reps=2 * len(copies))
+        hot = kernel_ms(lambda: mr.sp_window_partial(vals, keep, starts,
+                                                     lens, base, op),
+                        reps=10)
+        plain = call_ms(lambda: mr.sp_window_partial_reference(
+            vals, keep, starts, lens, base, op), reps=2)
+        emit("mesh_step_kernel", kernel="sp_window_partial", case=case,
+             op=op, dtype=str(vals.dtype), Ns=Ns, B=B, base=base,
+             cells=cells, window_cells=int(np.maximum(e - s, 0).sum()),
+             kernel_ms=cold, hot_l2_ms=hot, plain_ms=plain,
+             bound_bytes=nbytes, bound_ms=pb[0], bound_by=pb[1])
+        timed[case] = (cold, hot, plain, pb)
+    cold, hot, plain, pb = timed["big_partial"]
+    rows = {"sp_window_partial": dict(
+        max_abs_err=seen["partial_err"], ms=cold, hot_ms=hot,
+        plain_ms=plain, bound_ms=pb[0], bound_by=pb[1], library_ms=None,
+        long_windows_ms=timed["long_partial"][0],
+        long_windows_bound_ms=timed["long_partial"][3][0])}
+    parts, cnts, op, ring = seen["big_merge"]
+    n, B = parts.shape
+    nbytes = 4 * n * B + 4 * B + (4 * n * B if op == "mean" else 0)
+    mb = bytes_bound(nbytes, (n - 1) * B)
+    ms = kernel_ms(lambda: mr.sp_merge(parts, cnts, op, ring=ring))
+    plain = call_ms(lambda: mr.sp_merge_reference(parts, cnts, op, ring))
+    lib = call_ms(lambda: torch.sum(parts, dim=0))
+    emit("mesh_step_kernel", kernel="sp_merge", op=op,
+         dtype=str(parts.dtype), ring=ring, n_sp=n, B=B, kernel_ms=ms,
+         plain_ms=plain, library_ms=lib, library="torch.sum(parts, dim=0)",
+         bound_bytes=nbytes, bound_ms=mb[0], bound_by=mb[1])
+    rows["sp_merge"] = dict(max_abs_err=seen["merge_err"], ms=ms,
+                            plain_ms=plain, bound_ms=mb[0], bound_by=mb[1],
+                            library_ms=lib)
+    return rows
+
+
+def mesh_step():
+    """(d) MeshStreamStep at pipe_test's chain (map 3v+1, filter v % 5 !=
+    0) over a (2, 2, 2) mesh on one card: every op with both orders of the
+    merge, int32 and float32, against the numpy oracle; every kernel call
+    against its plain version (and twin).  Returns (launches, kernel
+    rows)."""
+    from windflow_tpu_torch.parallel import MeshStreamStep, make_mesh
+    kf, wf, sp = MESH_STEP_SHAPE
+    mesh = make_mesh(kf, sp, devices=[DEVICE] * (kf * wf * sp), n_wf=wf)
+    flat, starts, lens = mesh_step_inputs()
+    Ns = MESH_STEP_ROWS // sp
+    t0 = time.perf_counter()
+    with kernel_launches() as counts, checked_mesh_kernels() as seen:
+        results = {}
+        for op, dtype in MESH_STEP_RUNS:
+            for collective in ("psum", "ring"):
+                step = MeshStreamStep(
+                    mesh, op=op, dtype=getattr(torch, dtype),
+                    map_fn=lambda v: 3 * v + 1,
+                    filter_fn=lambda v: v % 5 != 0, collective=collective)
+                results[(op, dtype, collective)] = step(flat, starts, lens)
+    dt = time.perf_counter() - t0
+    errs = {}
+    groups = mesh_step_groups(flat, starts, lens, Ns * sp)
+    oracle = {}
+    for (op, dtype, collective), got in results.items():
+        if (op, dtype) not in oracle:
+            oracle[op, dtype] = mesh_step_oracle(groups, op, dtype)
+        want, scale = oracle[op, dtype]
+        name = f"mesh_step {op}/{dtype}/{collective}"
+        errs[f"{op}/{dtype}/{collective}"] = _check_step_result(
+            got, want, scale, op, dtype, name)
+    require_launches("mesh_step", counts, ("sp_window_partial", "sp_merge"))
+    rows = mesh_step_rows(seen)
+    emit("mesh_step", workload="MeshStreamStep map 3v+1, filter v%5!=0, "
+         f"(kf, wf, sp) = {MESH_STEP_SHAPE} x {DEVICE}",
+         rows=list(flat.shape), windows=int(starts.shape[1]),
+         runs=[f"{op}/{d}/{c}" for op, d in MESH_STEP_RUNS
+               for c in ("psum", "ring")], seconds=dt,
+         oracle_max_abs_err=errs, launches=counts,
+         partial_launches_per_shard=seen["per_shard"],
+         partial_calls_checked=seen["partials"],
+         merge_calls_checked=seen["merges"], partial_twin_checks=seen["twins"])
+    return counts, rows
+
+
+def mesh_phase():
+    """Phase 19: (a)-(c) on a kf mesh of MESH_KF shards, (d) the stream
+    step; returns ({run: launches}, the two new kernels' rows)."""
+    from windflow_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(n_kf=MESH_KF, devices=[DEVICE] * MESH_KF)
+    t0 = time.perf_counter()
+    launches = mesh_resident(mesh)
+    launches["stream_step"], rows = mesh_step()
+    emit("mesh_launches", seconds=time.perf_counter() - t0, **launches)
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -2416,6 +2947,7 @@ def main() -> int:
     new_paths = {"ysb_deterministic": ysb_deterministic(),
                  "ysb_timed": ysb_timed(), "pipe_test": pipe_test(),
                  "two_stage": two_stage(), "layers": layers()}
+    mesh_launches, mesh_rows = mesh_phase()
     emit("new_path_launches", **new_paths)
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]
@@ -2455,6 +2987,12 @@ def main() -> int:
         source="windflow_tpu_torch/ops/csrc/skyline.cu",
         replaces="windflow_tpu/apps/spatial.py:143",
         launches=spatial_launches["skyline_windows"], **skyline_row))
+    for name in ("sp_window_partial", "sp_merge"):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="windflow_tpu_torch/ops/csrc/mesh_reduce.cu",
+            replaces="windflow_tpu/parallel/mesh.py:141",
+            launches=mesh_launches["stream_step"][name], **mesh_rows[name]))
     for k in kernels:     # the empty-launch floor beside every kernel
         k["floor_ms"] = row["floor_ms"]
     print(json.dumps({"kernels": kernels}))

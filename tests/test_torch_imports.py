@@ -64,6 +64,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from windflow_tpu_torch.check import directives, graph, plane\n"
         "from windflow_tpu_torch.control import controller, rescale\n"
         "from windflow_tpu_torch.obs import expo, trace\n"
+        "from windflow_tpu_torch import parallel\n"
+        "from windflow_tpu_torch.ops import mesh_reduce\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
     for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
@@ -72,7 +74,8 @@ def test_import_loads_no_jax_and_no_reference_package():
               "api.builders", "apps.ysb", "apps.pipe", "apps.micro",
               "patterns.pane_farm", "patterns.win_mapreduce",
               "patterns.nesting", "obs.registry", "recovery.store",
-              "runtime.overload", *LAYER_MODULES):
+              "runtime.overload", "parallel", "parallel.mesh",
+              "ops.mesh_reduce", *LAYER_MODULES):
         assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
 
@@ -99,7 +102,12 @@ def test_import_and_plain_versions_run_no_nvcc(tmp_path):
         "t, m = gather.window_gather(r, z, z, z + 3, 8)\n"
         "skyline.skyline_windows(t.float(), t.float(), m)\n"
         "assert ring._lib is None and windowed_reduce._lib is None\n"
-        "assert gather._lib is None and skyline._lib is None\n",
+        "assert gather._lib is None and skyline._lib is None\n"
+        "from windflow_tpu_torch.ops import mesh_reduce\n"
+        "p, c = mesh_reduce.sp_window_partial(r.view(-1), None, z, z + 3, 0,"
+        " 'mean')\n"
+        "mesh_reduce.sp_merge([p, p], [c, c], 'mean', ring=True)\n"
+        "assert mesh_reduce._lib is None\n",
         CUDA_HOME=str(tmp_path), PATH=f"{nvcc.parent}:{os.environ['PATH']}")
     assert not marker.exists()
 

@@ -282,15 +282,28 @@ def test_multi_stat_matches_host(kind):
 
 
 def test_multi_field_and_mesh_are_later_slices():
-    """Stats over several fields are ported (per-field rings; twins in
-    test_torch_multifield.py); meshes are still a later slice."""
-    from windflow_tpu_torch.ops.resident import MultiFieldResidentExecutor
+    """Stats over several fields take per-field rings (twins in
+    test_torch_multifield.py), and mesh= builds the Python resident core
+    over a MeshResidentExecutor, byte-identical to JAX's mesh core (mesh
+    twins in test_torch_multichip.py)."""
+    from windflow_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from windflow_tpu_torch.ops.resident import (MeshResidentExecutor,
+                                                 MultiFieldResidentExecutor)
+    from windflow_tpu_torch.parallel import make_mesh
     core = pw.make_core_for(port_spec(4, 2, "CB"), wt.MultiReducer(
         ("sum", "value", "s"), ("max", "ts", "m")), device="cpu")
     assert isinstance(core.executor, MultiFieldResidentExecutor)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        pw.make_core_for(port_spec(4, 2, "CB"), wt.Reducer("sum"),
-                         device="cpu", mesh=object())
+    stream = cb_stream(5, 120, seed=4)
+    pcore = pw.make_core_for(port_spec(8, 4, "CB"), wt.Reducer("sum"),
+                             batch_len=16,
+                             mesh=make_mesh(n_kf=4, devices=["cpu"] * 4))
+    jcore = jw.make_core_for(jax_spec(8, 4, "CB"), JReducer("sum"),
+                             batch_len=16, mesh=jax_make_mesh(n_kf=4))
+    assert isinstance(pcore, pw.ResidentWinSeqCore)
+    assert isinstance(pcore.executor, MeshResidentExecutor)
+    got = run_core(pcore, stream)
+    assert len(got) > 0
+    assert_identical(got, run_core(jcore, stream))
 
 
 def test_max_delay_flushes_partial_batches():

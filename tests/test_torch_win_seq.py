@@ -131,9 +131,23 @@ def test_routing_keeps_jax_decisions():
     # package (the C++ core when the native library loads)
     assert isinstance(make_core_for(spec, wt.Reducer("sum"), device="cpu"),
                       (wt.NativeResidentCore, wt.ResidentWinSeqCore))
-    # meshes are a later slice
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_core_for(spec, wt.Reducer("sum"), device="cpu", mesh=object())
+    # a mesh takes the resident route with its rings sharded over the kf
+    # axis, the core class JAX's routing picks, and its results
+    from windflow_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from windflow_tpu_torch.ops.resident import MeshResidentExecutor
+    from windflow_tpu_torch.parallel import make_mesh
+    mesh_core = make_core_for(spec, wt.Reducer("sum"), batch_len=16,
+                              mesh=make_mesh(n_kf=2, devices=["cpu"] * 2))
+    jax_core = jax_make_core(JaxWindowSpec(16, 4, JaxWinType.CB),
+                             JaxReducer("sum"), batch_len=16,
+                             mesh=jax_make_mesh(n_kf=2))
+    assert isinstance(mesh_core.executors[0] if hasattr(
+        mesh_core, "executors") else mesh_core.executor, MeshResidentExecutor)
+    assert type(mesh_core).__name__ == type(jax_core).__name__
+    batches = sum_test_stream(n_keys=5, per_key=120, chunk_rows=64)
+    assert per_key([mesh_core.process(b) for b in batches]
+                   + [mesh_core.flush()]) == per_key(
+        [jax_core.process(b) for b in batches] + [jax_core.flush()])
     with pytest.raises(TypeError, match="cannot be staged"):
         make_core_for(spec, lambda k, g, rows: 0, device="cpu",
                       use_reduce_kernel=True)

@@ -10,7 +10,10 @@ stream with ``state_restore`` where the JAX core left off.
 A JAX ``ResidentWinSeqCore.state_snapshot()`` adds the ring cursors and
 a ``RingSnapshot`` of the device ring — of every field's ring, in field
 order, for a core over a ``MultiFieldResidentExecutor``;
-:func:`carry_resident_state` carries those too.  (``NativeResidentCore`` state blobs come from the same C++
+:func:`carry_resident_state` carries those too.  A mesh core's rings
+(sharded over the kf axis in JAX) resolve to one physical ``(KP, cap)``
+array each, shard ``s``'s rows at ``s * KP / S``: the layout the port's
+mesh executors restore from.  (``NativeResidentCore`` state blobs come from the same C++
 library in both packages and carry across as bytes.)
 
 The source objects are read by attribute name only (duck typing): nothing

@@ -1,6 +1,6 @@
 """Device-resident window archives on a CUDA card — the port of
-``windflow_tpu/ops/resident.py`` (the single-ring executor and the
-per-field one).
+``windflow_tpu/ops/resident.py`` (the single-ring executor, the per-field
+one, and their mesh forms).
 
 Each stream row crosses the host-to-device copy once and window evaluation
 reads device memory:
@@ -22,6 +22,10 @@ reads device memory:
   stats of a launch in one windowed-reduce launch), and
   a bound user window function reads masked ``(B, pad)`` tiles of its
   fields that the ``window_gather`` kernel cuts from the rings;
+* with a device mesh (:class:`MeshResidentExecutor`,
+  :class:`MeshMultiFieldResidentExecutor`) every kf shard holds the rows of
+  its keys in rings of its own on its own device and stream, and a launch
+  runs the same kernels on every shard;
 * results come back through pinned host tensors with bounded depth.
 
 The host side (``ResidentWinSeqCore`` in patterns/win_seq_gpu.py, or the
@@ -204,6 +208,43 @@ def launch_cols(d_vec, at: int, B: int, n: int):
     return tuple(d_vec[at + i * B:at + (i + 1) * B] for i in range(n))
 
 
+@contextlib.contextmanager
+def _on(device, stream):
+    """`device` and `stream` as the current ones (nothing on the CPU):
+    kernels launch, copies run and device tensors are allocated there."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
+
+
+def _upload(host: np.ndarray, device, stream):
+    """(device tensor, pinned staging tensor or None) for one array; call
+    on `stream` (its copy is asynchronous)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if stream is None:
+        return t, None
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    return pinned.to(device, non_blocking=True), pinned
+
+
+def _download(outs, stream):
+    """Start the copies of `outs` into pinned host tensors on `stream`;
+    returns (host tensors, event) — event None on the CPU."""
+    if stream is None:
+        return tuple(outs), None
+    hosts = []
+    for o in outs:
+        h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+        h.copy_(o, non_blocking=True)
+        hosts.append(h)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return tuple(hosts), event
+
+
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -256,15 +297,10 @@ class ResidentWindowExecutor:
         self._svc = deque(maxlen=32)   # recent dispatch→ready seconds
         self._svc_mean = 0.0
 
-    @contextlib.contextmanager
     def _on_stream(self):
         """The executor's device and stream as the current ones: kernels
         launch, copies run and device tensors are allocated on them."""
-        if self._stream is None:
-            yield
-            return
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            yield
+        return _on(self.device, self._stream)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -376,26 +412,12 @@ class ResidentWindowExecutor:
     def _to_device(self, host: np.ndarray):
         """(device tensor, pinned staging tensor or None) for one array;
         call on the executor's stream."""
-        t = torch.from_numpy(np.ascontiguousarray(host))
-        if self._stream is None:
-            return t, None
-        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        pinned.copy_(t)
-        return pinned.to(self.device, non_blocking=True), pinned
+        return _upload(host, self.device, self._stream)
 
     def _fetch(self, outs):
         """Start the copies of `outs` into pinned host tensors; returns
         (host tensors, event) — event None on the CPU."""
-        if self._stream is None:
-            return outs, None
-        hosts = []
-        for o in outs:
-            h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-            h.copy_(o, non_blocking=True)
-            hosts.append(h)
-        event = torch.cuda.Event()
-        event.record(self._stream)
-        return tuple(hosts), event
+        return _download(outs, self._stream)
 
     def _stage_block(self, blk: np.ndarray, Rb: int) -> np.ndarray:
         """The (KP, Rb) rectangle as the kernel writes it: rows >= K and
@@ -695,6 +717,414 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
         self._inflight.append((meta, B, hosts, event,
                                (p_vec, d_vec, d_blks, tiles, mask, outs),
                                time.perf_counter()))
+        while len(self._inflight) > self.depth:
+            self._harvest_one()
+
+
+class _EventGroup:
+    """The per-shard copy events of a mesh snapshot, waited on together."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = [e for e in events if e is not None]
+
+    def synchronize(self):
+        for e in self.events:
+            e.synchronize()
+
+
+class _MeshShards:
+    """Per-shard rings, streams and harvest of the mesh executors — the
+    port of ``MeshResidentExecutor`` / ``MeshMultiFieldResidentExecutor``
+    (windflow_tpu/ops/resident.py:831-1111), where one ``shard_map`` step
+    served every key group.
+
+    * **Layout** (JAX's): dense ring row ``r`` lives on shard ``r % S`` at
+      local row ``r // S``; ``KP = S * bucket(ceil(K / S))`` and every
+      shard holds ``rps = KP // S`` rows.  The global physical row of
+      ``(shard s, local l)`` is ``s * rps + l``: the layout of
+      ``np.asarray`` of the JAX package's sharded ring, which the
+      snapshots use, so a JAX mesh snapshot carries across unchanged.
+    * **Placement.** Shard ``s`` keeps its ``(rps, cap)`` ring(s) on the
+      mesh device at index ``s`` of the sharded axis (0 on the other
+      axes), in one copy: JAX replicated the rings over the other axes
+      (``P(kf, None)``).
+    * **Streams.** Each shard launches on its own CUDA stream; a launch
+      runs on every shard (the appends, then the shard's own windows,
+      none where it has none) and is harvested once every shard's event
+      completed, its ``(shard, slot)`` results put back in window order.
+    """
+
+    def _init_mesh(self, mesh, axis):
+        self.mesh = mesh
+        self.axis = axis
+        S = self.n_shards = int(mesh.shape[axis])
+        at = list(mesh.shape).index(axis)
+        self.shard_devices = [
+            torch.device(mesh.devices[tuple(s if i == at else 0
+                                            for i in range(
+                                                mesh.devices.ndim))])
+            for s in range(S)]
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.shard_devices]
+        self._shards = None     # per shard: a tuple of rings, field order
+
+    # ------------------------------------------------------------ geometry
+
+    def reset(self, n_keys: int, cap: int):
+        S = self.n_shards
+        self.KP = S * _bucket(max(-(-max(n_keys, 1) // S), 1))
+        self.cap = _bucket(max(cap, 16))
+        self._shards = None
+
+    @property
+    def rps(self) -> int:
+        """Ring rows a shard holds."""
+        return self.KP // self.n_shards
+
+    def _on_shard(self, s):
+        return _on(self.shard_devices[s], self._streams[s])
+
+    def _shard_rings(self):
+        """Per shard, its rings (one a field), allocated as zeros on first
+        use."""
+        if self._shards is None:
+            dts = [_TORCH_ACC[d] for d in self._ring_dtypes()]
+            shards = []
+            for s, dev in enumerate(self.shard_devices):
+                with self._on_shard(s):
+                    shards.append(tuple(
+                        torch.zeros((self.rps, self.cap), dtype=dt,
+                                    device=dev) for dt in dts))
+            self._shards = shards
+        return self._shards
+
+    def _rings_assign(self, rings):
+        """Drop the rings (invalidate(); ring_restore() splits a global
+        snapshot over the shards itself)."""
+        self._shards = None
+
+    def _shard_rows(self, a: np.ndarray, s: int, width=None):
+        """The rows of dense (K, ...) array `a` that shard `s` holds (rows
+        r = s, s + S, ...), zero-padded to rps rows (and `width`
+        columns)."""
+        part = a[s::self.n_shards]
+        if a.ndim == 1:
+            out = np.zeros(self.rps, dtype=a.dtype)
+            out[:len(part)] = part
+            return out
+        return _pad2(part, self.rps, width)
+
+    def _window_shards(self, wrows):
+        """(shard of every window, its local row, and per shard the mask of
+        its windows, in window order)."""
+        wrows = np.asarray(wrows, dtype=np.int64)
+        shard = wrows % self.n_shards
+        return shard, wrows // self.n_shards, [shard == s for s in
+                                               range(self.n_shards)]
+
+    # --------------------------------------------------- checkpoint/restore
+
+    def ring_snapshot(self) -> RingSnapshot:
+        """Consistent copy of every field's ring in the global (KP, cap)
+        physical layout (shard s's rows at s * rps ...); drain() first."""
+        if self._inflight:
+            raise RuntimeError("ring_snapshot with launches in flight; "
+                               "drain() first")
+        if self._shards is None:
+            return RingSnapshot(None, self.KP, self.cap)
+        rps, events = self.rps, []
+        n_f = len(self._ring_dtypes())
+        on_card = any(st is not None for st in self._streams)
+        hosts = [torch.empty((self.KP, self.cap),
+                             dtype=_TORCH_ACC[d], pin_memory=on_card)
+                 for d in self._ring_dtypes()]
+        for s, rings in enumerate(self._shards):
+            with self._on_shard(s):
+                for f in range(n_f):
+                    hosts[f][s * rps:(s + 1) * rps].copy_(
+                        rings[f], non_blocking=self._streams[s] is not None)
+                if self._streams[s] is not None:
+                    event = torch.cuda.Event()
+                    event.record(self._streams[s])
+                    events.append(event)
+        return RingSnapshot(tuple(hosts), self.KP, self.cap,
+                            _EventGroup(events) if events else None)
+
+    def ring_restore(self, snap):
+        """Reinstate a snapshot in the global (KP, cap) layout (a port mesh
+        snapshot, or a JAX mesh one through interop.py): row block s goes
+        to shard s.  Clears the launch queue."""
+        data = snap.resolve() if isinstance(snap, RingSnapshot) else snap
+        self._inflight.clear()
+        self._ready = []
+        KP, cap = int(data["KP"]), int(data["cap"])
+        if KP % self.n_shards:
+            raise ValueError(f"snapshot of {KP} ring rows does not split "
+                             f"over {self.n_shards} shards")
+        self.KP, self.cap = KP, cap
+        rings = data["rings"]
+        if rings is None:
+            self._shards = None
+            return
+        rings = tuple(np.asarray(r) for r in rings)
+        want = self._ring_dtypes()
+        if len(rings) != len(want) or any(
+                r.dtype != dt or r.shape != (KP, cap)
+                for r, dt in zip(rings, want)):
+            raise ValueError(
+                f"snapshot rings are {[(r.dtype, r.shape) for r in rings]}, "
+                f"the executor expects {list(want)} x ({KP}, {cap})")
+        rps, shards = self.rps, []
+        for s, dev in enumerate(self.shard_devices):
+            with self._on_shard(s):
+                shards.append(tuple(
+                    torch.tensor(r[s * rps:(s + 1) * rps], device=dev)
+                    for r in rings))
+        self._shards = shards
+
+    # -------------------------------------------------------------- harvest
+
+    @staticmethod
+    def _is_ready(entry) -> bool:
+        return all(e is None or e.query() for e in entry[3])
+
+    def _harvest_one(self):
+        meta, sel, hosts, events, _keep, t0 = self._inflight.popleft()
+        with profile.span("harvest_wait"):
+            for e in events:
+                if e is not None:
+                    e.synchronize()
+        self._note_service(t0)
+        if sel[0] == "regular":
+            # (shard, local row, window index) of each window
+            _tag, shard, local, widx = sel
+            B = len(shard)
+            res = np.empty(B, dtype=self.acc_dtype)
+            for s, h in enumerate(hosts):
+                m = shard == s
+                if m.any():
+                    res[m] = h[0].numpy()[local[m], widx[m]]
+            arrs = [res]
+        else:
+            _tag, masks, B = sel
+            # a shard without windows launched no evaluation: with no
+            # window at all (B = 0) the outputs are empty
+            arrs = [np.zeros(0, dtype=dt) for dt in self._out_dtypes()]
+            for s, h in enumerate(hosts):
+                for i, o in enumerate(h):
+                    a = o.numpy()
+                    if i == len(arrs):
+                        arrs.append(np.empty(B, dtype=a.dtype))
+                    elif len(arrs[i]) != B:
+                        arrs[i] = np.empty(B, dtype=a.dtype)
+                    arrs[i][masks[s]] = a
+        self._ready.append((meta, arrs[0] if len(arrs) == 1
+                            else tuple(arrs)))
+
+
+class MeshResidentExecutor(_MeshShards, ResidentWindowExecutor):
+    """Resident ring sharded over a device mesh's key-group axis: dense-key
+    ring rows are strided over the axis's shards, each shard appending to
+    and evaluating windows over its own ``(rps, cap)`` ring with the
+    single-device kernels — ``launch`` (M1: ``ring_append`` + one
+    ``windowed_reduce_many`` a shard, of ``_make_mesh_step``) and
+    ``launch_regular`` (M2: one ``ring_append_regular_sum`` a shard, of
+    ``_make_mesh_regular_step``).  The kf axis exchanges nothing, as in
+    JAX; the harvest reads every shard's results back in window order."""
+
+    def __init__(self, op: str, mesh, axis: str = "kf", depth: int = 8,
+                 acc_dtype=np.int32):
+        if axis not in mesh.shape:
+            raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")
+        super().__init__(op, device=mesh.devices.flat[0], depth=depth,
+                         acc_dtype=acc_dtype)
+        self._init_mesh(mesh, axis)
+
+    def _out_dtypes(self):
+        return [self.acc_dtype] * len(self.ops)
+
+    def launch(self, meta, blk: np.ndarray, offs: np.ndarray,
+               wrows: np.ndarray, wstarts: np.ndarray, wlens: np.ndarray):
+        S = self.n_shards
+        K, R = blk.shape
+        if K > self.KP:
+            raise ValueError("rectangle exceeds ring rows; reset() first")
+        B = len(wstarts)
+        shard, local, masks = self._window_shards(wrows)
+        Rb = _bucket(max(R, 1))
+        _check_ring_overflow(offs, Rb, self.cap)
+        pad = _bucket(int(wlens.max()) if B else 1)
+        rps = self.rps
+        hosts, events, keep = [], [], []
+        rings = self._shard_rings()
+        with profile.span("dispatch"):
+            for s in range(S):
+                m = masks[s]
+                c = int(m.sum())
+                vec = launch_vec(rps, self._shard_rows(offs, s), c,
+                                 (local[m], wstarts[m], wlens[m]))
+                with self._on_shard(s):
+                    d_blk, p_blk = _upload(self._shard_rows(blk, s, Rb),
+                                           self.shard_devices[s],
+                                           self._streams[s])
+                    d_vec, p_vec = _upload(vec, self.shard_devices[s],
+                                           self._streams[s])
+                    ring = ring_append(rings[s][0], d_blk, d_vec[:rps])
+                    outs = ()
+                    if c:
+                        r, st, ln = launch_cols(d_vec, rps, c, 3)
+                        outs = tuple(windowed_reduce_many(
+                            [(ring, op) for op in self.ops], r, st, ln, pad))
+                    h, e = _download(outs, self._streams[s])
+                hosts.append(h)
+                events.append(e)
+                keep.append((p_blk, p_vec, d_blk, d_vec, outs))
+        profile.add("bytes_shipped", blk.nbytes)
+        profile.add("rows_shipped", blk.size)
+        profile.add("windows", B)
+        stats_add("dispatches")
+        self._inflight.append((meta, ("irregular", masks, B), hosts, events,
+                               keep, time.perf_counter()))
+        while len(self._inflight) > self.depth:
+            self._harvest_one()
+
+    def launch_regular(self, meta, blk: np.ndarray, offs: np.ndarray,
+                       rcount: np.ndarray, rstart0: np.ndarray,
+                       rlen: np.ndarray, slide: int, wrows: np.ndarray,
+                       widx: np.ndarray, cmax: int = 0):
+        """Regular-descriptor dispatch on the sharded ring: the per-key
+        (count, start0, len) scalars go with their rows, and every shard
+        sums its own rows' windows in one fused launch."""
+        if not (self.single and self.op == "sum"):
+            raise ValueError("regular descriptors implemented for "
+                             "single-stat sum")
+        S = self.n_shards
+        K, R = blk.shape
+        if K > self.KP:
+            raise ValueError("rectangle exceeds ring rows; reset() first")
+        Rb = _bucket(max(R, 1))
+        C = _bucket(int(cmax) if cmax else
+                    (int(rcount.max()) if len(rcount) else 1))
+        _check_ring_overflow(offs, Rb, self.cap)
+        rps = self.rps
+        hosts, events, keep = [], [], []
+        rings = self._shard_rings()
+        with profile.span("dispatch"):
+            for s in range(S):
+                # rows without a key get offset 0, start 0 and length 0
+                vec = np.concatenate([self._shard_rows(np.asarray(a[:K]), s)
+                                      for a in (offs, rstart0, rlen)])
+                with self._on_shard(s):
+                    d_blk, p_blk = _upload(
+                        self._shard_rows(blk, s, Rb),
+                        self.shard_devices[s], self._streams[s])
+                    d_vec, p_vec = _upload(vec.astype(np.int32),
+                                           self.shard_devices[s],
+                                           self._streams[s])
+                    out = ring_append_regular_sum(
+                        rings[s][0], d_blk, d_vec[:rps], d_vec[rps:2 * rps],
+                        d_vec[2 * rps:], C, int(slide))
+                    h, e = _download((out,), self._streams[s])
+                hosts.append(h)
+                events.append(e)
+                keep.append((p_blk, p_vec, d_blk, d_vec, out))
+        profile.add("bytes_shipped", blk.nbytes)
+        profile.add("rows_shipped", blk.size)
+        profile.add("windows", len(wrows))
+        stats_add("dispatches")
+        shard, local, _m = self._window_shards(wrows)
+        self._inflight.append((meta, ("regular", shard, local,
+                                      np.asarray(widx, dtype=np.int64)),
+                               hosts, events, keep, time.perf_counter()))
+        while len(self._inflight) > self.depth:
+            self._harvest_one()
+
+
+class MeshMultiFieldResidentExecutor(_MeshShards, MultiFieldResidentExecutor):
+    """Per-field resident rings sharded over a device mesh's key-group
+    axis (M3, the port of ``_make_mesh_multi_step``): on every shard, one
+    ``ring_append`` a field, one ``windowed_reduce_many`` for every stat
+    over the shard's windows, and for a ``TorchWindowFunction`` the
+    ``window_gather`` tiles of its fields and the function, over the
+    shard's own window keys and gwids."""
+
+    def __init__(self, fields, stats=(), fn=None, acc_dtypes=None,
+                 mesh=None, axis: str = "kf", depth: int = 8):
+        if mesh is None or axis not in mesh.shape:
+            raise ValueError(f"need a mesh with axis {axis!r}")
+        super().__init__(fields, stats=stats, fn=fn, acc_dtypes=acc_dtypes,
+                         device=mesh.devices.flat[0], depth=depth)
+        self._init_mesh(mesh, axis)
+
+    def _out_dtypes(self):
+        dts = [self.acc_dtypes[f] for _op, f in self.stats]
+        if self.fn is not None:
+            dts += [np.dtype(d) for d in self.fn.result_fields.values()]
+        return dts
+
+    def launch(self, meta, blks: dict, offs: np.ndarray,
+               wrows: np.ndarray, wstarts: np.ndarray, wlens: np.ndarray,
+               wkeys: np.ndarray = None, wgwids: np.ndarray = None):
+        S = self.n_shards
+        K, R = next(iter(blks.values())).shape
+        if K > self.KP:
+            raise ValueError("rectangle exceeds ring rows; reset() first")
+        B = len(wstarts)
+        shard, local, masks = self._window_shards(wrows)
+        Rb = _bucket(max(R, 1))
+        _check_ring_overflow(offs, Rb, self.cap)
+        pad = _bucket(int(wlens.max()) if B else 1)
+        rps, fn = self.rps, self.fn
+        hosts, events, keep = [], [], []
+        rings = self._shard_rings()
+        with profile.span("dispatch"):
+            for s in range(S):
+                m = masks[s]
+                c = int(m.sum())
+                cols = (local[m], wstarts[m], wlens[m])
+                if fn is not None:
+                    # the caller sends no header columns when no fn is bound
+                    cols += tuple(None if a is None or len(a) != B else a[m]
+                                  for a in (wkeys, wgwids))
+                vec = launch_vec(rps, self._shard_rows(offs, s), c, cols)
+                dev, stream = self.shard_devices[s], self._streams[s]
+                with self._on_shard(s):
+                    d_blks = [_upload(self._shard_rows(blks[f], s, Rb), dev,
+                                      stream) for f in self.fields]
+                    d_vec, p_vec = _upload(vec, dev, stream)
+                    ring_of = {f: ring_append(r, d, d_vec[:rps])
+                               for f, r, (d, _p) in zip(self.fields,
+                                                        rings[s], d_blks)}
+                    outs, tiles, mask = [], None, None
+                    if c:
+                        r, st, ln = launch_cols(d_vec, rps, c, 3)
+                        if self.stats:
+                            outs = windowed_reduce_many(
+                                [(ring_of[f], op) for op, f in self.stats],
+                                r, st, ln, pad)
+                        if fn is not None:
+                            d_keys, d_gwids = launch_cols(d_vec, rps + 3 * c,
+                                                          c, 2)
+                            tiles, mask = window_gather(
+                                [ring_of[f] for f in fn.fields], r, st, ln,
+                                pad)
+                            res = fn.fn(d_keys, d_gwids,
+                                        dict(zip(fn.fields, tiles)), mask)
+                            outs.extend(res if isinstance(res, tuple)
+                                        else (res,))
+                    h, e = _download(outs, stream)
+                hosts.append(h)
+                events.append(e)
+                keep.append((p_vec, d_vec, d_blks, tiles, mask, outs))
+        for f in self.fields:
+            profile.add("bytes_shipped", blks[f].nbytes)
+            profile.add("rows_shipped", blks[f].size)
+        profile.add("windows", B)
+        stats_add("dispatches")
+        self._inflight.append((meta, ("irregular", masks, B), hosts, events,
+                               keep, time.perf_counter()))
         while len(self._inflight) > self.depth:
             self._harvest_one()
 

@@ -31,8 +31,7 @@ from ..ops import resident as _res
 from ..ops.device import _bucket
 from ..ops.functions import MultiReducer, Reducer
 from ..utils import profile
-from .win_seq_gpu import (_MESH_SLICE, ResidentWinSeqCore,
-                          finalize_window_values,
+from .win_seq_gpu import (ResidentWinSeqCore, finalize_window_values,
                           resolve_worker_device, select_acc_dtype,
                           split_pos_max)
 
@@ -127,8 +126,6 @@ class NativeResidentCore:
                  overlap: bool = True, worker_index: int = 0,
                  max_delay_ms=None, mesh=None):
         from ..native import load
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
         self._lib = load()
         if self._lib is None:
             raise RuntimeError("native library unavailable")
@@ -187,7 +184,7 @@ class NativeResidentCore:
                           result_ts_slide=result_ts_slide, device=device,
                           depth=depth, compute_dtype=compute_dtype,
                           worker_index=worker_index,
-                          max_delay_ms=max_delay_ms)
+                          max_delay_ms=max_delay_ms, mesh=mesh)
         # latency bound (checked per process() call, chunk cadence)
         self.max_delay_s = (None if max_delay_ms is None
                             else max_delay_ms / 1e3)
@@ -219,14 +216,35 @@ class NativeResidentCore:
         self.shards = max(min(int(shards), 256), 1)
         if self._multi:
             stats = tuple((p.op, p.field) for p in self._dev_parts)
+            if mesh is not None:
+                # mesh-sharded per-field rings: the C++ hot loop feeds the
+                # rich aggregates' mesh executor too, and composes with
+                # host key shards as the single-stat mesh path does
+                self.executors = [
+                    _res.MeshMultiFieldResidentExecutor(
+                        self._ship_fields, stats=stats,
+                        acc_dtypes=self._acc_by_field, mesh=mesh,
+                        depth=depth)
+                    for _t in range(self.shards)]
+            else:
+                self.executors = [
+                    _res.MultiFieldResidentExecutor(
+                        self._ship_fields, stats=stats,
+                        acc_dtypes=self._acc_by_field,
+                        device=resolve_worker_device(
+                            device, worker_index * self.shards + t),
+                        depth=depth)
+                    for t in range(self.shards)]
+        elif mesh is not None:
+            # mesh execution composes with host key-sharding: shard t's
+            # sub-core keeps its own C++ bookkeeping AND its own mesh
+            # executor (rings sharded over every device of the kf axis), so
+            # a multicore host spreads the hot loop over its cores while
+            # every shard's dispatches still serve all key groups
             self.executors = [
-                _res.MultiFieldResidentExecutor(
-                    self._ship_fields, stats=stats,
-                    acc_dtypes=self._acc_by_field,
-                    device=resolve_worker_device(
-                        device, worker_index * self.shards + t),
-                    depth=depth)
-                for t in range(self.shards)]
+                _res.MeshResidentExecutor(self._dev_part.op, mesh,
+                                          depth=depth, acc_dtype=acc)
+                for _t in range(self.shards)]
         else:
             self.executors = [
                 _res.ResidentWindowExecutor(
@@ -975,6 +993,14 @@ class NativeResidentCore:
                     hpmn.ctypes.data_as(p64) if hpmn is not None else None)
         if rebase.value:
             ex.reset(max(K, 1), cap.value)
+        if getattr(ex, "mesh", None) is not None:
+            # the mesh executors re-scatter rows onto their own (shard-
+            # rounded) KP: hand them the live rows only, not the C++
+            # padding
+            if blk is not None:
+                blk = blk[:K]
+            if blks is not None:
+                blks = {f: b[:K] for f, b in blks.items()}
         meta = (hkey[:B], hid[:B], hts[:B], hlen[:B],
                 hpm[:B] if hpm is not None else None,
                 hpmn[:B] if hpmn is not None else None)

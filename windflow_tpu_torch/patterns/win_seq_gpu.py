@@ -22,9 +22,10 @@ patterns/native_core.py).  ``make_core_for`` routes between them and the
 host core with the JAX package's rules, and ``WinFarmGPU``/``KeyFarmGPU``
 are the host farms with device cores as workers.  ``PaneFarmGPU`` and
 ``WinMapReduceGPU`` are the two-stage patterns with a per-stage device
-placement (an incremental stage stays on the host).  Meshes (multi-GPU)
-are a later slice (ROADMAP.md) and raise ``NotImplementedError`` naming
-it.
+placement (an incremental stage stays on the host).  With ``mesh=`` (a
+parallel/mesh.py ``DeviceMesh``) the resident rings are sharded over the
+mesh's key-group axis (ops/resident.py ``MeshResidentExecutor`` and
+``MeshMultiFieldResidentExecutor``).
 """
 
 from __future__ import annotations
@@ -44,9 +45,6 @@ from .pane_farm import PaneFarm
 from .win_farm import WinFarm
 from .win_mapreduce import WinMapReduce
 from .win_seq import WinSeqNode
-
-_MESH_SLICE = ("mesh execution: multi-GPU is ROADMAP.md Queue 1 slice 8, not "
-               "ported yet")
 
 
 def resolve_worker_device(device, i: int) -> torch.device:
@@ -406,10 +404,10 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                  result_ts_slide=None, device=None, depth: int = 8,
                  compute_dtype=None, worker_index: int = 0, mesh=None,
                  max_delay_ms=None):
-        from ..ops.resident import (MultiFieldResidentExecutor,
+        from ..ops.resident import (MeshMultiFieldResidentExecutor,
+                                    MeshResidentExecutor,
+                                    MultiFieldResidentExecutor,
                                     ResidentWindowExecutor)
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
         self._fn = None
         self._pos_max_parts = []
         if isinstance(reducer, TorchWindowFunction):
@@ -458,7 +456,8 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
         else:
             self._ship_fields = tuple(dict.fromkeys(
                 p.field for p in self._device_parts))
-        device = resolve_worker_device(device, worker_index)
+        if mesh is None:
+            device = resolve_worker_device(device, worker_index)
         if field is None:
             # per-field ring dtypes: reducer parts pick theirs via
             # select_acc_dtype; fn fields use the fn's declared
@@ -477,11 +476,15 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                 for f in self._ship_fields:
                     acc_by_field.setdefault(f, np.dtype(
                         self._fn.field_dtypes.get(f, np.int32)))
-            self.executor = MultiFieldResidentExecutor(
-                self._ship_fields,
-                stats=tuple((p.op, p.field) for p in self._device_parts),
-                fn=self._fn, acc_dtypes=acc_by_field, device=device,
-                depth=depth)
+            stats = tuple((p.op, p.field) for p in self._device_parts)
+            if mesh is not None:
+                self.executor = MeshMultiFieldResidentExecutor(
+                    self._ship_fields, stats=stats, fn=self._fn,
+                    acc_dtypes=acc_by_field, mesh=mesh, depth=depth)
+            else:
+                self.executor = MultiFieldResidentExecutor(
+                    self._ship_fields, stats=stats, fn=self._fn,
+                    acc_dtypes=acc_by_field, device=device, depth=depth)
         else:
             accs = [select_acc_dtype(p, compute_dtype, spec)
                     for p in self._device_parts]
@@ -495,9 +498,13 @@ class ResidentWinSeqCore(_AsyncLaunchRecovery, WinSeqCore):
                     "pass an explicit compute_dtype")
             acc = max(accs, key=lambda d: d.itemsize)
             ops = tuple(p.op for p in self._device_parts)
-            self.executor = ResidentWindowExecutor(
-                ops[0] if len(ops) == 1 else ops, device=device,
-                depth=depth, acc_dtype=acc)
+            op_arg = ops[0] if len(ops) == 1 else ops
+            if mesh is not None:
+                self.executor = MeshResidentExecutor(
+                    op_arg, mesh, depth=depth, acc_dtype=acc)
+            else:
+                self.executor = ResidentWindowExecutor(
+                    op_arg, device=device, depth=depth, acc_dtype=acc)
         self.batch_len = batch_len
         self.flush_rows = flush_rows
         # latency bound: ship pending windows/rows after this many ms even
@@ -878,7 +885,11 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
     ``use_resident=True`` and to the restaging core by default; everything
     else, and any Reducer with ``use_reduce_kernel=True``, goes to the
     restaging core.  A latency budget (``max_delay_ms``) under twice the
-    best recently measured launch service routes to the host core."""
+    best recently measured launch service routes to the host core.  With
+    ``mesh`` (a parallel/mesh.py ``DeviceMesh``) the resident rings are
+    sharded over its kf axis: a builtin Reducer, a MultiReducer or a
+    ``TorchWindowFunction`` takes the resident route (the host route and
+    the latency routing do not apply), anything else raises."""
     def _host_core():
         from .win_seq import WinSeq
         return WinSeq(winfunc, spec.win_len, spec.slide_len,
@@ -886,10 +897,8 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                       map_indexes=map_indexes,
                       result_ts_slide=result_ts_slide).make_core()
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
     if (max_delay_ms is not None and use_resident is None
-            and not use_reduce_kernel
+            and mesh is None and not use_reduce_kernel
             and isinstance(winfunc, (Reducer, MultiReducer))
             # a MultiReducer invalid on EVERY device path must fall
             # through to the deterministic ValueError below — routing it
@@ -908,7 +917,7 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
         if floor is not None and max_delay_ms < 2.0 * floor:
             return _host_core()
     if (isinstance(winfunc, (Reducer, MultiReducer))
-            and use_resident is None
+            and use_resident is None and mesh is None
             and (isinstance(winfunc, MultiReducer) or not use_reduce_kernel)
             and _host_free(spec, winfunc)):
         # every stat is answerable from host bookkeeping — shipping the
@@ -921,7 +930,8 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                        result_ts_slide=result_ts_slide, device=device,
                        depth=depth if depth is not None else 8,
                        compute_dtype=compute_dtype,
-                       worker_index=worker_index, max_delay_ms=max_delay_ms)
+                       worker_index=worker_index, max_delay_ms=max_delay_ms,
+                       mesh=mesh)
     if isinstance(winfunc, MultiReducer):
         # multi-stat windows are resident-only (the restaging executor has
         # no multi-output contract)
@@ -951,12 +961,14 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
             return NativeResidentCore(spec, winfunc, shards=shards,
                                       **resident_kw)
         return ResidentWinSeqCore(spec, winfunc, **resident_kw)
-    if (isinstance(winfunc, TorchWindowFunction) and use_resident
-            and not use_reduce_kernel):
+    if (isinstance(winfunc, TorchWindowFunction)
+            and (use_resident or mesh is not None) and not use_reduce_kernel):
         # window functions evaluate over per-field resident rings on
         # request; the default stays the restaging executor, whose staged
         # columns carry each launch's exact dtypes (rings are typed at
-        # allocation — TorchWindowFunction.field_dtypes declares them)
+        # allocation — TorchWindowFunction.field_dtypes declares them).
+        # The resident path is the only one with a sharded form, so a mesh
+        # implies it
         return ResidentWinSeqCore(spec, winfunc, **resident_kw)
     resident = use_resident
     if resident is None:
@@ -967,7 +979,21 @@ def make_core_for(spec, winfunc, *, batch_len=512, config=None,
                     # segment-restaging path unless the user opts in
                     and not (winfunc.op == "sum"
                              and np.issubdtype(winfunc.dtype, np.floating)))
+    if mesh is not None:
+        if not (isinstance(winfunc, Reducer)
+                and winfunc.op in _RESIDENT_OPS):
+            raise ValueError(
+                "mesh execution needs a resident-path Reducer "
+                f"(one of {_RESIDENT_OPS}); got {winfunc!r}")
+        if not resident:
+            raise ValueError(
+                "mesh execution requires the resident path: drop "
+                "use_reduce_kernel, and for float sums opt in explicitly "
+                "with use_resident=True (cumsum rounding differs from the "
+                "host's per-window reduction)")
     if resident:
+        # with a mesh the C++ bookkeeping feeds the sharded rings, and host
+        # key shards compose with it: each shard owns its own mesh executor
         if _native_core_lib() is not None:
             from .native_core import NativeResidentCore
             return NativeResidentCore(spec, winfunc, shards=shards,
