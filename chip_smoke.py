@@ -162,8 +162,11 @@ catches its own failure):
    numpy oracle; every sp_window_partial and sp_merge call against its
    plain version (float32 partials and every merge bit for bit against
    the CPU twin of its order, run on the card), the partial launches per
-   (kf, wf, sp) shard, and both kernels timed at the run's largest call
-   beside their bound (the merge beside torch.sum over its partials).
+   (kf, wf, sp) shard, one launch a call of each kernel, the windows that
+   took the partial's block path (longer than mr.SPLIT rows), and both
+   kernels timed at the run's largest call beside their bound (the merge
+   over the partials in place and stacked, beside torch.sum over them,
+   each a CUDA-graph replay; torch.sum also as a caller sees it).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append, windowed_reduce and ring_append_regular_sum must have
@@ -2717,21 +2720,31 @@ def checked_mesh_kernels():
     the sum of |x|) and, for float32 and for every merge, bit for bit
     against the CPU twin of its order run on the card; the yielded dict
     counts the checks, keeps the largest errors, counts partial launches
-    per (kf, wf, sp) shard in the mesh's order and keeps the inputs of the
-    largest partial and merge (for the timings)."""
+    per (kf, wf, sp) shard in the mesh's order and the launches each call
+    made, and keeps the inputs of the largest partial and merge (for the
+    timings: the partial with its long-window list, the merge as the step
+    passed its partials, in place)."""
     from windflow_tpu_torch.ops import mesh_reduce as mr
     from windflow_tpu_torch.parallel import mesh as pm
     orig_p, orig_m = pm.sp_window_partial, pm.sp_merge
     n_shards = int(np.prod(MESH_STEP_SHAPE))
     seen = dict(partials=0, merges=0, partial_err=0.0, merge_err=0.0,
                 twins=0, per_shard=[0] * n_shards, big_partial=None,
-                long_partial=None, big_merge=None)
+                long_partial=None, big_merge=None,
+                partial_launches_per_call=collections.Counter(),
+                merge_launches_per_call=collections.Counter(),
+                long_windows=collections.Counter())
 
     def same(a, b):
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
-    def partial(vals, keep, starts, lens, base, op):
-        got = orig_p(vals, keep, starts, lens, base, op)
+    def partial(vals, keep, starts, lens, base, op, long_windows=None):
+        before = mr.sp_window_partial.launches
+        got = orig_p(vals, keep, starts, lens, base, op,
+                     long_windows=long_windows)
+        seen["partial_launches_per_call"][
+            mr.sp_window_partial.launches - before] += 1
+        seen["long_windows"][len(long_windows)] += 1
         seen["per_shard"][seen["partials"] % n_shards] += 1
         seen["partials"] += 1
         want = mr.sp_window_partial_reference(vals, keep, starts, lens,
@@ -2757,7 +2770,9 @@ def checked_mesh_kernels():
                 raise AssertionError(f"sp_window_partial {op}: error "
                                      f"{float(e.max())} beyond rtol")
             seen["partial_err"] = max(seen["partial_err"], float(e.max()))
-        call = (vals, keep, starts, lens, base, op)
+        call = (vals, keep, starts, lens, base, op,
+                torch.from_numpy(np.ascontiguousarray(
+                    long_windows, dtype=np.int32)).to(vals.device))
         if (seen["big_partial"] is None or starts.numel()
                 > seen["big_partial"][2].numel()):
             seen["big_partial"] = call
@@ -2767,7 +2782,9 @@ def checked_mesh_kernels():
         return got
 
     def merge(partials, counts, op, ring=False, device=None):
+        before = mr.sp_merge.launches
         got = orig_m(partials, counts, op, ring=ring, device=device)
+        seen["merge_launches_per_call"][mr.sp_merge.launches - before] += 1
         seen["merges"] += 1
         parts = torch.stack([p.to(got.device) for p in partials])
         cnts = (torch.stack([c.to(got.device) for c in counts])
@@ -2788,8 +2805,10 @@ def checked_mesh_kernels():
                                  "version")
         seen["merge_err"] = max(seen["merge_err"], float(e.max()))
         if (seen["big_merge"] is None
-                or parts.shape[1] > seen["big_merge"][0].shape[1]):
-            seen["big_merge"] = (parts, cnts, op, ring)
+                or parts.shape[1] > seen["big_merge"][1].shape[1]):
+            seen["big_merge"] = (list(partials), parts,
+                                 list(counts) if counts is not None
+                                 else None, cnts, op, ring)
         return got
 
     pm.sp_window_partial, pm.sp_merge = partial, merge
@@ -2804,12 +2823,15 @@ def mesh_step_rows(seen):
     at the largest call of the step's run (the partial cold, its inputs
     cycled through three times the L2, and hot; the merge hot: it reads
     partials just written), beside its bound, its plain version and, for
-    the merge, torch.sum over the partials.  The partial is also timed at
-    the call with the longest windows (few windows of many cells)."""
+    the merge, torch.sum over the partials (a graph replay, as the kernel
+    is timed; and as a caller sees it).  The partial is also timed at the
+    call with the longest windows (few windows of many cells, the block
+    path beyond mr.SPLIT cells), the merge also over the stacked (n, B)
+    tensor."""
     from windflow_tpu_torch.ops import mesh_reduce as mr
     timed = {}
     for case in ("big_partial", "long_partial"):
-        vals, keep, starts, lens, base, op = seen[case]
+        vals, keep, starts, lens, base, op, longw = seen[case]
         Ns, B = vals.numel(), starts.numel()
         s = np.clip(starts.cpu().numpy().astype(np.int64) - base, 0, Ns)
         e = np.clip(starts.cpu().numpy().astype(np.int64)
@@ -2820,38 +2842,54 @@ def mesh_step_rows(seen):
         pb = bytes_bound(nbytes, int(np.maximum(e - s, 0).sum()))
         copies = cold_copies(vals.device, (vals, keep))
         cold = kernel_ms(cycled(copies, lambda v, k: mr.sp_window_partial(
-            v, k, starts, lens, base, op)), reps=2 * len(copies))
-        hot = kernel_ms(lambda: mr.sp_window_partial(vals, keep, starts,
-                                                     lens, base, op),
-                        reps=10)
+            v, k, starts, lens, base, op, long_windows=longw)),
+            reps=2 * len(copies))
+        hot = kernel_ms(lambda: mr.sp_window_partial(
+            vals, keep, starts, lens, base, op, long_windows=longw),
+            reps=10)
+        before = mr.sp_window_partial.launches
+        mr.sp_window_partial(vals, keep, starts, lens, base, op,
+                             long_windows=longw)
+        per_call = mr.sp_window_partial.launches - before
         plain = call_ms(lambda: mr.sp_window_partial_reference(
             vals, keep, starts, lens, base, op), reps=2)
         emit("mesh_step_kernel", kernel="sp_window_partial", case=case,
              op=op, dtype=str(vals.dtype), Ns=Ns, B=B, base=base,
              cells=cells, window_cells=int(np.maximum(e - s, 0).sum()),
-             kernel_ms=cold, hot_l2_ms=hot, plain_ms=plain,
-             bound_bytes=nbytes, bound_ms=pb[0], bound_by=pb[1])
+             split=mr.SPLIT, chunk=mr.CHUNK, long_windows=longw.numel(),
+             launches_per_call=per_call, kernel_ms=cold, hot_l2_ms=hot,
+             plain_ms=plain, bound_bytes=nbytes, bound_ms=pb[0],
+             bound_by=pb[1])
         timed[case] = (cold, hot, plain, pb)
     cold, hot, plain, pb = timed["big_partial"]
     rows = {"sp_window_partial": dict(
         max_abs_err=seen["partial_err"], ms=cold, hot_ms=hot,
         plain_ms=plain, bound_ms=pb[0], bound_by=pb[1], library_ms=None,
         long_windows_ms=timed["long_partial"][0],
-        long_windows_bound_ms=timed["long_partial"][3][0])}
-    parts, cnts, op, ring = seen["big_merge"]
+        long_windows_bound_ms=timed["long_partial"][3][0],
+        split=mr.SPLIT, chunk=mr.CHUNK)}
+    plist, parts, clist, cnts, op, ring = seen["big_merge"]
     n, B = parts.shape
     nbytes = 4 * n * B + 4 * B + (4 * n * B if op == "mean" else 0)
     mb = bytes_bound(nbytes, (n - 1) * B)
-    ms = kernel_ms(lambda: mr.sp_merge(parts, cnts, op, ring=ring))
+    ms = kernel_ms(lambda: mr.sp_merge(plist, clist, op, ring=ring))
+    stacked = kernel_ms(lambda: mr.sp_merge(parts, cnts, op, ring=ring))
+    before = mr.sp_merge.launches
+    mr.sp_merge(plist, clist, op, ring=ring)
+    per_call = mr.sp_merge.launches - before
     plain = call_ms(lambda: mr.sp_merge_reference(parts, cnts, op, ring))
-    lib = call_ms(lambda: torch.sum(parts, dim=0))
+    lib = kernel_ms(lambda: torch.sum(parts, dim=0))
+    lib_call = call_ms(lambda: torch.sum(parts, dim=0))
     emit("mesh_step_kernel", kernel="sp_merge", op=op,
          dtype=str(parts.dtype), ring=ring, n_sp=n, B=B, kernel_ms=ms,
-         plain_ms=plain, library_ms=lib, library="torch.sum(parts, dim=0)",
-         bound_bytes=nbytes, bound_ms=mb[0], bound_by=mb[1])
+         stacked_ms=stacked, launches_per_call=per_call, plain_ms=plain,
+         library_ms=lib, library_call_ms=lib_call,
+         library="torch.sum(parts, dim=0)", bound_bytes=nbytes,
+         bound_ms=mb[0], bound_by=mb[1])
     rows["sp_merge"] = dict(max_abs_err=seen["merge_err"], ms=ms,
-                            plain_ms=plain, bound_ms=mb[0], bound_by=mb[1],
-                            library_ms=lib)
+                            stacked_ms=stacked, plain_ms=plain,
+                            bound_ms=mb[0], bound_by=mb[1], library_ms=lib,
+                            library_call_ms=lib_call)
     return rows
 
 
@@ -2888,6 +2926,12 @@ def mesh_step():
         errs[f"{op}/{dtype}/{collective}"] = _check_step_result(
             got, want, scale, op, dtype, name)
     require_launches("mesh_step", counts, ("sp_window_partial", "sp_merge"))
+    for name in ("partial_launches_per_call", "merge_launches_per_call"):
+        if set(seen[name]) != {1}:
+            raise AssertionError(f"mesh_step: {name} {dict(seen[name])}, "
+                                 "wanted one launch a call")
+    if not any(k > 0 for k in seen["long_windows"]):
+        raise AssertionError("mesh_step: no call took the long-window path")
     rows = mesh_step_rows(seen)
     emit("mesh_step", workload="MeshStreamStep map 3v+1, filter v%5!=0, "
          f"(kf, wf, sp) = {MESH_STEP_SHAPE} x {DEVICE}",
@@ -2896,6 +2940,9 @@ def mesh_step():
                for c in ("psum", "ring")], seconds=dt,
          oracle_max_abs_err=errs, launches=counts,
          partial_launches_per_shard=seen["per_shard"],
+         partial_launches_per_call=dict(seen["partial_launches_per_call"]),
+         merge_launches_per_call=dict(seen["merge_launches_per_call"]),
+         long_windows_per_call=dict(seen["long_windows"]),
          partial_calls_checked=seen["partials"],
          merge_calls_checked=seen["merges"], partial_twin_checks=seen["twins"])
     return counts, rows

@@ -331,17 +331,97 @@ def seeded_shard(seed, Ns, B, dtype, op, keep_share=0.7):
     return vals, keep, starts, lens
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("op", ["sum", "count", "min", "max", "prod", "mean"])
-@pytest.mark.parametrize("filtered", [False, True])
-def test_partial_twin_matches_plain(dtype, op, filtered):
-    """The CPU twin of sp_window_partial's lane order against the plain
-    version: ints, count, min and max equal; float sums within rtol 1e-5
-    of the sum of |x|, float products within rtol 1e-5 of |x|."""
-    Ns = 333
-    vals, keep, starts, lens = seeded_shard(3, Ns, 70, dtype, op)
+def long_shard(seed, Ns, dtype, op, keep_share=0.7):
+    """A shard's slice and keep mask (as seeded_shard's; float products
+    over 1, 2 and 0.5, which multiply exactly in any order) and windows
+    around and above mr.SPLIT rows: lengths SPLIT - 1 .. SPLIT + 3 and up
+    to 3 * SPLIT + 3 (most not multiples of 4), starts at every residue
+    mod 4, windows clipped at the slice's start or end, past Ns, and
+    entirely before or after the slice (in the coordinates of base 0)."""
+    vals, keep, _, _ = seeded_shard(seed, Ns, 0, dtype, op, keep_share)
+    g = np.random.default_rng(seed + 1)
+    if dtype == torch.float32 and op == "prod":
+        u = g.random(Ns)
+        vals = torch.from_numpy(np.where(u < 0.01, 2.0, np.where(
+            u < 0.02, 0.5, 1.0)).astype(np.float32))
+    S = mr.SPLIT
+    fixed = [(1, S), (2, S + 1), (3, S + 2), (0, S + 3), (5, S - 1),
+             (Ns - S - 2, S + 2), (-7, 2 * S + 5), (-S, 3 * S + 3),
+             (Ns - 100, S + 500), (Ns + 5, 2 * S), (-3 * S, S + 9),
+             (-S - 1, Ns + 2 * S)]
+    rand = [(int(st), int(ln)) for st, ln in zip(
+        g.integers(-2 * S, Ns + S, 14), g.integers(S - 3, 3 * S + 4, 14))]
+    starts, lens = zip(*(fixed + rand))
+    return (vals, keep, torch.tensor(starts, dtype=torch.int32),
+            torch.tensor(lens, dtype=torch.int32))
+
+
+#: the twins' cases: "short" windows (at most a few hundred rows) over a
+#: slice of 333 rows, "long" ones around and above mr.SPLIT over one of
+#: 3 * SPLIT + 1000 rows; each with the bases it is held at
+TWIN_SHAPES = {"short": (333, (0, 333, -40)),
+               "long": (3 * mr.SPLIT + 1000,
+                        (0, mr.SPLIT + 1001, -mr.SPLIT // 2 - 3))}
+OPS6 = ["sum", "count", "min", "max", "prod", "mean"]
+DTYPES = [torch.int32, torch.float32]
+
+
+def shard_case(shape, seed, dtype, op, short_windows=70):
+    Ns, bases = TWIN_SHAPES[shape]
+    if shape == "short":
+        return (*seeded_shard(seed, Ns, short_windows, dtype, op), bases)
+    return (*long_shard(seed, Ns, dtype, op), bases)
+
+
+def _twin_cases(*axes):
+    """pytest params over `axes` (each a list of (value, id)), then the
+    "long" shape: a "short" case keeps the id it had before the long
+    windows came, a "long" one is prefixed "long-"."""
+    import itertools
+    cases = []
+    for shape in TWIN_SHAPES:
+        for combo in itertools.product(*axes):
+            ident = "-".join(i for _, i in combo)
+            cases.append(pytest.param(
+                *(v for v, _ in combo), shape,
+                id=ident if shape == "short" else f"{shape}-{ident}"))
+    return cases
+
+
+def _ids(values, prefix=None):
+    return [(v, f"{prefix}{i}" if prefix else str(v))
+            for i, v in enumerate(values)]
+
+
+def assert_partial_close(p, t, vals, keep, starts, lens, base, op):
+    """Ints, count, min and max equal; float sums within rtol 1e-5 of the
+    sum of |x| over the window's kept rows, float products of |x|."""
+    if vals.dtype == torch.int32 or op in ("count", "min", "max"):
+        assert torch.equal(p.view(torch.int32), t.view(torch.int32))
+        return
+    Ns = vals.numel()
+    lo, hi = mr._bounds(starts, lens, base, Ns)
+    k = keep if keep is not None else torch.ones(Ns, dtype=bool)
+    scale = torch.stack([
+        vals[a:b][k[a:b]].abs().double().sum() if b > a else
+        torch.zeros((), dtype=torch.float64)
+        for a, b in zip(lo.tolist(), hi.tolist())])
+    if op == "prod":
+        scale = t.double().abs()
+    err = (p.double() - t.double()).abs()
+    assert bool((err <= RTOL * scale + 1e-30).all())
+
+
+@pytest.mark.parametrize("filtered,op,dtype,shape", _twin_cases(
+    _ids([False, True]), _ids(OPS6), _ids(DTYPES, "dtype")))
+def test_partial_twin_matches_plain(dtype, op, filtered, shape):
+    """The CPU twin of sp_window_partial's order against the plain
+    version, short windows and windows around and above SPLIT (both
+    paths): ints, count, min and max equal; float sums within rtol 1e-5 of
+    the sum of |x|, float products within rtol 1e-5 of |x|."""
+    vals, keep, starts, lens, bases = shard_case(shape, 3, dtype, op)
     keep = keep if filtered else None
-    for base in (0, Ns, -40):
+    for base in bases:
         p, c = mr.sp_window_partial(vals, keep, starts, lens, base, op)
         t, tc = mr.partial_order_twin(vals, keep, starts, lens, base, op)
         assert p.dtype == t.dtype == dtype
@@ -349,19 +429,71 @@ def test_partial_twin_matches_plain(dtype, op, filtered):
             assert torch.equal(c, tc)
         else:
             assert c is None and tc is None
-        if dtype == torch.int32 or op in ("count", "min", "max"):
-            assert torch.equal(p.view(torch.int32), t.view(torch.int32))
-        else:
-            lo, hi = mr._bounds(starts, lens, base, Ns)
-            k = keep if keep is not None else torch.ones(Ns, dtype=bool)
-            scale = torch.stack([
-                vals[a:b][k[a:b]].abs().double().sum() if b > a else
-                torch.zeros((), dtype=torch.float64)
-                for a, b in zip(lo.tolist(), hi.tolist())])
-            if op == "prod":
-                scale = t.double().abs()
-            err = (p.double() - t.double()).abs()
-            assert bool((err <= RTOL * scale + 1e-30).all())
+        assert_partial_close(p, t, vals, keep, starts, lens, base, op)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max", "mean"])
+@pytest.mark.parametrize("chunk", [32, 96, mr.CHUNK, 4096])
+def test_long_window_twin_matches_plain(dtype, op, chunk):
+    """The long-window path of the twin (every window above `split`, cut
+    into chunks of `chunk` cells: up to 600 chunks a window, windows of
+    one chunk and of a chunk plus a cell) against the plain version with a
+    keep mask: ints, counts, min and max exactly; float32 within rtol 1e-5
+    of the sum of |x|."""
+    split = 64
+    Ns = 20_000
+    vals, keep, _, _ = seeded_shard(41, Ns, 0, dtype, op)
+    g = np.random.default_rng(43)
+    starts = np.concatenate([[0, 1, 2, 3, -5, Ns - chunk - 1],
+                             g.integers(-3000, Ns, 24)])
+    lens = np.concatenate([[chunk, chunk + 1, split + 1, Ns + 9, 3 * chunk,
+                            chunk + 3],
+                           g.integers(split + 1, 18_000, 24)])
+    starts = torch.tensor(starts, dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    for base in (0, 1234):
+        lo, hi = mr._bounds(starts, lens, base, Ns)
+        p, c = mr.sp_window_partial_reference(vals, keep, starts, lens,
+                                              base, op)
+        t, tc = mr.partial_order_twin(vals, keep, starts, lens, base, op,
+                                      split=split, chunk=chunk)
+        assert bool(((hi - lo) > split).sum() >= 24)
+        if mr.needs_count(op):
+            assert torch.equal(c, tc)
+        assert_partial_close(p, t, vals, keep, starts, lens, base, op)
+
+
+def test_find_long_windows():
+    """The windows whose clipped length exceeds SPLIT, from numpy: SPLIT
+    cells stays with its team, SPLIT + 1 does not, in either clip."""
+    S, Ns, base = mr.SPLIT, 3 * mr.SPLIT, 100
+    starts = np.array([100, 100, 99, 99, Ns + 100 - S, Ns + 99 - S, -S, 0])
+    lens = np.array([S, S + 1, S + 1, S + 2, S + 7, S + 7, 2 * S + 100,
+                     50])
+    got = mr.find_long_windows(starts, lens, base, Ns)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, [1, 3, 5])
+    lo, hi = mr._bounds(torch.from_numpy(starts), torch.from_numpy(lens),
+                        base, Ns)
+    np.testing.assert_array_equal(
+        np.flatnonzero((hi - lo).numpy() > S), got)
+    assert mr.find_long_windows(starts[:0], lens[:0], 0, Ns).size == 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 17])
+def test_merge_tensor_equals_list(n):
+    """An (n, B) tensor and the list of its rows give one result, past the
+    16 inline shards too; both equal the plain version."""
+    g = np.random.default_rng(47 + n)
+    parts = torch.from_numpy(g.integers(-1000, 1000, (n, 1001))
+                             .astype(np.int32))
+    cnts = torch.from_numpy(g.integers(0, 9, (n, 1001)).astype(np.int32))
+    for op in ("sum", "max", "mean"):
+        a = mr.sp_merge(parts, cnts, op, ring=True)
+        b = mr.sp_merge(list(parts), list(cnts), op, ring=True)
+        assert torch.equal(a, b)
+        assert torch.equal(a, mr.sp_merge_reference(parts, cnts, op))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
@@ -436,12 +568,19 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("op", ["sum", "count", "min", "max", "prod", "mean"])
-def test_kernels_equal_twins_on_card(dtype, op):
+@pytest.mark.parametrize("op,dtype,shape", _twin_cases(
+    _ids(OPS6), _ids(DTYPES, "dtype")))
+def test_kernels_equal_twins_on_card(dtype, op, shape):
+    """Both kernels bit for bit against their twins: three shards (no
+    mask, then the mask) of a short-window slice of 5,000 rows or of the
+    long-window slice; the merge in both orders."""
     dev = _card()
-    Ns = 5000
-    vals, keep, starts, lens = seeded_shard(5, Ns, 300, dtype, op)
+    if shape == "short":
+        Ns = 5000
+        vals, keep, starts, lens = seeded_shard(5, Ns, 300, dtype, op)
+    else:
+        vals, keep, starts, lens, _ = shard_case(shape, 5, dtype, op)
+        Ns = vals.numel()
     parts, cnts = [], []
     for s, k in enumerate((None, keep, keep)):
         args = [t.to(dev) for t in (vals, starts, lens)]
@@ -462,6 +601,40 @@ def test_kernels_equal_twins_on_card(dtype, op):
                                    ring=ring)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 8, 16, 17])
+@pytest.mark.parametrize("op", OPS6)
+def test_merge_in_place_on_card(n, op):
+    """sp_merge of a list of partials on the merging device and of an (n,
+    B) tensor (its rows 16-byte aligned or not), B with and without a
+    ragged end, past the 16 inline shards too: one launch a call, equal
+    to merge_order_twin bit for bit in both orders."""
+    dev = _card()
+    g = np.random.default_rng(53 + n)
+    for dtype in DTYPES:
+        for B in (262_144, 1_001):
+            if dtype == torch.float32:
+                host = (g.standard_normal((n, B)) * 10).astype(np.float32)
+                host[0, :7] = np.nan
+            else:
+                host = g.integers(-(2 ** 31), 2 ** 31 - 1, (n, B),
+                                  dtype=np.int64).astype(np.int32)
+            parts = torch.from_numpy(host).to(dev)
+            cnts = torch.from_numpy(g.integers(0, 40, (n, B))
+                                    .astype(np.int32)).to(dev)
+            rows = [p.clone() for p in parts]
+            crows = [c.clone() for c in cnts]
+            for ring in (False, True):
+                twin = mr.merge_order_twin(parts, cnts, op, ring=ring)
+                for args in ((rows, crows), (parts, cnts)):
+                    before = mr.sp_merge.launches
+                    got = mr.sp_merge(*args, op, ring=ring)
+                    torch.cuda.synchronize()
+                    assert mr.sp_merge.launches == before + 1
+                    assert torch.equal(got.view(torch.int32),
+                                       twin.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -15,17 +15,22 @@ pmax, the all_gather fold of prod, :167-186; the ring of ppermute hops,
   slice, ``lo = clip(starts[w] - base, 0, Ns)``, ``hi = clip(starts[w] +
   lens[w] - base, 0, Ns)``, and its kept rows are reduced; count and mean
   also give the kept-row count (int32).  ``count`` returns that count in
-  the dtype, ``mean`` the sum (the merge divides).
+  the dtype, ``mean`` the sum (the merge divides).  Windows longer than
+  :data:`SPLIT` cells are cut into chunks of :data:`CHUNK` cells, a
+  block a window (:func:`find_long_windows` lists them; the caller that
+  holds the windows on the host passes the list).
 * :func:`sp_merge` — folds the ``n_sp`` partials of every window, shard
   0, 1, ..., n-1 (``ring=False``: psum/pmin/pmax, prod's gather fold) or
   0, n-1, ..., 1 (``ring=True``: the order in which sp shard 0 accumulates
   its ``n_sp - 1`` ppermute hops, whose value JAX returns), in one launch
-  on the merging device.  Partials on another device are copied there
-  first.  ``mean`` returns float32 ``sum / max(count, 1)``, also for an
-  int32 dtype (JAX's ``/`` of int32 gives float32).
+  on the merging device, reading each partial where it lies.  Partials on
+  another device are copied there first.  ``mean`` returns float32 ``sum
+  / max(count, 1)``, also for an int32 dtype (JAX's ``/`` of int32 gives
+  float32).
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
-counted in ``<wrapper>.launches``); a CPU tensor runs the plain version.
+counted in ``<wrapper>.launches``; one launch a call); a CPU tensor runs
+the plain version.
 There is no fallback from one to the other.  :func:`partial_order_twin`
 and :func:`merge_order_twin` are plain torch that reproduce the kernels'
 combine order (no path of the port calls them): on the card the kernels
@@ -42,13 +47,20 @@ import torch
 
 from . import _nvcc
 from .monoid import identity
+from .windowed_reduce import GROUP, _combine, _wrap32, team_fold
 
 #: op codes of the C launchers (enum Op in the .cu source)
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4, "mean": 5}
 #: value dtypes the kernels are instantiated for (enum Dtype)
 _DTYPES = {torch.int32: 0, torch.float32: 1}
-#: lanes that reduce one window in sp_window_partial (a warp)
-LANES = 32
+# sp_window_partial's geometry (csrc/mesh_reduce.cu; partial_order_twin
+# follows it): a window of at most SPLIT cells is reduced by one team of
+# 8 lanes, a longer one by a block, in chunks of CHUNK cells (a multiple
+# of 32: 8 lanes x 4 cells) whose partials fold in chunk order.  On an
+# H100 the block path wins from 2,048 cells (at 1,032 windows) to 4,096
+# (at 2^24 window cells): scripts/torch_mesh_kernels.py, PERF.md.
+SPLIT = 2048
+CHUNK = 512
 #: cells a window's lanes gather a step in the plain version, at most
 _PLAIN_CELLS = 1 << 24
 
@@ -70,9 +82,9 @@ def _load():
             c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
             lib.wf_sp_window_partial.argtypes = [
                 c_p, c_p, c_ll, c_p, c_p, c_int, c_ll, c_int, c_int,
-                ctypes.c_uint, c_p, c_p, c_p]
+                ctypes.c_uint, c_p, c_int, c_int, c_int, c_p, c_p, c_p]
             lib.wf_sp_window_partial.restype = c_int
-            lib.wf_sp_merge.argtypes = [c_p, c_p, c_int, c_int, c_int, c_int,
+            lib.wf_sp_merge.argtypes = [c_p, c_p, c_p, c_int, c_int, c_int,
                                         c_int, c_p, c_p]
             lib.wf_sp_merge.restype = c_int
             _lib = lib
@@ -107,24 +119,6 @@ def _bounds(starts, lens, base: int, Ns: int):
     lo = (s - int(base)).clamp(0, int(Ns))
     hi = (s + lens.long() - int(base)).clamp(0, int(Ns))
     return lo, hi
-
-
-def _wrap32(x):
-    """int64 values reduced modulo 2**32 into the int32 range."""
-    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
-
-
-def _combine(op, a, b, is_int):
-    """The kernels' combine(a, b): a + b and a * b (int32 wrapping), and for
-    min/max ``a`` where a is NaN or wins, else ``b``."""
-    if op in ("sum", "mean", "count"):
-        return _wrap32(a + b) if is_int else a + b
-    if op == "prod":
-        return _wrap32(a * b) if is_int else a * b
-    first = a < b if op == "min" else a > b
-    if not is_int:
-        first = first | torch.isnan(a)
-    return torch.where(first, a, b)
 
 
 # ------------------------------------------------------------------ partial
@@ -185,55 +179,89 @@ def sp_window_partial_reference(vals, keep, starts, lens, base: int,
     return part, (cnt if needs_count(op) else None)
 
 
-def partial_order_twin(vals, keep, starts, lens, base: int, op: str):
+def find_long_windows(starts, lens, base: int, Ns: int,
+                      split: int = SPLIT) -> np.ndarray:
+    """The windows (int32 indices, ascending) whose length clipped to the
+    slice ``[base, base + Ns)`` exceeds `split`: those sp_window_partial
+    gives a block each.  Takes the host's numpy (or CPU) starts and lens;
+    the caller that holds them passes the result to sp_window_partial as
+    ``long_windows``."""
+    s = np.asarray(starts, dtype=np.int64)
+    lo = np.clip(s - int(base), 0, int(Ns))
+    hi = np.clip(s + np.asarray(lens, dtype=np.int64) - int(base), 0,
+                 int(Ns))
+    return np.flatnonzero(hi - lo > split).astype(np.int32)
+
+
+def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
+                       split: int = SPLIT, chunk: int = CHUNK):
     """Plain torch that reproduces sp_window_partial's combine order
-    (csrc/mesh_reduce.cu, "Order"); no path of the port calls it.  Lane l of
-    a window combines its kept cells ``lo + l + 32 t`` in ascending t from
-    the identity; then a butterfly over 16, 8, 4, 2, 1, each lane combining
-    its own value with its partner's, own first; lane 0's value is the
-    result.  int32 sums and products run in int64 reduced modulo 2**32
-    after every step.  Returns (partial, count or None)."""
+    (csrc/mesh_reduce.cu, "Order"); no path of the port calls it.  With a
+    = lo mod 4, cell j of a window lies in its group (a + j) // 4.  A window
+    of at most `split` cells is one team's (windowed_reduce.team_fold over
+    all its groups); a longer one is cut into chunks of `chunk` cells
+    (``chunk // 4`` groups from the window's first aligned group), each
+    chunk reduced in the team's order, and the chunk partials are folded in
+    chunk order starting from the identity.  Filtered cells are skipped and
+    not counted.  Returns (partial, count or None)."""
     dtype = vals.dtype
     _check_op(op, dtype)
     device = vals.device
     B, Ns = starts.numel(), vals.numel()
     lo, hi = _bounds(starts, lens, base, Ns)
     n = (hi - lo).clamp(min=0)
+    a = lo % GROUP
+    groups = (a + n + GROUP - 1) // GROUP
     is_int = dtype == torch.int32
     work = torch.int64 if is_int else dtype
-    red_op = "sum" if op == "count" else op
-    lanes = _ident(red_op, dtype).to(work).to(device).expand(B, LANES).clone()
-    counts = torch.zeros((B, LANES), dtype=torch.int64, device=device)
-    lane = torch.arange(LANES, device=device)
-    trips = (n + LANES - 1) // LANES
-    order = torch.argsort(trips, descending=True)
-    lo_o, hi_o = lo[order], hi[order]
-    acc, cacc = lanes[order], counts[order]
-    tr = trips[order]
-    for t in range(int(tr.max()) if B else 0):
-        m = int((tr > t).sum())          # windows that still have a trip
-        c = lo_o[:m, None] + t * LANES + lane[None, :]
-        live = c < hi_o[:m, None]
-        cc = c.clamp(max=max(Ns - 1, 0))
-        if keep is not None:
-            live = live & keep[cc]
-        cacc[:m] += live.long()
-        if op != "count":
-            v = vals[cc].to(work)
-            acc[:m] = torch.where(live, _combine(op, acc[:m], v, is_int),
-                                  acc[:m])
-    off = LANES // 2
-    while off:
-        if op != "count":
-            acc = _combine(op, acc, acc[:, lane ^ off], is_int)
-        cacc = cacc + cacc[:, lane ^ off]
-        off //= 2
-    part = torch.empty(B, dtype=dtype, device=device)
-    cnt = torch.empty(B, dtype=torch.int32, device=device)
-    part[order] = (cacc[:, 0].to(dtype) if op == "count"
-                   else acc[:, 0].to(dtype))
-    cnt[order] = cacc[:, 0].to(torch.int32)
-    return part, (cnt if needs_count(op) else None)
+    red = "sum" if op in ("count", "mean") else op
+    ident = _ident(red, dtype).to(work).to(device)
+    # the spans a team reduces: a short window's groups, or one chunk
+    cg = chunk // GROUP
+    long = n > split
+    nch = torch.where(long, (groups + cg - 1) // cg, torch.ones_like(n))
+    win = torch.repeat_interleave(torch.arange(B, device=device), nch)
+    ch = (torch.arange(win.numel(), device=device)
+          - (torch.cumsum(nch, 0) - nch)[win])
+    span_long = long[win]
+    gb = torch.where(span_long, ch * cg, torch.zeros_like(ch))
+    ge = torch.where(span_long, torch.minimum(gb + cg, groups[win]),
+                     groups[win])
+    lo_s = lo[win]
+
+    def cells(j):
+        if Ns == 0:
+            return None, False
+        idx = (lo_s[:, None] + j).clamp(0, Ns - 1)
+        v = vals[idx].to(work) if op != "count" else None
+        return v, (keep[idx] if keep is not None else True)
+
+    sv, sc = team_fold(red, is_int, ident, gb, ge, a[win], n[win], cells)
+    acc = torch.empty(B, dtype=work, device=device)
+    cnt = torch.zeros(B, dtype=torch.int64, device=device)
+    one = ~span_long
+    acc[win[one]] = sv[one]
+    cnt[win[one]] = sc[one]
+    if bool(long.any()):
+        # the chunk partials of the L long windows as an (L, chunks) grid,
+        # folded column by column in chunk order from the identity
+        lw = torch.nonzero(long).flatten()
+        rank = torch.zeros(B, dtype=torch.long, device=device)
+        rank[lw] = torch.arange(lw.numel(), device=device)
+        chunks = nch[lw]
+        grid = ident.expand(lw.numel(), int(chunks.max())).clone()
+        gcnt = torch.zeros_like(grid, dtype=torch.int64)
+        at = (rank[win[span_long]], ch[span_long])
+        grid[at] = sv[span_long]
+        gcnt[at] = sc[span_long]
+        tot = ident.expand(lw.numel()).clone()
+        for c in range(grid.shape[1]):
+            tot = torch.where(c < chunks,
+                              _combine(red, tot, grid[:, c], is_int), tot)
+        acc[lw] = tot
+        cnt[lw] = gcnt.sum(dim=1)
+    part = cnt.to(dtype) if op == "count" else acc.to(dtype)
+    return part, (cnt.to(torch.int32) if needs_count(op) else None)
 
 
 def _check_partial(vals, keep, starts, lens):
@@ -256,13 +284,18 @@ def _check_partial(vals, keep, starts, lens):
     return device
 
 
-def sp_window_partial(vals, keep, starts, lens, base: int, op: str):
+def sp_window_partial(vals, keep, starts, lens, base: int, op: str,
+                      long_windows=None):
     """The partial of each window ``(starts[w], lens[w])`` over the shard's
     ``(Ns,)`` slice `vals` of rows ``[base, base + Ns)``, kept rows only
     (`keep` a bool mask or None); returns ``(partial, count)``, the (B,)
     partial in ``vals.dtype`` and, for count and mean, the (B,) int32
-    kept-row count (else None).  A CUDA `vals` launches the kernel once;
-    a CPU one runs the plain version."""
+    kept-row count (else None).
+
+    A CUDA `vals` launches the kernel once; a CPU one runs the plain
+    version.  `long_windows` is :func:`find_long_windows` of these windows
+    (a numpy array, or an int32 tensor on vals' device); without it the
+    wrapper computes it from the windows, which waits for the device."""
     _check_op(op, vals.dtype)
     device = _check_partial(vals, keep, starts, lens)
     if device.type == "cpu":
@@ -280,6 +313,21 @@ def sp_window_partial(vals, keep, starts, lens, base: int, op: str):
            if needs_count(op) else None)
     if B == 0:
         return part, cnt
+    if long_windows is None:
+        long_windows = find_long_windows(starts.cpu().numpy(),
+                                         lens.cpu().numpy(), base,
+                                         vals.numel())
+    if isinstance(long_windows, np.ndarray):
+        long_windows = torch.from_numpy(
+            np.ascontiguousarray(long_windows, dtype=np.int32)).to(device)
+    if (long_windows.dtype != torch.int32 or long_windows.dim() != 1
+            or long_windows.device != device
+            or not long_windows.is_contiguous()):
+        raise TypeError(f"long_windows must be a contiguous 1-D int32 "
+                        f"tensor on {device}, got {long_windows.dtype} "
+                        f"{tuple(long_windows.shape)} on "
+                        f"{long_windows.device}")
+    n_long = long_windows.numel()
     lib = _load()
     with torch.cuda.device(device):
         rc = lib.wf_sp_window_partial(
@@ -287,7 +335,9 @@ def sp_window_partial(vals, keep, starts, lens, base: int, op: str):
             vals.numel(), starts.data_ptr(), lens.data_ptr(), B, int(base),
             _OPS[op], _DTYPES[vals.dtype],
             _ident_bits("sum" if op == "count" else op, vals.dtype),
-            part.data_ptr(), cnt.data_ptr() if cnt is not None else None,
+            long_windows.data_ptr() if n_long else None, n_long, SPLIT,
+            CHUNK, part.data_ptr(),
+            cnt.data_ptr() if cnt is not None else None,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sp_window_partial kernel launch failed: CUDA "
@@ -344,10 +394,11 @@ def merge_order_twin(parts, cnts, op: str, ring: bool = False):
     is_int = parts.dtype == torch.int32
     work = torch.int64 if is_int else parts.dtype
     order = fold_order(parts.shape[0], ring)
+    red = "sum" if op in ("count", "mean") else op
     acc = parts[order[0]].to(work)
     c = cnts[order[0]].long() if cnts is not None else None
     for k in order[1:]:
-        acc = _combine(op, acc, parts[k].to(work), is_int)
+        acc = _combine(red, acc, parts[k].to(work), is_int)
         if c is not None:
             c = c + cnts[k].long()
     if op == "mean":
@@ -355,47 +406,72 @@ def merge_order_twin(parts, cnts, op: str, ring: bool = False):
     return acc.to(parts.dtype)
 
 
+#: partials whose pointers travel in the merge kernel's parameters
+#: (kInline); more go through a device array of pointers
+MERGE_INLINE = 16
+
+
+def _on_device(ts, name, want, B, device):
+    """The n (B,) tensors of `ts` (a sequence, or the rows of an (n, B)
+    tensor) as contiguous tensors on `device`: a tensor already there is
+    taken as it is, rows of an (n, B) tensor as views; others are
+    copied."""
+    if isinstance(ts, torch.Tensor) and ts.dim() == 2:
+        ts = list(ts)
+    out = []
+    for t in ts:
+        if t.dtype != want or t.dim() != 1 or t.numel() != B:
+            raise TypeError(f"{name} must be (B,) {want} tensors, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        out.append(t.to(device).contiguous())
+    return out
+
+
 def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
     """Fold the sp partials of every window: `partials` is a sequence of
     ``n`` (B,) tensors (one a shard, in sp order, on any devices) or an
     ``(n, B)`` tensor, `counts` the same of int32 counts or None (needed
-    for mean).  Partials off the merging `device` (default: the first
-    partial's) are copied there, then one launch folds them; returns the
-    (B,) result in their dtype, float32 for mean."""
+    for mean).  One launch on the merging `device` (default: the first
+    partial's) reads every partial that lies there in place; one on
+    another device is copied there first.  Returns the (B,) result in
+    their dtype, float32 for mean."""
     first = partials[0]
     dtype = first.dtype
     _check_op(op, dtype)
     device = torch.device(device) if device is not None else first.device
-
-    def stack(ts, name, want):
-        if isinstance(ts, torch.Tensor) and ts.dim() == 2:
-            ts = list(ts)
-        for t in ts:
-            if t.dtype != want or t.dim() != 1 or t.numel() != first.numel():
-                raise TypeError(f"{name} must be (B,) {want} tensors, got "
-                                f"{t.dtype} {tuple(t.shape)}")
-        return torch.stack([t.to(device) for t in ts])
-
-    parts = stack(partials, "partials", dtype)
-    cnts = (stack(counts, "counts", torch.int32)
+    B = first.numel()
+    parts = _on_device(partials, "partials", dtype, B, device)
+    cnts = (_on_device(counts, "counts", torch.int32, B, device)
             if counts is not None else None)
     if op == "mean" and cnts is None:
         raise ValueError("sp_merge of mean needs the partial counts")
+    if cnts is not None and len(cnts) != len(parts):
+        raise ValueError(f"{len(parts)} partials but {len(cnts)} counts")
     if device.type == "cpu":
-        return sp_merge_reference(parts, cnts, op, ring)
+        return sp_merge_reference(
+            torch.stack(parts), torch.stack(cnts) if cnts else None, op,
+            ring)
     if device.type != "cuda":
         raise ValueError(f"sp_merge runs on cuda or cpu tensors, got "
                          f"{device}")
-    n, B = parts.shape
+    n = len(parts)
     out = torch.empty(B, dtype=_merge_out(op, dtype), device=device)
     if B == 0:
         return out
+    order = fold_order(n, ring)
+    pp = [parts[k].data_ptr() for k in order]
+    cp = ([cnts[k].data_ptr() for k in order] if op == "mean"
+          else [0] * n)
+    far = None
+    if n > MERGE_INLINE:     # the pointers as a device array
+        far = torch.tensor(pp + cp, dtype=torch.int64).to(device)
     lib = _load()
     with torch.cuda.device(device):
         rc = lib.wf_sp_merge(
-            parts.data_ptr(),
-            cnts.data_ptr() if (cnts is not None and op == "mean") else None,
-            n, B, _OPS[op], _DTYPES[dtype], int(bool(ring)), out.data_ptr(),
+            (ctypes.c_void_p * n)(*pp),
+            (ctypes.c_void_p * n)(*cp) if op == "mean" else None,
+            far.data_ptr() if far is not None else None, n, B, _OPS[op],
+            _DTYPES[dtype], out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sp_merge kernel launch failed: CUDA error {rc}")

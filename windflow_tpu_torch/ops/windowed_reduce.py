@@ -168,6 +168,43 @@ def _combine(op, a, b, is_int):
     return torch.where(first, a, b)
 
 
+def team_fold(op, is_int, ident, gb, ge, a, n, cells):
+    """The order of a team of LANES lanes, shared by the CPU twins of the
+    kernels that reduce in it (csrc/windowed_reduce.cu, csrc/mesh_reduce.cu).
+
+    For S spans, each the groups [gb, ge) of a window of n cells whose cell
+    j lies in 16-byte group (a + j) // GROUP: lane q combines the groups g
+    = gb + q + LANES * t in ascending t, and in each its cells j = GROUP *
+    g + k - a (k = 0 .. GROUP - 1) inside [0, n) in ascending k, starting
+    from the identity `ident` (a 0-d tensor of the work type); ``cells(j)``
+    gives the (S, LANES) values of cells j (in the work type; None: count
+    only) and a mask of the cells that count (True for all).  Then a
+    butterfly over LANES/2, ..., 2, 1 in which every lane combines its own
+    value with its partner's, own first.  int32 sums and products run in
+    int64 reduced modulo 2**32 after every step (the kernels' uint32).
+    Returns lane 0's (S,) value and the (S,) number of cells combined."""
+    S = gb.numel()
+    lane = torch.arange(LANES, device=gb.device)
+    acc = ident.expand(S, LANES).clone()
+    cnt = torch.zeros((S, LANES), dtype=torch.int64, device=gb.device)
+    span = int((ge - gb).max()) if S else 0
+    for t in range(-(-span // LANES)):
+        g = gb[:, None] + lane[None, :] + LANES * t
+        for k in range(GROUP):
+            j = GROUP * g + k - a[:, None]
+            v, kept = cells(j)
+            live = (g < ge[:, None]) & (j >= 0) & (j < n[:, None]) & kept
+            cnt += live
+            if v is not None:
+                acc = torch.where(live, _combine(op, acc, v, is_int), acc)
+    off = LANES // 2
+    while off:
+        acc = _combine(op, acc, acc[:, lane ^ off], is_int)
+        cnt = cnt + cnt[:, lane ^ off]
+        off //= 2
+    return acc[:, 0], cnt[:, 0]
+
+
 def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
     """Plain torch that reproduces the kernel's ownership of cells and its
     combine order (csrc/windowed_reduce.cu, "Order"), so that the kernel
@@ -176,16 +213,9 @@ def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
     With len = min(lens[w], pad), s = max(starts[w], 0) and a = (rows[w] *
     ncols + s) mod 4, cell j of window w is column min(s + j, ncols - 1) of
     row rows[w] and lies in the window's 16-byte group (a + j) // 4, which
-    belongs to lane group mod LANES; each lane combines its cells in
-    ascending j starting from the identity, skipping cells outside the
-    window; then a butterfly over LANES/2, ..., 2, 1 in which every lane
-    combines its own value with its partner's, own first; lane 0's value is
-    the result.  int32 sums and products run in int64 reduced modulo 2**32
-    after every step (the kernel's uint32)."""
+    belongs to lane group mod LANES; the lanes combine as
+    :func:`team_fold` says, over all of the window's groups."""
     outs = []
-    B = starts.numel()
-    lane = torch.arange(LANES, device=starts.device)
-    trip = LANES * GROUP
     for buf, op in evals:
         _check_op(op)
         if op == "count":
@@ -197,25 +227,21 @@ def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
         work = torch.int64 if is_int else buf.dtype
         ident = torch.tensor(identity(op, buf.dtype).item(), dtype=work,
                              device=buf.device)
-        lanes = ident.expand(B, LANES).clone()
         s = starts.long().clamp(min=0)
         n = (lens.long().clamp(0, int(pad)) if ncols
              else torch.zeros_like(s))
         r = rows.long() if rows is not None else torch.zeros_like(s)
         a = (r * ncols + s) % GROUP
-        for t in range(-(-(int(pad) + GROUP - 1) // trip)):
-            for k in range(GROUP):
-                j = (trip * t + GROUP * lane)[None, :] + k - a[:, None]
-                live = (j >= 0) & (j < n[:, None])
-                col = (s[:, None] + j).clamp(0, max(ncols - 1, 0))
-                v = buf2[r[:, None], col].to(work) if ncols else lanes
-                lanes = torch.where(live, _combine(op, lanes, v, is_int),
-                                    lanes)
-        off = LANES // 2
-        while off:
-            lanes = _combine(op, lanes, lanes[:, lane ^ off], is_int)
-            off //= 2
-        outs.append(lanes[:, 0].to(buf.dtype))
+
+        def cells(j, buf2=buf2, ncols=ncols, work=work, r=r, s=s):
+            if not ncols:
+                return None, True
+            col = (s[:, None] + j).clamp(0, ncols - 1)
+            return buf2[r[:, None], col].to(work), True
+
+        got, _ = team_fold(op, is_int, ident, torch.zeros_like(s),
+                           (a + n + GROUP - 1) // GROUP, a, n, cells)
+        outs.append(got.to(buf.dtype))
     return outs
 
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.device import _bucket
-from ..ops.mesh_reduce import sp_merge, sp_window_partial
+from ..ops.mesh_reduce import find_long_windows, sp_merge, sp_window_partial
 from ..ops.monoid import OPS as _OPS
 
 KF_AXIS = "kf"   # key/group parallelism (no exchange; Key_Farm axis)
@@ -152,7 +152,8 @@ class MeshWindowedReduce:
 
     def _shard_partial(self, dev, rows: np.ndarray, starts, lens, base):
         """One (kf, wf, sp) shard: its slice to `dev`, map and filter
-        there, then the partial kernel over its windows."""
+        there, then the partial kernel over its windows (the long ones
+        listed from the host's starts and lens)."""
         v = torch.from_numpy(rows).to(dev)
         if self.map_fn is not None:
             v = self.map_fn(v)
@@ -162,7 +163,9 @@ class MeshWindowedReduce:
         vals = v.to(self.dtype).contiguous()
         st = torch.from_numpy(starts).to(dev)
         ln = torch.from_numpy(lens).to(dev)
-        return sp_window_partial(vals, keep, st, ln, base, self.op)
+        return sp_window_partial(
+            vals, keep, st, ln, base, self.op,
+            long_windows=find_long_windows(starts, lens, base, len(rows)))
 
     def __call__(self, flat: np.ndarray, starts: np.ndarray,
                  lens: np.ndarray) -> np.ndarray:
