@@ -168,6 +168,39 @@ catches its own failure):
    over the partials in place and stacked, beside torch.sum over them,
    each a CUDA-graph replay; torch.sum also as a caller sees it).
 
+20. recover: sum_test's 16M tuples through the native resident route
+   (as phase 6) under recovery= (a barrier every 2 source batches), the
+   window node killed once at its 9th batch: one restart, the fused
+   kernel launched after the restore, every key's results in order equal
+   to the uncrashed run's in the same call and the total to the oracle;
+   then 1M-tuple prefixes (in batches of 2^18) crashed and restored on
+   the Python resident core, with and without snapshot_rings, and on the
+   restaging route (use_reduce_kernel=True), each equal to its uncrashed
+   run;
+21. plane: child processes started with subprocess (fresh interpreters,
+   never a fork after CUDA starts) that load the kernels phase 2 built.
+   (a) two processes, each in a gloo group (parallel/multihost.py
+   initialize) with make_multihost_mesh(n_sp=1) (kf = 2: one cuda:0 a
+   process), a hardened row plane (open_row_plane), its half of
+   sum_test's 16M tuples partitioned by key owner (partition_and_ship,
+   origin order) into WinSeqGPU's resident route under metrics= and
+   federate=, process 1's shipper bound to process 0, whose receiver
+   holds the TelemetryAggregator: the merged results per key in order
+   against the single-process resident run and the total against the
+   oracle, each process's keys in its own kf groups, the fused kernel
+   launched in each, the aggregator holding process 1's fresh snapshots
+   (seq >= 2); each process's tuples/s and the wall time.  (b) a feeder
+   and two workers (4M tuples, 64 keys, 16 epochs): each worker feeds a
+   NativeResidentCore on the card from its RowReceiver and, at every
+   wire epoch, drains, seals its state into a CheckpointStore, writes the
+   epoch's rows, replicates the epoch (PlaneSupervisor.replicate) and
+   acks; worker 1 exits after epoch 8 and worker 2's PlaneSupervisor
+   adopts it (the native state blob into a fresh core on the card, the
+   journal's tail through takeover_receiver): the merged rows per key in
+   order against the uncrashed single-process run and the total against
+   the oracle; the adoption epoch, the handoff seconds and
+   ckpt_shipped_bytes.
+
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append, windowed_reduce and ring_append_regular_sum must have
 been launched on one of them; the mesh runs' launches follow
@@ -1135,7 +1168,8 @@ def run_pipeline(stage, batches, schema, keep=False):
                            wt.Sink(consume, vectorized=True)])
     t0 = time.perf_counter()
     df.run_and_wait_end()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return time.perf_counter() - t0, n_out[0], total[0], kept
 
 
@@ -1183,13 +1217,13 @@ def end_to_end(wr):
     return launches
 
 
-def resident_stage(wt, reducer=None):
+def resident_stage(wt, reducer=None, device=DEVICE, **kw):
     """The JAX package's bench.py stage, through the port's entry point:
     the default route of a builtin sum is the resident path."""
     return wt.WinSeqGPU(reducer or wt.Reducer("sum", value_range=(0, 100)),
                         WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
                         flush_rows=FLUSH_ROWS, depth=DEPTH, shards=1,
-                        device=DEVICE)
+                        device=device, **kw)
 
 
 def host_rows(wt, reducer, batches, schema):
@@ -2960,6 +2994,646 @@ def mesh_phase():
     return launches, rows
 
 
+# the recover phase (20): sum_test through the native resident route
+# under recovery=, its window node killed once mid-stream; then 1M-tuple
+# prefixes of the other device cores, crashed the same way
+RECOVER_EPOCH_BATCHES = 2            # a barrier every 2 source batches
+RECOVER_KILL_AT = 9                  # the window node's 9th batch (of 16)
+RECOVER_PREFIX_KILL_AT = 3           # of a prefix's 4 batches
+RECOVER_PREFIX_CHUNK = 1 << 18       # 4 batches a 1M-tuple prefix
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def recovered_run(stage, batches, schema, kill_at=None, epoch_batches=None,
+                  device=DEVICE, **policy):
+    """Source -> stage -> Sink, under recovery= when ``epoch_batches`` is
+    set; with ``kill_at`` the stage's node raises once on its kill_at-th
+    batch (the transient-fault model: the replayed batch succeeds).
+    Returns (seconds, rows, restarts, fused launches made after the
+    restore)."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.ops import ring as rk
+    rows = []
+
+    def consume(r):
+        if r is not None and len(r):
+            rows.append(r.copy())
+
+    recovery = (None if epoch_batches is None else wt.RecoveryPolicy(
+        epoch_batches=epoch_batches, restart_backoff=0.01, **policy))
+    df = wt.Dataflow("recover", recovery=recovery)
+    wt.build_pipeline(df, [wt.Source(batches=batches, schema=schema,
+                                     name="src"), stage,
+                           wt.Sink(consume, vectorized=True, name="sink")])
+    node = [n for n in df.nodes if n.name.startswith(stage.name)][0]
+    at_restore = []
+    if kill_at is not None:
+        svc, restore, fired = node.svc, node.state_restore, [0]
+
+        def killing(batch, channel=0):
+            fired[0] += 1
+            if fired[0] == kill_at:
+                raise RuntimeError(f"injected crash at batch {kill_at}")
+            return svc(batch, channel)
+
+        def restoring(snap):
+            at_restore.append(rk.ring_append_regular_sum.launches)
+            return restore(snap)
+        node.svc, node.state_restore = killing, restoring
+    t0 = time.perf_counter()
+    df.run_and_wait_end(timeout=900)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    restarts = sum(n._recov.restarts_used for n in df.nodes
+                   if n._recov is not None)
+    after = (rk.ring_append_regular_sum.launches - at_restore[0]
+             if at_restore else None)
+    return dt, rows, restarts, after
+
+
+def recover_phase(device=DEVICE, n_tuples=N_TUPLES,
+                  prefix_tuples=PREFIX_TUPLES):
+    """Phase 20: sum_test's stream through WinSeqGPU's native resident
+    route under recovery= (a barrier every RECOVER_EPOCH_BATCHES source
+    batches), the window node killed once at RECOVER_KILL_AT, against the
+    uncrashed run per key in order and the total against the oracle:
+    one restart, the fused kernel launched after the restore.  Then
+    1M-tuple prefixes crashed and restored on the Python resident core
+    (with and without snapshot_rings) and on the restaging route, each
+    against its own uncrashed run.  Returns the crashed run's
+    launches."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    schema = wt.Schema(value=np.int64)
+    batches = make_stream(schema, n_tuples)
+    want = expected_total(batches)
+    on_card = torch.device(device).type == "cuda"
+
+    def stage(**kw):
+        return resident_stage(wt, device=device, name="wgpu", **kw)
+
+    dt0, clean, _, _ = recovered_run(stage(), batches, schema,
+                                     device=device)
+    cores = []
+    with kernel_launches() as counts:
+        dt, rows, restarts, after = recovered_run(
+            stage_with_core(stage, cores), batches, schema,
+            kill_at=RECOVER_KILL_AT, epoch_batches=RECOVER_EPOCH_BATCHES,
+            device=device)
+    total = int(sum(int(r["value"].sum()) for r in rows))
+    if not (len(cores) == 1 and isinstance(cores[0], NativeResidentCore)
+            and cores[0]._delegate is None and cores[0].has_state_abi):
+        raise AssertionError(f"recover: the stage's core is {cores}")
+    if restarts != 1:
+        raise AssertionError(f"recover: {restarts} restarts, wanted 1")
+    if total != want or by_key(rows) != by_key(clean):
+        raise AssertionError(f"recover: total {total} (oracle {want}) or "
+                             "the per-key results differ from the "
+                             "uncrashed run")
+    if on_card and not after:
+        raise AssertionError(f"recover: {after} fused launches after the "
+                             "restore")
+    if on_card:
+        require_launches("recover", counts, ["ring_append_regular_sum"])
+    emit("recover", workload="sum_test CB win=256 slide=64 keys=64 "
+         "resident, killed once", tuples=n_tuples, seconds=dt,
+         tuples_per_s=n_tuples / dt, uncrashed_seconds=dt0,
+         uncrashed_tuples_per_s=n_tuples / dt0,
+         epoch_batches=RECOVER_EPOCH_BATCHES, kill_at=RECOVER_KILL_AT,
+         restarts=restarts, fused_launches_after_restore=after,
+         launches=counts, windows=sum(len(r) for r in rows), total=total,
+         oracle=want, per_key_identical=True, nvidia_smi=nvidia_smi_line()
+         if on_card else None)
+
+    # 1M-tuple prefixes in smaller batches: the Python resident core (its
+    # ring captured in a RingSnapshot, or rebased from the host archives)
+    # and the restaging route, each crashed and restored
+    per_key = prefix_tuples // N_KEYS
+    prefix = [p for b in make_stream(schema, prefix_tuples)
+              for p in np.array_split(
+        b, max(1, len(b) // RECOVER_PREFIX_CHUNK))]
+    cases = (("python_resident", {"snapshot_rings": True}, {}),
+             ("python_resident_no_ring", {"snapshot_rings": False}, {}),
+             ("restaging", {}, {"use_reduce_kernel": True}))
+    for name, policy, kw in cases:
+        pin = name.startswith("python")
+        old = os.environ.get("WF_NO_NATIVE_CORE")
+        if pin:
+            os.environ["WF_NO_NATIVE_CORE"] = "1"
+        try:
+            _, base, _, _ = recovered_run(stage(**kw), prefix, schema,
+                                          device=device)
+            cores = []
+            dt, got, restarts, _ = recovered_run(
+                stage_with_core(lambda: stage(**kw), cores), prefix, schema,
+                kill_at=RECOVER_PREFIX_KILL_AT, epoch_batches=1,
+                device=device, **policy)
+        finally:
+            if pin:
+                if old is None:
+                    os.environ.pop("WF_NO_NATIVE_CORE", None)
+                else:
+                    os.environ["WF_NO_NATIVE_CORE"] = old
+        kind = type(cores[0]).__name__
+        if kind != ("ResidentWinSeqCore" if pin else "DeviceWinSeqCore"):
+            raise AssertionError(f"recover_{name}: the core is {kind}")
+        if restarts != 1 or by_key(got) != by_key(base):
+            raise AssertionError(f"recover_{name}: {restarts} restarts, or "
+                                 "the rows differ from the uncrashed run")
+        emit("recover_prefix", case=name, core=kind, tuples=per_key * N_KEYS,
+             batches=len(prefix), seconds=dt, restarts=restarts,
+             windows=sum(len(r) for r in got), identical=True)
+    return counts
+
+
+# the plane phase (21): child processes (fresh interpreters started with
+# subprocess, never forked after CUDA starts) that load the kernels phase
+# 2 built; (a) a two-process keyed plane over a gloo group, (b) a feeder
+# and two workers whose native state on the card is adopted after a kill
+PLANE_FED_PERIOD = 0.1               # federation ship period, s
+PLANE_TUPLES = N_TUPLES              # (a): half generated by each process
+ADOPT_TUPLES = 4_000_000             # (b): 64 keys, 16 epochs
+ADOPT_EPOCHS = 16
+ADOPT_KILL_EPOCH = 8
+ADOPT_DOWN_DEADLINE = 2.0            # s a peer stays down before "dead"
+CHILD_TIMEOUT = 300.0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(logs, role, *args):
+    """This script as a child process (``--child role args``), from the
+    repository root with the repository on its path, its output in a log
+    file under ``logs``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    log = os.path.join(logs, f"{role}-{'-'.join(map(str, args[:1]))}.log")
+    with open(log, "w") as f:
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", role,
+             *map(str, args)], cwd=root, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    p.log = log
+    return p
+
+
+def _tail(p):
+    with open(p.log) as f:
+        return f.read()[-6000:]
+
+
+def _reap(procs, timeout=CHILD_TIMEOUT, expect=None):
+    """Wait for every child (killing all on a timeout or when one fails);
+    a child whose exit code is not ``expect.get(name, 0)`` fails the
+    phase with its output."""
+    expect = expect or {}
+    t_end = time.monotonic() + timeout
+    try:
+        for name, p in procs.items():
+            p.wait(timeout=max(1.0, t_end - time.monotonic()))
+            if p.returncode != expect.get(name, 0):
+                raise AssertionError(
+                    f"child {name} exited {p.returncode}:\n{_tail(p)}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _wait_files(paths, procs, timeout=CHILD_TIMEOUT):
+    t_end = time.monotonic() + timeout
+    for path in paths:
+        while not os.path.exists(path):
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(
+                        f"child {name} exited {p.returncode} before "
+                        f"{os.path.basename(path)}:\n{_tail(p)}")
+            if time.monotonic() > t_end:
+                raise AssertionError(f"{path} never appeared")
+            time.sleep(0.05)
+
+
+def _fsync_save(path, rows):
+    with open(path, "wb") as f:
+        np.save(f, rows)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _concat(rows, schema_dtype):
+    return (np.concatenate(rows) if rows
+            else np.zeros(0, dtype=schema_dtype))
+
+
+def plane_child(pid, coord_port, port0, port1, out_dir, n_tuples, device):
+    """(a), one process: a gloo group, the multi-process mesh (one card a
+    process), the hardened row plane, the process's half of sum_test's
+    stream partitioned by key owner, WinSeqGPU's resident route under
+    federate= and metrics=; process 0's receiver holds the telemetry
+    aggregator that process 1's shipper ships to."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.obs.federation import (FederationPolicy,
+                                                   TelemetryAggregator)
+    from windflow_tpu_torch.parallel.channel import partition_and_ship
+    from windflow_tpu_torch.parallel.multihost import (
+        initialize, local_kf_groups, make_multihost_mesh, open_row_plane,
+        process_for_keys)
+    from windflow_tpu_torch.runtime.emitters import default_routing
+    import torch.distributed as dist
+    pid, n_tuples = int(pid), int(n_tuples)
+    initialize(coordinator_address=f"127.0.0.1:{coord_port}",
+               num_processes=2, process_id=pid)
+    # one card a process: the default device list is the visible cards
+    mesh = make_multihost_mesh(
+        n_sp=1, devices=None if device.startswith("cuda") else [device])
+    owners = mesh.processes[:, 0, 0].tolist()
+    if dict(mesh.shape) != {"kf": 2, "wf": 1, "sp": 1} or owners != [0, 1]:
+        raise AssertionError(f"mesh {mesh}, owners {owners}")
+    mine = local_kf_groups(mesh)
+    fed = FederationPolicy(host=f"p{pid}", period=PLANE_FED_PERIOD,
+                           stale_after=CHILD_TIMEOUT)
+    agg = TelemetryAggregator(fed) if pid == 0 else None
+    addresses = {0: ("127.0.0.1", int(port0)), 1: ("127.0.0.1", int(port1))}
+    recv, senders = open_row_plane(pid, addresses, telemetry_sink=agg)
+    schema = wt.Schema(value=np.int64)
+    batches = make_stream(schema, n_tuples)
+    half = len(batches) // 2
+    local = batches[:half] if pid == 0 else batches[half:]
+    peer = 1 - pid
+    df = wt.Dataflow(f"plane{pid}", metrics=True, federate=fed)
+    seen = [0]
+
+    def local_phase():
+        for b in local:
+            part = partition_and_ship(b, process_for_keys(b["key"], mesh),
+                                      pid, senders)
+            seen[0] += len(part)
+            yield part
+        df.federation.bind({})        # no telemetry on a closed sender
+        senders[peer].close()
+
+    def feed():
+        if pid == 1:
+            df.federation.bind({0: senders[0]})
+        # origin order (process 0's ids first) keeps every key's rows in
+        # id order: process 0 ships, then reads; process 1 the reverse
+        if pid == 0:
+            yield from local_phase()
+        for b in recv.batches():
+            seen[0] += len(b)
+            yield b
+        if pid == 1:
+            yield from local_phase()
+
+    rows = []
+    wt.build_pipeline(df, [
+        wt.Source(batches=feed(), schema=schema, name="src"),
+        resident_stage(wt, device=device),
+        wt.Sink(lambda r: rows.append(r.copy())
+                if r is not None and len(r) else None, vectorized=True)])
+    with kernel_launches() as counts:
+        t0 = time.perf_counter()
+        df.run_and_wait_end(timeout=CHILD_TIMEOUT)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    recv.close()
+    got = _concat(rows, schema.dtype())
+    groups = set(default_routing(np.unique(got["key"]), 2).tolist())
+    if not groups <= set(mine.tolist()):
+        raise AssertionError(f"process {pid}: keys of kf groups {groups} "
+                             f"outside its own {mine.tolist()}")
+    telemetry = None
+    if agg is not None:
+        agg.poll()
+        telemetry = agg.hosts()
+    np.save(os.path.join(out_dir, f"plane{pid}.npy"), got)
+    with open(os.path.join(out_dir, f"plane{pid}.json"), "w") as f:
+        json.dump({"pid": pid, "kf_groups": mine.tolist(),
+                   "tuples": seen[0], "seconds": dt,
+                   "tuples_per_s": seen[0] / dt, "windows": len(got),
+                   "launches": counts, "telemetry": telemetry,
+                   "snapshots_shipped": df.metrics.snapshot()["counters"]
+                   .get("fed_snapshots_shipped", 0)}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def adopt_stream(schema, n_tuples=ADOPT_TUPLES, epochs=ADOPT_EPOCHS):
+    """(b)'s stream: n_tuples of N_KEYS keys (values 0..99, per-key dense
+    ids), two batches an epoch."""
+    import windflow_tpu_torch as wt
+    per_key = n_tuples // N_KEYS
+    rng = np.random.default_rng(17)
+    out = []
+    for ids in np.array_split(np.arange(per_key), 2 * epochs):
+        m = len(ids)
+        out.append(wt.batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m),
+            id=np.repeat(ids, N_KEYS), ts=np.repeat(ids, N_KEYS),
+            value=rng.integers(0, 100, size=m * N_KEYS)))
+    return out
+
+
+def feeder_child(d1, d2, root, n_tuples):
+    """(b)'s feeder: journaling senders to the two workers (key parity
+    picks the worker), an epoch barrier every two batches."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.parallel.channel import RowSender, WireResume
+    schema = wt.Schema(value=np.int64)
+    batches = adopt_stream(schema, int(n_tuples))
+    senders = {w: RowSender("127.0.0.1", int(p),
+                            resume=WireResume(deadline=CHILD_TIMEOUT),
+                            connect_deadline=60.0)
+               for w, p in ((1, d1), (2, d2))}
+    for e in range(1, ADOPT_EPOCHS + 1):
+        for b in batches[2 * (e - 1):2 * e]:
+            for w in (1, 2):
+                senders[w].send(b[(1 + b["key"] % 2) == w])
+        for w in (1, 2):
+            senders[w].send_epoch(e)
+        time.sleep(0.1)     # keep emitting while the kill happens
+    for w in (1, 2):
+        senders[w].close()
+    return 0
+
+
+def _worker_core(device):
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    core = resident_stage(wt, device=device).make_core()
+    if not (isinstance(core, NativeResidentCore) and core.has_state_abi):
+        raise AssertionError(f"worker core {core}")
+    return core
+
+
+def worker_child(w, d1, d2, m1, m2, root, die_after, device):
+    """(b)'s worker ``w``: a NativeResidentCore on the card fed from its
+    RowReceiver; at each wire epoch it drains, seals the core's state into
+    its CheckpointStore, writes the epoch's rows, replicates the epoch to
+    its peer (portable checkpoint) and acks.  ``die_after`` > 0: os._exit
+    after that epoch (kill -9).  The survivor's PlaneSupervisor adopts a
+    dead peer: the peer's newest spooled state into a fresh core on the
+    card, and the journal's tail through takeover_receiver."""
+    from windflow_tpu_torch.obs import MetricsRegistry
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.parallel.channel import (RowReceiver, RowSender,
+                                                     WireConfig, WireResume)
+    from windflow_tpu_torch.parallel.plane import PlanePolicy, PlaneSupervisor
+    from windflow_tpu_torch.recovery.epoch import EpochMarker
+    from windflow_tpu_torch.recovery.portable import PortableSpool
+    from windflow_tpu_torch.recovery.store import CheckpointStore
+    w, die_after = int(w), int(die_after)
+    d1, d2, m1, m2 = (int(a) for a in (d1, d2, m1, m2))
+    peer = 3 - w
+    my_data, my_mon = (d1, m1) if w == 1 else (d2, m2)
+    peer_mon = m2 if w == 1 else m1
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+    store = CheckpointStore(os.path.join(root, f"store{w}"), retain=4)
+    spool = PortableSpool(os.path.join(root, f"spool{w}"))
+    recv = RowReceiver(1, port=my_data,
+                       resume=WireResume(deadline=CHILD_TIMEOUT),
+                       ack_epochs=False, accept_timeout=60.0)
+    mon_recv = RowReceiver(1, port=my_mon,
+                           resume=WireResume(deadline=2 * CHILD_TIMEOUT),
+                           accept_timeout=60.0, ckpt_sink=spool)
+    wire_metrics = MetricsRegistry()
+    mon_snd = RowSender("127.0.0.1", peer_mon,
+                        resume=WireResume(deadline=2 * CHILD_TIMEOUT),
+                        connect_deadline=60.0, metrics=wire_metrics)
+    ctx, adopt_started, adopt_done = {}, threading.Event(), threading.Event()
+
+    def seal(core, e, pending, who):
+        pending += core.checkpoint_drain_batches()
+        _fsync_save(os.path.join(root, f"out{who}_{e:07d}.npy"),
+                    _concat(pending, core_dtype[0]))
+        pending.clear()
+
+    core_dtype = [None]
+
+    def on_adopt(dead, epoch, st):
+        ctx["adopted_from"] = [int(dead), int(epoch)]
+        ctx["t_elected"] = time.time()
+
+        def run():
+            try:
+                core2 = _worker_core(device)
+                core2.state_restore(st.load(int(epoch), "core"))
+                tr = ctx["sup"].takeover_receiver(dead, epoch, n_senders=1)
+                ctx["t_ready"] = time.time()
+                fused0, pend = rk.ring_append_regular_sum.launches, []
+                for item in tr.batches(epoch_markers=True):
+                    if isinstance(item, EpochMarker):
+                        seal(core2, int(item.epoch), pend, dead)
+                        tr.ack_epoch(int(item.epoch))
+                        continue
+                    core_dtype[0] = item.dtype
+                    pend += core2.process_batches(item)
+                pend += core2.flush_batches()
+                _fsync_save(os.path.join(root, f"out{dead}_eos.npy"),
+                            _concat(pend, core_dtype[0]))
+                tr.close()
+                ctx["t_done"] = time.time()
+                ctx["fused_during_adoption"] = (
+                    rk.ring_append_regular_sum.launches - fused0)
+            except Exception as e:                      # noqa: BLE001
+                ctx["adopt_error"] = repr(e)
+            finally:
+                adopt_done.set()
+
+        threading.Thread(target=run, daemon=True).start()
+        adopt_started.set()
+
+    policy = PlanePolicy(
+        down_deadline=ADOPT_DOWN_DEADLINE, period=0.1, candidates={1, 2},
+        wire=WireConfig(connect_deadline=60.0, heartbeat=2.0,
+                        stall_timeout=30.0, resume=True, recovery=False))
+    sup = PlaneSupervisor(w, {1: ("127.0.0.1", d1), 2: ("127.0.0.1", d2)},
+                          {peer: mon_snd}, policy=policy, store=store,
+                          spool=spool, on_adopt=on_adopt)
+    ctx["sup"] = sup
+    sup.start()
+    core = _worker_core(device)
+    open(os.path.join(root, f"ready{w}"), "w").close()
+    pending, tuples = [], 0
+    t0 = time.perf_counter()
+    for item in recv.batches(epoch_markers=True):
+        if isinstance(item, EpochMarker):
+            e = int(item.epoch)
+            seal(core, e, pending, w)
+            n = store.save_blob(e, "core", core.state_snapshot())
+            store.commit(e, {"core": {"bytes": n}})
+            sup.replicate(e)
+            recv.ack_epoch(e)
+            if die_after and e >= die_after:
+                with open(os.path.join(root, f"killed{w}.json"), "w") as f:
+                    json.dump({"t": time.time(), "epoch": e,
+                               "ckpt_shipped_bytes": wire_metrics.snapshot()
+                               ["counters"].get("ckpt_shipped_bytes", 0)},
+                              f)
+                os._exit(1)     # kill -9: no EOS, no teardown
+            continue
+        core_dtype[0] = item.dtype
+        tuples += len(item)
+        pending += core.process_batches(item)
+    pending += core.flush_batches()
+    _fsync_save(os.path.join(root, f"out{w}_eos.npy"),
+                _concat(pending, core_dtype[0]))
+    _sync(device)
+    dt = time.perf_counter() - t0
+    # a whole detection window (many down-deadlines) for the adoption to
+    # start: the peer's death may be declared after this stream ends
+    if adopt_started.wait(20 * ADOPT_DOWN_DEADLINE):
+        if not adopt_done.wait(CHILD_TIMEOUT):
+            raise AssertionError("the adopted tail never finished")
+        if "adopt_error" in ctx:
+            raise AssertionError(ctx["adopt_error"])
+    recv.close()
+    sup.close()
+    mon_snd.abort()
+    mon_recv.close()
+    with open(os.path.join(root, f"summary{w}.json"), "w") as f:
+        json.dump({"worker": w, "tuples": tuples, "seconds": dt,
+                   "launches": {n: wr.launches for n, wr
+                                in kernel_wrappers().items()},
+                   **{k: v for k, v in ctx.items() if k != "sup"}}, f)
+    return 0
+
+
+def plane_phase(device=DEVICE, n_tuples=PLANE_TUPLES,
+                adopt_tuples=ADOPT_TUPLES):
+    """Phase 21: (a) the two-process keyed plane, merged per key against
+    the single-process resident run (and the total against the oracle),
+    the aggregator holding process 1's fresh snapshots (seq >= 2), each
+    process's keys in its own kf groups, the fused kernel launched in
+    each; (b) kill and adopt: worker 1 exits after epoch
+    ADOPT_KILL_EPOCH, worker 2 adopts its state into a fresh core on the
+    card and replays the journal's tail; the merged rows equal the
+    uncrashed single-process run per key in order.  Returns the launches
+    of (a)'s two processes and (b)'s survivor, summed."""
+    import windflow_tpu_torch as wt
+    schema = wt.Schema(value=np.int64)
+    on_card = torch.device(device).type == "cuda"
+    root = tempfile.mkdtemp(prefix="wf_plane_")
+    try:
+        # (a) the two-process keyed plane
+        coord, p0, p1 = _free_port(), _free_port(), _free_port()
+        t0 = time.perf_counter()
+        _reap({f"plane{pid}": _spawn(root, "plane", pid, coord, p0, p1,
+                                     root, n_tuples, device)
+               for pid in (0, 1)})
+        wall = time.perf_counter() - t0
+        res = []
+        for pid in (0, 1):
+            with open(os.path.join(root, f"plane{pid}.json")) as f:
+                res.append(json.load(f))
+        got = [np.load(os.path.join(root, f"plane{pid}.npy"))
+               for pid in (0, 1)]
+        keys = [set(np.unique(g["key"]).tolist()) for g in got]
+        if keys[0] & keys[1]:
+            raise AssertionError(f"plane: keys {keys[0] & keys[1]} "
+                                 "produced by both processes")
+        batches = make_stream(schema, n_tuples)
+        want = expected_total(batches)
+        _, _, _, single = run_pipeline(resident_stage(wt, device=device),
+                                       batches, schema, keep=True)
+        total = int(sum(int(g["value"].sum()) for g in got))
+        if total != want or by_key(got) != by_key(single):
+            raise AssertionError(f"plane: total {total} (oracle {want}) or "
+                                 "the merged per-key results differ from "
+                                 "the single-process run")
+        remote = (res[0]["telemetry"] or {}).get("p1")
+        if not (remote and remote["fresh"] and remote["seq"] >= 2):
+            raise AssertionError(f"plane: the aggregator holds {remote} "
+                                 "for process 1")
+        if on_card:
+            for r in res:
+                require_launches(f"plane{r['pid']}", r["launches"],
+                                 ["ring_append_regular_sum"])
+        emit("plane", workload="sum_test CB win=256 slide=64 keys=64, "
+             "2 processes, kf=2 on one card each, hardened row plane, "
+             "federate=", tuples=n_tuples, wall_seconds=wall,
+             processes=[{k: r[k] for k in ("pid", "kf_groups", "tuples",
+                                           "seconds", "tuples_per_s",
+                                           "windows", "launches",
+                                           "snapshots_shipped")}
+                        for r in res],
+             remote_telemetry=remote, total=total, oracle=want,
+             per_key_identical=True,
+             nvidia_smi=nvidia_smi_line() if on_card else None)
+
+        # (b) kill and adopt, the state on the card
+        d1, d2, m1, m2 = (_free_port() for _ in range(4))
+        t0 = time.perf_counter()
+        procs = {f"worker{w}": _spawn(
+            root, "worker", w, d1, d2, m1, m2, root,
+            ADOPT_KILL_EPOCH if w == 1 else 0, device) for w in (1, 2)}
+        _wait_files([os.path.join(root, f"ready{w}") for w in (1, 2)],
+                    procs)
+        procs["feeder"] = _spawn(root, "feeder", d1, d2, root, adopt_tuples)
+        _reap(procs, expect={"worker1": 1})
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, "summary2.json")) as f:
+            surv = json.load(f)
+        with open(os.path.join(root, "killed1.json")) as f:
+            killed = json.load(f)
+        if surv.get("adopted_from") != [1, ADOPT_KILL_EPOCH]:
+            raise AssertionError(f"adopt: adopted {surv.get('adopted_from')}")
+        files = sorted(f for f in os.listdir(root) if f.startswith("out"))
+        merged = [np.load(os.path.join(root, f)) for f in files]
+        merged = [m for m in merged if len(m)]
+        batches = adopt_stream(schema, adopt_tuples)
+        _, _, _, single = run_pipeline(resident_stage(wt, device=device),
+                                       batches, schema, keep=True)
+        total, want = int(sum(int(m["value"].sum()) for m in merged)), \
+            expected_total(batches)
+        if total != want or by_key(merged) != by_key(single):
+            raise AssertionError(f"adopt: total {total} (oracle {want}) or "
+                                 "the merged rows differ from the "
+                                 "uncrashed single-process run")
+        if on_card and not surv.get("fused_during_adoption"):
+            raise AssertionError(f"adopt: the adopted core launched "
+                                 f"{surv.get('fused_during_adoption')} "
+                                 "fused kernels")
+        emit("plane_adopt", workload=f"{adopt_tuples} tuples 64 keys CB "
+             f"win=256 slide=64, feeder + 2 workers, worker 1 killed after "
+             f"epoch {ADOPT_KILL_EPOCH} of {ADOPT_EPOCHS}",
+             wall_seconds=wall, adopted_from=surv["adopted_from"],
+             adoption_epoch=surv["adopted_from"][1],
+             detect_seconds=surv["t_elected"] - killed["t"],
+             handoff_seconds=surv["t_ready"] - killed["t"],
+             adopted_tail_seconds=surv["t_done"] - surv["t_ready"],
+             ckpt_shipped_bytes=killed["ckpt_shipped_bytes"],
+             survivor_launches=surv["launches"],
+             fused_during_adoption=surv.get("fused_during_adoption"),
+             windows=sum(len(m) for m in merged), total=total, oracle=want,
+             per_key_identical=True,
+             nvidia_smi=nvidia_smi_line() if on_card else None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {name: sum(r["launches"][name] for r in res)
+            + surv["launches"][name] for name in surv["launches"]}
+
+
+def child_main(argv) -> int:
+    """Entry of the plane phase's child processes."""
+    role, args = argv[0], argv[1:]
+    return {"plane": plane_child, "feeder": feeder_child,
+            "worker": worker_child}[role](*args)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -2995,6 +3669,8 @@ def main() -> int:
                  "ysb_timed": ysb_timed(), "pipe_test": pipe_test(),
                  "two_stage": two_stage(), "layers": layers()}
     mesh_launches, mesh_rows = mesh_phase()
+    new_paths["recover"] = recover_phase()
+    new_paths["plane"] = plane_phase()
     emit("new_path_launches", **new_paths)
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]
@@ -3051,4 +3727,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main())

@@ -7,8 +7,10 @@ the native state ABI present and absent, WF215), the ``check=`` knob (warn,
 error before any thread starts, union strictness, event mirroring), the
 effect analyzer's results against JAX's, and the four apps' lint hooks.
 
-The codes whose subjects the port does not carry yet wait for ROADMAP.md
-Queue 1 item 9b (``parallel/`` and ``federate=``): see ``WAIT_9B``.
+The corpus covers the whole catalog: the wire, plane and federation codes
+(WF205, 206, 214, 216, 217, 220-224) build the port's ``WireConfig``,
+``PlanePolicy``, ``PlaneSpec`` and ``federate=`` as JAX's corpus builds
+its own.
 
 WF303-WF305 (the effect analyzer) are compared for equality with JAX only:
 on Python 3.12 the reference's call walker finds no call in ``time.time()``
@@ -30,10 +32,6 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: catalog codes whose subject is a WireConfig, a PlanePolicy, a PlaneSpec
-#: or federate=: none exists in the port before Queue 1 item 9b
-WAIT_9B = ("WF205", "WF206", "WF214", "WF216", "WF217", "WF220", "WF221",
-           "WF222", "WF223", "WF224")
 #: the effect analyzer's codes: equality with JAX only (module docstring)
 EFFECTS = ("WF303", "WF304", "WF305")
 
@@ -75,7 +73,12 @@ def package(name):
         OverloadPolicy=mod("runtime.overload").OverloadPolicy,
         make_comb=mod("runtime.comb").make_comb,
         TracePolicy=mod("obs.trace").TracePolicy,
-        node_stats_name=mod("utils.tracing").node_stats_name)
+        node_stats_name=mod("utils.tracing").node_stats_name,
+        WireConfig=mod("parallel.channel").WireConfig,
+        PlanePolicy=mod("parallel.plane").PlanePolicy,
+        FederationPolicy=mod("obs.federation").FederationPolicy,
+        HostSpec=mod("check.plane").HostSpec,
+        PlaneSpec=mod("check.plane").PlaneSpec)
 
 
 JX = package("windflow_tpu")
@@ -310,6 +313,31 @@ def _panefarm(W, win, slide):
                       wlq_result_fields=_win_fields())
 
 
+def _fed_pipe(W, t, obs=False):
+    """WF217 corpus: federation with (or without) a sampler to feed the
+    shipper."""
+    kw = dict(metrics=True, trace_dir=str(t)) if obs else {}
+    return _pipe(W, name="fed", federate=W.FederationPolicy(host="chk"), **kw)
+
+
+def _plane(W, flaw=None):
+    """WF22x corpus: a declared 2-host plane (check/plane.py), clean by
+    construction; ``flaw`` plants exactly one defect."""
+    wire = W.WireConfig(connect_deadline=30.0, heartbeat=2.0,
+                        stall_timeout=10.0, resume=True, recovery=True)
+    addresses = {0: ("10.0.0.1", 9000), 1: ("10.0.0.2", 9000)}
+    if flaw == "orphan":
+        addresses[2] = ("10.0.0.3", 9000)
+    h0 = W.HostSpec(0, sends="<i8", resume=True,
+                    plane=W.PlanePolicy(wire=wire), federate=True)
+    h1 = W.HostSpec(1, sends="<i8",
+                    expects="<f8" if flaw == "dtype" else None,
+                    resume=None if flaw == "resume" else True,
+                    ckpt_sink=None if flaw == "nosink" else True,
+                    aggregator=flaw != "noagg")
+    return W.PlaneSpec(addresses, [h0, h1], name="pl", wire=wire)
+
+
 #: WF### -> (bad_factory, good_factory); factories take (package, tmp_path)
 CORPUS = {
     "WF101": (lambda W, t: _routing_df(W, None),
@@ -344,7 +372,24 @@ CORPUS = {
               lambda W, t: _ctl_pipe(W, t)),
     "WF213": (lambda W, t: _trace_pipe(W, None),
               lambda W, t: _trace_pipe(W, str(t))),
+    "WF205": (lambda W, t: W.WireConfig(heartbeat=5.0, stall_timeout=2.0),
+              lambda W, t: W.WireConfig.hardened()),
+    "WF206": (lambda W, t: W.WireConfig(heartbeat=2.0),
+              lambda W, t: W.WireConfig(heartbeat=2.0, stall_timeout=10.0)),
+    "WF214": (lambda W, t: W.WireConfig(resume=True),
+              lambda W, t: W.WireConfig(resume=True, recovery=True)),
     "WF215": (lambda W, t: _native_df(W), lambda W, t: _native_df(W, True)),
+    "WF216": (lambda W, t: W.PlanePolicy(wire=W.WireConfig.hardened()),
+              lambda W, t: W.PlanePolicy(wire=W.WireConfig(
+                  connect_deadline=60.0, heartbeat=2.0,
+                  stall_timeout=10.0, resume=True, recovery=True))),
+    "WF217": (lambda W, t: _fed_pipe(W, t),
+              lambda W, t: _fed_pipe(W, t, obs=True)),
+    "WF220": (lambda W, t: _plane(W, "orphan"), lambda W, t: _plane(W)),
+    "WF221": (lambda W, t: _plane(W, "dtype"), lambda W, t: _plane(W)),
+    "WF222": (lambda W, t: _plane(W, "resume"), lambda W, t: _plane(W)),
+    "WF223": (lambda W, t: _plane(W, "nosink"), lambda W, t: _plane(W)),
+    "WF224": (lambda W, t: _plane(W, "noagg"), lambda W, t: _plane(W)),
     "WF301": (lambda W, t: _race_pipe(W, guarded=False),
               lambda W, t: _race_pipe(W, guarded=True)),
     "WF302": (lambda W, t: _global_pipe(W, True),
@@ -370,8 +415,7 @@ def reports(factory, tmp_path):
 
 def test_catalog_equal_and_corpus_covers_it():
     assert PT.CATALOG == JX.CATALOG
-    assert set(CORPUS) | set(WAIT_9B) == set(PT.CATALOG)
-    assert not set(CORPUS) & set(WAIT_9B)
+    assert set(CORPUS) == set(PT.CATALOG)
 
 
 @pytest.mark.parametrize("code", sorted(CORPUS))

@@ -28,13 +28,19 @@ def test_forbidden_matches_names_not_prefixes():
     assert not forbidden("windflow_tpu_torch.ops.device")
 
 
-#: the check, control and span-tracing layers: imported only when their
-#: knobs are set
+#: the check, control, span-tracing and federation layers: imported only
+#: when their knobs are set
 LAYER_MODULES = (
     "check", "check.diagnostics", "check.directives", "check.closures",
     "check.effects", "check.config", "check.graph", "check.plane",
     "control", "control.policy", "control.rescale", "control.controller",
-    "obs.trace", "obs.expo")
+    "obs.trace", "obs.expo", "obs.federation", "obs.slo")
+
+#: the row plane, portable checkpoints, the multi-process layout and the
+#: dry run: imported by their users only
+PLANE_MODULES = (
+    "parallel.channel", "parallel.faults", "parallel.multihost",
+    "parallel.plane", "recovery.portable", "dryrun")
 
 
 def run_isolated(code: str, **env):
@@ -66,6 +72,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from windflow_tpu_torch.obs import expo, trace\n"
         "from windflow_tpu_torch import parallel\n"
         "from windflow_tpu_torch.ops import mesh_reduce\n"
+        "from windflow_tpu_torch.obs import federation, slo\n"
+        "from windflow_tpu_torch.parallel import channel, faults\n"
+        "from windflow_tpu_torch.parallel import multihost, plane\n"
+        "from windflow_tpu_torch.recovery import portable\n"
+        "from windflow_tpu_torch import dryrun\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     mods = json.loads(out.strip().splitlines()[-1])
     for m in ("patterns.win_seq_gpu", "patterns.native_core", "ops.resident",
@@ -75,7 +86,7 @@ def test_import_loads_no_jax_and_no_reference_package():
               "patterns.pane_farm", "patterns.win_mapreduce",
               "patterns.nesting", "obs.registry", "recovery.store",
               "runtime.overload", "parallel", "parallel.mesh",
-              "ops.mesh_reduce", *LAYER_MODULES):
+              "ops.mesh_reduce", *LAYER_MODULES, *PLANE_MODULES):
         assert f"windflow_tpu_torch.{m}" in mods
     assert [m for m in mods if forbidden(m)] == []
 
@@ -150,8 +161,9 @@ def test_default_device_raises_without_cuda():
 
 
 def test_unset_knobs_import_no_layer():
-    """check=, control= and trace= unset: a port pipeline's run imports
-    none of the layer modules (the engine imports each lazily)."""
+    """check=, control=, trace= and federate= unset: a port pipeline's run
+    imports none of the layer modules (the engine imports each lazily),
+    nor the plane's."""
     out = run_isolated(
         "import json, sys\n"
         "import numpy as np\n"
@@ -168,5 +180,5 @@ def test_unset_knobs_import_no_layer():
         "print(json.dumps(sorted(sys.modules)))\n", WF_LOG_DIR="")
     mods = set(json.loads(out.strip().splitlines()[-1]))
     assert "windflow_tpu_torch.runtime.engine" in mods
-    assert [m for m in LAYER_MODULES
+    assert [m for m in (*LAYER_MODULES, *PLANE_MODULES)
             if f"windflow_tpu_torch.{m}" in mods] == []

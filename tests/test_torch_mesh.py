@@ -653,3 +653,68 @@ def test_mesh_on_card_equals_cpu_mesh():
                 np.testing.assert_allclose(card, cpu, rtol=1e-6)
             else:
                 assert card.tobytes() == cpu.tobytes()
+
+
+# ------------------------------ long windows against JAX
+
+#: float32 prod: each order's rounding error is at most (n - 1) unit
+#: roundoffs to first order, so two orders differ by at most 2 (n - 1) u
+#: of |x| (u = 2^-24) — the bound the long-window prod twin states
+PROD_U = 2.0 ** -24
+
+
+def _long_windows(seed, KF, N, B):
+    """Windows of 2k-10k rows over (KF, N): across the sp boundaries, a
+    quarter of them running past N into the padding."""
+    g = np.random.default_rng(seed)
+    lens = g.integers(2000, 10001, size=(KF, B))
+    starts = g.integers(0, N - 1000, size=(KF, B))
+    past = g.random((KF, B)) < 0.25
+    starts = np.where(past, N - lens // 2, starts)
+    return starts.astype(np.int32), lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("collective", ["psum", "ring"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("op", OPS6)
+def test_long_windows_match_jax(op, dtype, collective):
+    """Long windows (2k-10k rows, most of a shard above mr.SPLIT clipped
+    rows, so the partial takes its block path) across sp boundaries and
+    past N, every op, against JAX's MeshWindowedReduce: ints, counts, min
+    and max bit for bit; float32 sum and mean within rtol 1e-5 of the
+    window's sum of |x| (over its count for a mean); float32 prod within
+    2 (n - 1) 2^-24 of |x| for a window of n rows."""
+    KF, N, B, n_sp = 2, 24000, 24, 4
+    rng = np.random.default_rng({"int32": 41, "float32": 43}[dtype]
+                                + OPS6.index(op))
+    if op == "prod" and dtype == "float32":
+        flat = rng.uniform(0.999, 1.001, size=(KF, N)).astype(np.float32)
+    elif op == "prod":
+        flat = rng.integers(-3, 4, size=(KF, N)).astype(np.int32)
+    elif dtype == "float32":
+        flat = (rng.standard_normal((KF, N)) * 50).astype(np.float32)
+    else:
+        flat = rng.integers(-50, 50, size=(KF, N)).astype(np.int32)
+    starts, lens = _long_windows(7 + OPS6.index(op), KF, N, B)
+    kw = dict(op=op, collective=collective,
+              dtype=dtype if dtype == "float32" else np.int32)
+    got = port_reduce(KF, n_sp, **kw)(flat, starts, lens)
+    want = np.asarray(jax_reduce(KF, n_sp, **kw)(flat, starts, lens))
+    assert got.shape == want.shape == (KF, B)
+    padded = np.zeros((KF, N + 10000), dtype=np.float64)
+    padded[:, :N] = flat
+    n = np.stack([[len(padded[k, s:s + l]) for s, l in zip(starts[k],
+                                                            lens[k])]
+                  for k in range(KF)])
+    if dtype == "float32" and op in ("sum", "mean"):
+        scale = np.stack([[np.abs(padded[k, s:s + l]).sum()
+                           for s, l in zip(starts[k], lens[k])]
+                          for k in range(KF)])
+        assert_float_close(got, want, scale / n if op == "mean" else scale)
+    elif dtype == "float32" and op == "prod":
+        err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        assert got.dtype == np.float32
+        assert (err <= 2 * (n - 1) * PROD_U * np.abs(want)).all(), \
+            (err / np.abs(want) / (n - 1)).max()
+    else:
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()

@@ -138,12 +138,45 @@ def test_ring_only_warns_wf213():
 
 @pytest.mark.parametrize("owner", ["MultiPipe", "Dataflow"])
 def test_federate_still_refused(owner):
-    """Telemetry federation waits for ROADMAP.md Queue 1 item 9b: the knob
-    raises, naming the item, before anything is built."""
-    from windflow_tpu_torch.api import MultiPipe
-    with pytest.raises(NotImplementedError, match=r"federate=.*item 9b"):
-        (MultiPipe if owner == "MultiPipe" else PT.Dataflow)(
-            "fed", federate=True)
+    """``federate=`` is no longer refused (the name is kept from when it
+    was): since the port carries the federation tier, a traced graph under
+    federate= builds the shipper and the black box and gives JAX's
+    output."""
+    outs = []
+    for W in (JX, PT):
+        fed = importlib.import_module(
+            f"{W.name}.obs.federation").FederationPolicy(host="h",
+                                                         period=0.02)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # ring-only runs warn WF213
+            if owner == "MultiPipe":
+                bfc = importlib.import_module(
+                    f"{W.name}.core.tuples").batch_from_columns
+                schema = W.Schema(value=np.int64)
+                ids = np.arange(12)
+                got = []
+                pipe = (W.MultiPipe("fed", federate=fed, metrics=True,
+                                    trace=0.5)
+                        .add_source(W.Source(batches=iter([bfc(
+                            schema, key=ids % 3, id=ids, ts=ids,
+                            value=ids)]), schema=schema))
+                        .add_sink(W.Sink(lambda r: got.append(r.copy())
+                                         if r is not None and len(r)
+                                         else None, vectorized=True)))
+                pipe.run_and_wait_end()
+                df, out = pipe._df, np.concatenate(got).tobytes()
+            else:
+                df = W.Dataflow("fed", federate=fed, metrics=True,
+                                trace=0.5)
+                s, m, k = (df.add(x) for x in _linear_graph(W, 6))
+                df.connect(s, m)
+                df.connect(m, k)
+                df.run_and_wait_end()
+                out = np.concatenate(k.got).tobytes()
+        assert df.federation is not None and df.federation.host == "h"
+        assert df._blackbox is not None
+        outs.append(out)
+    assert outs[0] == outs[1]
 
 
 def test_trace_off_results_byte_identical():

@@ -229,8 +229,8 @@ def test_device_farm_workers_each_own_an_executor():
 
 def test_multipipe_matches_jax_and_refuses_unported_layers():
     """The carried MultiPipe composes Source -> WinFarmGPU -> Sink like the
-    JAX package's; the knob of the layer the port lacks (federate=) raises
-    at once, and those of the layers it carries are taken."""
+    JAX package's, and takes every layer's knob as JAX's does (the name is
+    kept from when federate=, whose layer the port then lacked, raised)."""
     from windflow_tpu.api import MultiPipe as JaxMultiPipe
     from windflow_tpu.core.tuples import Schema as JaxSchema
     from windflow_tpu.patterns.basic import Sink as JaxSink
@@ -254,8 +254,8 @@ def test_multipipe_matches_jax_and_refuses_unported_layers():
         rows = np.concatenate(got)
         outs.append(np.sort(rows, order=["key", "id"]).tobytes())
     assert outs[0] == outs[1]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        wt.MultiPipe("p", federate=True)
+    assert (wt.MultiPipe("p", federate=True).federate
+            == JaxMultiPipe("p", federate=True).federate is True)
     from windflow_tpu_torch.control import Admission, ControlPolicy
     ctl = ControlPolicy([Admission(max_rate=10, min_rate=1, high_depth=8,
                                    low_depth=2)])

@@ -1,9 +1,6 @@
 """MultiPipe — the linear pipeline composer (reference multipipe.hpp:
 ``add_source / add / chain / add_sink / chain_sink / unionMultiPipes /
-run / run_and_wait_end``).  A copy of ``windflow_tpu/api/multipipe.py``;
-``federate=``, whose layer the port does not have yet (ROADMAP.md Queue 1
-item 9b), is refused when the pipe is made, as the port's engine refuses
-it.
+run / run_and_wait_end``).  A copy of ``windflow_tpu/api/multipipe.py``.
 
 The reference builds nested ff_a2a "matrioskas" and splices emitters onto
 producer pipelines at add time (multipipe.hpp:174-240).  Here composition is
@@ -27,7 +24,7 @@ from __future__ import annotations
 
 from ..core.windows import WinType
 from ..runtime.comb import make_comb
-from ..runtime.engine import Dataflow, refuse_unported_layers
+from ..runtime.engine import Dataflow
 from ..runtime.farm import add_farm
 from ..runtime.ordering import OrderingMode, OrderingNode
 
@@ -124,7 +121,6 @@ class MultiPipe:
             raise ValueError(f"check= wants one of {Dataflow.CHECK_MODES}, "
                              f"got {check!r}")
         self.check = check
-        refuse_unported_layers("MultiPipe", federate)
         #: control/policy.ControlPolicy — the closed-loop control plane
         #: (docs/CONTROL.md): elastic rescale at epoch barriers, adaptive
         #: shedding, source admission.  None (default) keeps seed-
@@ -141,8 +137,8 @@ class MultiPipe:
         #: telemetry tier (docs/OBSERVABILITY.md "Federation & SLOs"):
         #: snapshot shipping over the row plane, local SLO burn rates,
         #: and the crash black-box.  Falsy (default) keeps seed-
-        #: identical behavior and never imports an obs
-        #: .federation / .slo.
+        #: identical behavior and never imports
+        #: windflow_tpu_torch.obs.federation / .slo.
         self.federate = federate
         self._stages: list[tuple[str, object]] = []  # (kind, pattern)
         self._branches: list[MultiPipe] = []

@@ -45,13 +45,23 @@ __all__ = ["KF_AXIS", "WF_AXIS", "SP_AXIS", "DeviceMesh", "make_mesh",
 class DeviceMesh:
     """A (kf, wf, sp) grid of torch devices: ``devices`` is the
     ``(n_kf, n_wf, n_sp)`` object array, ``shape`` the dict from axis name
-    to size in that order, ``axis_names`` the names."""
+    to size in that order, ``axis_names`` the names.  ``processes``, where
+    set (parallel/multihost.py), is the int array of the same shape naming
+    the process that owns each entry: a ``torch.device`` carries no process
+    index, and two processes may both hold ``cuda:0``.  Unset, every entry
+    belongs to the process that built the mesh."""
 
     def __init__(self, devices: np.ndarray,
-                 axis_names=(KF_AXIS, WF_AXIS, SP_AXIS)):
+                 axis_names=(KF_AXIS, WF_AXIS, SP_AXIS), processes=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        if processes is not None:
+            processes = np.asarray(processes, dtype=np.int64)
+            if processes.shape != devices.shape:
+                raise ValueError(f"processes {processes.shape} must match "
+                                 f"the device grid {devices.shape}")
+        self.processes = processes
 
     def __repr__(self):
         return (f"DeviceMesh({self.shape}, devices="

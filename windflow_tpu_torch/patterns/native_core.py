@@ -11,7 +11,7 @@ stats (``_multi``), one narrowed int64 column per field into the torch
 pure-Python core transparently when a payload field is not int64 (the
 native ABI ships int64 columns).  The port binds the same
 ``native/libwfnative.so`` as the JAX package, so state blobs carry across
-as bytes.  Meshes are a later slice and raise ``NotImplementedError``.
+as bytes.
 """
 
 from __future__ import annotations

@@ -352,16 +352,6 @@ def _make_inbox(capacity: int, failed: threading.Event,
     return Inbox(capacity, failed, policy)
 
 
-def refuse_unported_layers(owner: str, federate):
-    """Telemetry federation is not in the port yet (ROADMAP.md Queue 1
-    item 9b, with the row plane it ships over): refuse ``federate=``
-    instead of running without it."""
-    if federate:
-        raise NotImplementedError(
-            f"{owner}(federate=...) is not ported to windflow_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 9b)")
-
-
 class Dataflow:
     """A graph of nodes executed by one thread per node
     (MultiPipe::run_and_wait_end spawns cardinality()-1 threads,
@@ -413,7 +403,6 @@ class Dataflow:
         if check not in self.CHECK_MODES:
             raise ValueError(f"check= wants one of {self.CHECK_MODES}, "
                              f"got {check!r}")
-        refuse_unported_layers("Dataflow", federate)
         # `control` (control/policy.ControlPolicy) opts the graph into the
         # closed-loop control plane (docs/CONTROL.md): a controller fed by
         # the observability sampler drives elastic rescale, adaptive
@@ -529,9 +518,37 @@ class Dataflow:
             self.trace = None
             self.tracer = None
             self._Stamped = None
-        self.federate = None
-        #: the federation shipper and black box: None until federate=
-        #: is ported (ROADMAP.md Queue 1 item 9b)
+        # `federate` (obs/federation.FederationPolicy, or True; any
+        # falsy value = OFF) opts the process into the plane-wide
+        # telemetry tier (docs/OBSERVABILITY.md "Federation & SLOs"): a
+        # shipper rides the sampler and ships compact snapshots over
+        # the row plane's -8 frames (once the app binds the plane's
+        # senders, `df.federation.bind(senders)`), local SLO objectives
+        # evaluate per sample, and the black-box flight recorder dumps
+        # the bounded in-memory rings on node_error / recovery give-up.
+        # Unset means obs.federation / obs.slo are never imported and
+        # no -8 frame is ever sent — the same contract as trace=.
+        if federate:
+            from ..obs.federation import as_policy as _fed_as_policy
+            self.federate = _fed_as_policy(federate)
+            if self.metrics is None:
+                # the shipper's only source is the sampler: with
+                # neither metrics= nor sample_period= no snapshot is
+                # ever built and the whole tier is silently inert —
+                # the WF209 shape of silent no-op, warned once here
+                # and reported by check/ as WF217 (docs/CHECKS.md)
+                import warnings
+                warnings.warn(
+                    f"[WF217] Dataflow {name!r}: federate= is set but "
+                    f"neither metrics= nor sample_period= is — the "
+                    f"shipper's only source is the sampler, so nothing "
+                    f"is ever shipped and federation is inert",
+                    stacklevel=2)
+        else:
+            self.federate = None
+        #: the live FederationShipper (built in run(), before the node
+        #: threads, when federate= and metrics= are both set); apps bind
+        #: the row plane with ``df.federation.bind(senders)``
         self.federation = None
         self._blackbox = None
         if control is not None and self.metrics is None:
@@ -1165,21 +1182,44 @@ class Dataflow:
             self.events.emit("dataflow_start", dataflow=self.name,
                              nodes=len(self.nodes),
                              sample_period=self.sample_period)
-        for node in self.nodes:
-            t = threading.Thread(target=self._run_node, args=(node,),
-                                 name=f"{self.name}/{node.name}", daemon=True)
-            self._threads.append(t)
-            t.start()
         period = self.sample_period
         if period is None and self._controller is not None:
             # control without an explicit cadence: the sampler is the
             # controller's sensor bus, so run it at the policy's period
             period = self.control.period
+        if (period is None and self.federate is not None
+                and self.metrics is not None):
+            # federation without an explicit cadence: the shipper rides
+            # the sampler, so run it at the ship period
+            period = self.federate.period
+        if self.federate is not None and self.metrics is not None:
+            # the plane-wide telemetry tier (docs/OBSERVABILITY.md
+            # "Federation & SLOs"): the shipper rides the sampler like the
+            # controller does; the app binds the row plane's senders with
+            # df.federation.bind(senders).  Built BEFORE the node threads:
+            # a node that fails on its first batch must find the black box
+            # in place, or its node_error dumps nothing.
+            from ..obs.federation import BlackBox, FederationShipper
+            self.federation = FederationShipper(
+                self.federate, host=self.federate.host or self.name,
+                dataflow_name=self.name, metrics=self.metrics,
+                events=self.events)
+            if self.federate.blackbox:
+                self._blackbox = BlackBox(
+                    self.trace_dir, self.name, events=self.events,
+                    tracer=self.tracer, shipper=self.federation)
+        for node in self.nodes:
+            t = threading.Thread(target=self._run_node, args=(node,),
+                                 name=f"{self.name}/{node.name}", daemon=True)
+            self._threads.append(t)
+            t.start()
         if period is not None and self._sampler is None:
             from ..obs.sampler import Sampler
             self._sampler = Sampler(self, period)
             if self._controller is not None:
                 self._sampler.subscribe(self._controller.on_sample)
+            if self.federation is not None:
+                self._sampler.subscribe(self.federation.on_sample)
             self._sampler.start()
 
     def wait(self, timeout: float = None):
