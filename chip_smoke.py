@@ -199,7 +199,32 @@ catches its own failure):
    journal's tail through takeover_receiver): the merged rows per key in
    order against the uncrashed single-process run and the total against
    the oracle; the adoption epoch, the handoff seconds and
-   ckpt_shipped_bytes.
+   ckpt_shipped_bytes;
+22. soak: scripts/torch_soak_crash.py's native cases 0-23 of seed 11 in
+   this process on cuda:0 (WinSeqGPU(Reducer("sum", "value"), ...) of
+   windows of 2-15 rows, batch_len 16/32/64, 1-2 shards, CB or TB,
+   killed 1-2 times and restored from the native state blob): each equal
+   to its uncrashed run row for row (the script's check), the uncrashed
+   run to a numpy oracle of per-window sums; per case its params, rows,
+   restarts and launches (soak_case), ring_append_regular_sum,
+   ring_append and windowed_reduce each launched across the cases; then
+   host cases of the crash (8), rescale, wire and handoff (4 each)
+   twins;
+23. lint: scripts/torch_wf_lint.py --error --json in a fresh interpreter
+   over the four apps and the six twins with a wf_check_pipelines()
+   hook: exit 0, no diagnostic;
+24. roll: scripts/torch_wf_roll.py's sequencer (drain -> seal -> hand-off
+   -> restart with resume_epoch=) over a Drain-controlled feeder in this
+   process and two worker processes, each a NativeResidentCore on the
+   card at sum_test's width (plane (b)'s stream: 4M tuples, 64 keys, 16
+   epochs), rolled at epochs 5 and 11: at the seal the worker drains its
+   core, writes the epoch's rows, saves the native blob in its
+   CheckpointStore and only then acks; the restarted process restores
+   the blob into a fresh core; the merged rows per key in order against
+   the uncrashed single-process run, the total against the oracle, the
+   fused kernel launched by each restarted process; the wall time, each
+   roll's restart gap and fused launches before and after; then the
+   script's host differential (run_roll, 8 epochs).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append, windowed_reduce and ring_append_regular_sum must have
@@ -3627,6 +3652,166 @@ def plane_phase(device=DEVICE, n_tuples=PLANE_TUPLES,
             + surv["launches"][name] for name in surv["launches"]}
 
 
+# the operator phases (22-24): the port's twins of the repo's soak, lint
+# and roll scripts (scripts/torch_*.py), loaded by path
+SOAK_SEED = 11
+SOAK_NATIVE_CASES = 24
+SOAK_HOST_CASES = 8
+SOAK_OTHER_CASES = 4                 # of the rescale, wire and handoff twins
+RESIDENT_KERNELS = ("ring_append_regular_sum", "ring_append",
+                    "windowed_reduce")
+ROLL_HOST_EPOCHS = 8
+LINT_APPS = ("ysb", "pipe", "spatial", "micro")
+LINT_TWINS = ("torch_soak_overload", "torch_soak_crash", "torch_soak_rescale",
+              "torch_soak_wire", "torch_soak_handoff", "torch_wf_roll")
+
+
+def load_script(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_oracle(batches, win, slide):
+    """{key: [(window id, sum), ...]} of a soak case's stream: the sums of
+    each key's values in id order over windows every ``slide`` rows from
+    row 0, the partial ones at EOS included (ts = id, so a TB window
+    covers the same rows as a CB one)."""
+    rows = np.concatenate(batches)
+    out = {}
+    for k in np.unique(rows["key"]):
+        v = rows["value"][rows["key"] == k]
+        c = np.concatenate([[0], np.cumsum(v)])
+        starts = np.arange((len(v) - 1) // slide + 1) * slide
+        out[int(k)] = list(enumerate(
+            (c[np.minimum(starts + win, len(v))] - c[starts]).tolist()))
+    return out
+
+
+def soak_phase(device=DEVICE, n_native=SOAK_NATIVE_CASES,
+               n_host=SOAK_HOST_CASES, n_other=SOAK_OTHER_CASES):
+    """Phase 22: scripts/torch_soak_crash.py's native cases on ``device``
+    (each crashed run equal to its uncrashed run, checked by the script,
+    and the uncrashed run to soak_oracle), with every case's launches and
+    the three resident kernels each launched across them; then host
+    cases of the crash, rescale, wire and handoff twins.  Returns the
+    native cases' launches."""
+    sc = load_script("torch_soak_crash")
+    on_card = torch.device(device).type == "cuda"
+    wrappers, kinds = kernel_wrappers(), set()
+    t0 = time.perf_counter()
+    with kernel_launches() as counts:
+        for c in range(n_native):
+            before = {n: wrappers[n].launches for n in RESIDENT_KERNELS}
+            report = {}
+            params = sc.run_case_native(SOAK_SEED, c, device=device,
+                                        report=report)
+            got = {}
+            for k, i, v in report["oracle"]:
+                got.setdefault(k, []).append((i, v))
+            if got != soak_oracle(report["batches"], params["win"],
+                                  params["slide"]):
+                raise AssertionError(
+                    f"soak case {c}: the uncrashed run differs from the "
+                    f"numpy oracle (params {params})")
+            kinds |= {params["win_type"], f"shards={params['shards']}"}
+            emit("soak_case", case=c, params=params,
+                 rows=len(report["got"]), restarts=report["restarts"],
+                 launches={n: wrappers[n].launches - before[n]
+                           for n in RESIDENT_KERNELS})
+        _sync(device)
+    native_s = time.perf_counter() - t0
+    if not {"CB", "TB", "shards=2"} <= kinds:
+        raise AssertionError(f"soak: the cases drew only {sorted(kinds)}")
+    if on_card:
+        require_launches("soak", counts, RESIDENT_KERNELS)
+    t0, host = time.perf_counter(), {}
+    for name, seed, n in (("torch_soak_crash", SOAK_SEED, n_host),
+                          ("torch_soak_rescale", 23, n_other),
+                          ("torch_soak_wire", 7, n_other),
+                          ("torch_soak_handoff", SOAK_SEED, n_other)):
+        mod = sc if name == "torch_soak_crash" else load_script(name)
+        t1 = time.perf_counter()
+        for c in range(n):
+            mod.run_case(seed, c)
+        host[name] = {"seed": seed, "cases": n,
+                      "seconds": time.perf_counter() - t1}
+    emit("soak", seed=SOAK_SEED, native_cases=n_native,
+         native_seconds=native_s, kinds=sorted(kinds), launches=counts,
+         host_cases=host, host_seconds=time.perf_counter() - t0,
+         nvidia_smi=nvidia_smi_line() if on_card else None)
+    return counts
+
+
+def lint_phase():
+    """Phase 23: scripts/torch_wf_lint.py, in a fresh interpreter, over
+    the port's apps and every twin with a wf_check_pipelines() hook:
+    exit 0 under --error, no diagnostic."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    targets = ([f"windflow_tpu_torch.apps.{a}" for a in LINT_APPS]
+               + [os.path.join("scripts", f"{s}.py") for s in LINT_TWINS])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("WF_LOG_DIR", "WF_SAMPLE_PERIOD"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable,
+                        os.path.join(root, "scripts", "torch_wf_lint.py"),
+                        "--error", "--json", *targets],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=CHILD_TIMEOUT)
+    if r.returncode != 0:
+        raise AssertionError(f"lint: exit {r.returncode}\n{r.stdout}"
+                             f"\n{r.stderr[-4000:]}")
+    doc = json.loads(r.stdout)
+    if doc["diagnostics"] or doc["targets"] < len(targets):
+        raise AssertionError(f"lint: {doc}")
+    emit("lint", modules=targets, targets=doc["targets"], diagnostics=0,
+         exit_code=r.returncode, seconds=time.perf_counter() - t0)
+
+
+def roll_phase(device=DEVICE, n_tuples=ADOPT_TUPLES):
+    """Phase 24: scripts/torch_wf_roll.py's sequencer over two worker
+    processes, each a NativeResidentCore on ``device`` at sum_test's
+    width (adopt_stream: n_tuples, 64 keys, two batches an epoch), rolled
+    at the script's ROLL_AT (drain -> seal: the core drained, the epoch's
+    rows written, the native blob saved, then the ack -> hand-off ->
+    restart restoring the blob into a fresh core with resume_epoch=); the
+    merged rows equal the uncrashed single-process run per key, in order,
+    and the oracle's total, and each restarted process launched the fused
+    kernel (both checked by the script).  Then the script's host differential,
+    run_roll.  Returns every worker process's launches, summed."""
+    roll = load_script("torch_wf_roll")
+    on_card = torch.device(device).type == "cuda"
+    root = tempfile.mkdtemp(prefix="wf_roll_")
+    try:
+        native_root, host_root = (os.path.join(root, d)
+                                  for d in ("native", "host"))
+        os.makedirs(native_root)
+        os.makedirs(host_root)
+        out = roll.run_native_roll(native_root, device=device,
+                                   n_tuples=n_tuples, n_epochs=ADOPT_EPOCHS)
+        if on_card:
+            require_launches("roll", out["launches"],
+                             ("ring_append_regular_sum",))
+        emit("roll", workload=f"{n_tuples} tuples 64 keys CB win=256 "
+             f"slide=64, {ADOPT_EPOCHS} epochs, feeder + 2 native workers, "
+             f"rolled at epochs {list(roll.ROLL_AT)}", **out,
+             nvidia_smi=nvidia_smi_line() if on_card else None)
+        t0 = time.perf_counter()
+        host = roll.run_roll(host_root, n_epochs=ROLL_HOST_EPOCHS)
+        emit("roll_host", epochs=ROLL_HOST_EPOCHS, **host,
+             seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out["launches"]
+
+
 def child_main(argv) -> int:
     """Entry of the plane phase's child processes."""
     role, args = argv[0], argv[1:]
@@ -3671,6 +3856,9 @@ def main() -> int:
     mesh_launches, mesh_rows = mesh_phase()
     new_paths["recover"] = recover_phase()
     new_paths["plane"] = plane_phase()
+    new_paths["soak"] = soak_phase()
+    lint_phase()
+    new_paths["roll"] = roll_phase()
     emit("new_path_launches", **new_paths)
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]

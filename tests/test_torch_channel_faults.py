@@ -805,19 +805,42 @@ def test_open_row_plane_resume_knob_plumbs_through():
             r.close()
 
 
-def _port_script(name):
-    """scripts/<name>.py loaded with every ``windflow_tpu.`` import
-    pointed at ``windflow_tpu_torch.``: the reference harness driving the
+def test_restarted_receiver_waits_for_its_old_address():
+    """A receiver restarted on its old address (``resume_epoch=``: a roll
+    in place, a takeover) retries a bind that finds the port still held
+    (here by another listener, released after 0.3 s; in a roll in place,
+    by the old receiver's listening socket until its accept thread leaves
+    its poll); a fresh receiver on a taken port still fails at once.
+    (Found by scripts/torch_soak_handoff.py's roll-in-place case on the
+    card's host: EADDRINUSE at the rebind.)"""
+    from windflow_tpu_torch.parallel.channel import RowReceiver, WireResume
+    holder = socket.create_server(("127.0.0.1", 0))
+    port = holder.getsockname()[1]
+    with pytest.raises(OSError):
+        RowReceiver(1, port=port)
+    release = threading.Timer(0.3, holder.close)
+    release.start()
+    t0 = time.monotonic()
+    recv = RowReceiver(1, port=port, resume=WireResume(deadline=5.0),
+                       resume_epoch=3, accept_timeout=5.0)
+    try:
+        assert recv.port == port
+        assert time.monotonic() - t0 >= 0.25
+    finally:
+        release.join()
+        recv.close()
+
+
+def _twin_script(name):
+    """scripts/torch_<name>.py, the reference harness's twin over the
     port."""
+    import importlib.util
     import os
-    import types
     path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts",
-                        f"{name}.py")
-    with open(path) as f:
-        src = f.read().replace("windflow_tpu.", "windflow_tpu_torch.")
-    mod = types.ModuleType(f"{name}_port")
-    mod.__file__ = path
-    exec(compile(src, path, "exec"), mod.__dict__)
+                        f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
     return mod
 
 
@@ -825,8 +848,8 @@ def _port_script(name):
 def test_soak_wire_slice():
     """Small in-suite slice of scripts/soak_wire.py (the full soak is a
     standalone seeded harness, docs/ROBUSTNESS.md "Wire resume"), its
-    cases run over the port's channel: the script's source with the
-    package name changed."""
-    mod = _port_script("soak_wire")
+    cases run over the port's channel by its twin,
+    scripts/torch_soak_wire.py."""
+    mod = _twin_script("soak_wire")
     for case in range(6):
         mod.run_case(seed=7, case=case)

@@ -136,6 +136,46 @@ def test_no_forbidden_import_in_source(path):
     assert [n for n in names if forbidden(n)] == []
 
 
+def forbidden_in_script(name: str) -> bool:
+    """The port's scripts also keep off bench.py, which imports the JAX
+    package."""
+    return forbidden(name) or name == "bench" or name.startswith("bench.")
+
+
+def _imported_names(tree):
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch_*.py")))
+def test_port_scripts_import_nothing_of_jax(path):
+    """scripts/torch_*.py, the port's operator scripts: no import of JAX,
+    the JAX package or bench.py, nor an exec'd child source naming one."""
+    tree = ast.parse((REPO / path).read_text())
+    names = _imported_names(tree)
+    for node in ast.walk(tree):     # the children's sources, as strings
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and "import " in node.value and "\n" in node.value):
+            try:
+                names += _imported_names(ast.parse(node.value))
+            except SyntaxError:
+                pass
+    assert "windflow_tpu_torch" in " ".join(names)
+    assert [n for n in names if forbidden_in_script(n)] == []
+
+
+def test_forbidden_in_script_matches_bench():
+    assert forbidden_in_script("bench") and forbidden_in_script("jax")
+    assert not forbidden_in_script("benchmarks")
+    assert not forbidden_in_script("windflow_tpu_torch.apps.ysb")
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -447,19 +447,16 @@ def test_open_supervised_plane_roundtrip(tmp_path):
         r1.close()
 
 
-def _port_script(name):
-    """scripts/<name>.py loaded with every ``windflow_tpu.`` import
-    pointed at ``windflow_tpu_torch.``: the reference harness driving the
+def _twin_script(name):
+    """scripts/torch_<name>.py, the reference harness's twin over the
     port."""
+    import importlib.util
     import os
-    import types
     path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts",
-                        f"{name}.py")
-    with open(path) as f:
-        src = f.read().replace("windflow_tpu.", "windflow_tpu_torch.")
-    mod = types.ModuleType(f"{name}_port")
-    mod.__file__ = path
-    exec(compile(src, path, "exec"), mod.__dict__)
+                        f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
     return mod
 
 
@@ -467,9 +464,9 @@ def _port_script(name):
 def test_soak_handoff_slice():
     """Small in-suite slice of scripts/soak_handoff.py (the full soak is
     a standalone seeded harness, docs/ROBUSTNESS.md "Cross-host
-    recovery"), its cases run over the port's plane: the script's source
-    with the package name changed."""
-    mod = _port_script("soak_handoff")
+    recovery"), its cases run over the port's plane by its twin,
+    scripts/torch_soak_handoff.py."""
+    mod = _twin_script("soak_handoff")
     for case in range(4):
         mod.run_case(seed=11, case=case)
 

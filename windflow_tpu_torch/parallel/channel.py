@@ -1087,6 +1087,28 @@ class RowSender:
             self._sock.close()
 
 
+#: seconds a restarted receiver (``resume_epoch=``) retries binding its
+#: old address when no ``accept_timeout`` bounds it
+_REBIND_PATIENCE = 30.0
+
+
+def _bind_server(host: str, port: int, backlog: int, patience: float):
+    """``socket.create_server``, retried on EADDRINUSE for up to
+    ``patience`` seconds.  A receiver restarted on its old address in the
+    same process (a roll in place) can find the old listening socket not
+    yet released: ``close()`` frees it only once the old receiver's
+    accept thread leaves its poll (up to 0.5 s where ``shutdown()`` does
+    not wake it), and until then the port is taken."""
+    t_end = time.monotonic() + patience
+    while True:
+        try:
+            return socket.create_server((host, port), backlog=backlog)
+        except OSError as e:
+            if e.errno != errno.EADDRINUSE or time.monotonic() >= t_end:
+                raise
+            time.sleep(0.01)
+
+
 class RowReceiver:
     """Server end: accepts ``n_senders`` connections and yields their
     batches until every sender closes.
@@ -1146,8 +1168,10 @@ class RowReceiver:
         # acks only exist on the resume protocol: the flag is inert
         # (and batches() stays seed-identical) without it
         self._auto_ack = bool(ack_epochs) and self._resume is not None
-        self._srv = socket.create_server((host, port),
-                                         backlog=self.n_senders)
+        self._srv = _bind_server(
+            host, port, self.n_senders,
+            (accept_timeout or _REBIND_PATIENCE)
+            if resume_epoch is not None and port else 0.0)
         self.host, self.port = self._srv.getsockname()[:2]
         self._q = queue.Queue(maxsize=capacity)
         self._conns: list[socket.socket] = []
