@@ -42,10 +42,22 @@ catches its own failure):
 4b. big_ring: a ring of 16 x 2^28 int32 cells (2^32 cells, 16 GiB) through
    ResidentWindowExecutor.launch: two appends at the ends of its rows, then
    sum, max and min of windows on its last row, whose cells lie past flat
-   offset 2^32 (some ending at the ring's last cell), in one windowed-reduce
-   launch, held against the plain
-   version on that row (the int32 flat starts of the kernel before could
-   not reach them);
+   offset 2^32 (some ending at the ring's last cell, four longer than the
+   split), in one ring_append_eval launch, held against the plain version
+   and, bit for bit, against the twin on that row (the int32 flat starts
+   of the kernel before could not reach them);
+4c. append_eval: ring_append_eval (the append and every op of an
+   irregular dispatch in one launch) against its plain version and, bit
+   for bit, against append_eval_order_twin (plain torch on the card), two
+   launches equal and the long-window counters left at zero, at YSB 10 s's
+   shape (25 windows of ~325k cells on a 32 x 2^19 ring), the
+   deterministic YSB shape (50 windows of ~16.6k cells), sum_test's max
+   prefix (8,192 windows of 256 cells), 1,024 windows of 1k-8k cells, and
+   48 soak-sized odd cases (tiny rings, odd rectangles with zero rows and
+   columns, offsets at every residue mod 4, windows past the row's end,
+   B = 0, count, every wire x accumulate dtype, small splits and chunks);
+   each main shape timed cold and hot beside its bytes bound, the empty
+   launch and the old ring_append + windowed_reduce pair;
 5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
    256, 64, CB, use_reduce_kernel=True) -> Sink) over 16M tuples of 64 keys,
    held against a numpy oracle, with the kernel's launch count read around
@@ -55,13 +67,13 @@ catches its own failure):
    batch_len=32768, flush_rows=2**19, depth=48, shards=1) — the C++
    NativeResidentCore feeding the ring kernels — over 16M tuples against
    the oracle, with the ring kernels' launch counts read around that run:
-   one fused launch a regular flush, ring_append only with the irregular
-   windowed_reduce launches, one each (a 1M-tuple prefix is first held
-   against the host core);
+   one fused launch a regular flush, one ring_append_eval an irregular
+   launch, never ring_append or windowed_reduce (a 1M-tuple prefix is
+   first held against the host core);
 7. irregular_and_python_core: Reducer("max") on the native core (irregular
-   launches: the windowed-reduce kernel on the ring) and Reducer("sum") on
-   the Python ResidentWinSeqCore, 1M tuples each, byte for byte against
-   the host core;
+   launches: ring_append_eval) and Reducer("sum") on the Python
+   ResidentWinSeqCore, 1M tuples each, byte for byte against the host
+   core, every ring_append_eval call against its plain version and twin;
 8. gather_kernel: window_gather against its plain version at the spatial
    shape (256 windows, pad 4096, two float32 rings of 8 x 4M cells, the
    rings the spatial run allocates: one launch) and on int32 rings, at
@@ -105,14 +117,16 @@ catches its own failure):
    wmr-gpu (WinMapReduceGPU, the MAP stage on the card), every window's
    (count, lastUpdate, revenue) against a numpy bincount oracle, a 1M-event
    prefix of each row for row against the port's host kf, and each run's
-   kernel launches (ring_append and windowed_reduce both launched); then
-   windowed_reduce against its plain version at the descriptors of every
-   kf-gpu evaluation (YSB's long TB windows), timed on the largest beside
-   its bound (ysb_reduce);
+   kernel launches (one ring_append_eval a dispatch, never the old
+   pair); then ring_append_eval against its plain version and its twin at
+   the inputs of every call of the run (YSB's long TB windows), timed on
+   the largest beside its bound and the old pair (ysb_append_eval);
 15. ysb_timed: apps.ysb.run("kf-gpu") and run("wmr-gpu") at the app's
    defaults (a warm-up, then 10 s of full-speed generation): events/s,
    ingest events/s, p95/p99 latency, the launch diagnostics
-   (stats_snapshot) and the kernel launches;
+   (stats_snapshot) and the kernel launches (one ring_append_eval a
+   dispatch), every ring_append_eval call checked and the largest timed
+   as in 14 (kf-gpu's: the kernels line's ring_append_eval row);
 16. pipe_test: apps.pipe.run (pipe_test_gpu: Source -> Map -> Filter ->
    WinFarmGPU(sum, CB 256/64, 64 keys, pardegree 2) -> Sink): a warm-up,
    then one timed run of 8M tuples whose total and window count must equal
@@ -146,10 +160,12 @@ catches its own failure):
    sum_test's 16M tuples through WinSeqGPU(Reducer("sum", value_range=(0,
    100)), ..., mesh=make_mesh(n_kf=4)) — the C++ core feeding
    MeshResidentExecutor.launch_regular, one fused ring_append_regular_sum
-   launch on each of the 4 shards a regular flush — against the oracle,
-   its 1M-tuple prefix per key against the un-meshed resident route; (b)
-   a 1M-tuple Reducer("max") prefix on the mesh (irregular launches:
-   ring_append and windowed_reduce on every shard); (c) the two-field
+   launch on each of the 4 shards a regular flush, one ring_append_eval on
+   each an irregular one — against the oracle, its 1M-tuple prefix per
+   key against the un-meshed resident route; (b) a 1M-tuple
+   Reducer("max") prefix on the mesh (irregular launches: one
+   ring_append_eval a shard a dispatch, with or without windows); (c) the
+   two-field
    MultiReducer's 4M tuples on the mesh (the native _multi branch over
    MeshMultiFieldResidentExecutor); (b) and (c) per key against the
    un-meshed route; each run's launches per shard (from the shards'
@@ -206,8 +222,8 @@ catches its own failure):
    killed 1-2 times and restored from the native state blob): each equal
    to its uncrashed run row for row (the script's check), the uncrashed
    run to a numpy oracle of per-window sums; per case its params, rows,
-   restarts and launches (soak_case), ring_append_regular_sum,
-   ring_append and windowed_reduce each launched across the cases; then
+   restarts and launches (soak_case), ring_append_regular_sum and
+   ring_append_eval each launched across the cases; then
    host cases of the crash (8), rescale, wire and handoff (4 each)
    twins;
 23. lint: scripts/torch_wf_lint.py --error --json in a fresh interpreter
@@ -227,10 +243,10 @@ catches its own failure):
    script's host differential (run_roll, 8 epochs).
 
 The new paths' launch counts are printed together (new_path_launches), and
-each of ring_append, windowed_reduce and ring_append_regular_sum must have
-been launched on one of them; the mesh runs' launches follow
-(mesh_launches).  Then it prints the kernels' JSON line (seven kernels,
-each with the empty-launch floor beside its times), the nvidia-smi line,
+each of ring_append_eval and ring_append_regular_sum must have been
+launched on one of them; the mesh runs' launches follow (mesh_launches).
+Then it prints the kernels' JSON line (eight kernels, each with the
+empty-launch floor beside its times), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
 result when no CUDA device is visible or when the package is missing.
@@ -238,6 +254,7 @@ result when no CUDA device is visible or when the package is missing.
 
 import collections
 import contextlib
+import dataclasses
 import inspect
 import itertools
 import json
@@ -930,9 +947,12 @@ BIG_KEYS, BIG_CAP = 16, 1 << 28
 def big_ring_phase(wr):
     """Windows on the last row of a ring of BIG_KEYS x BIG_CAP int32 cells,
     through ResidentWindowExecutor.launch: an append at each row's end
-    minus 8192, then one at its end minus 4096 with windows over both,
-    sum, max and min in one windowed_reduce launch, held against the plain
-    version on that row (and the appended cells against the rectangles)."""
+    minus 8192, then one at its end minus 4096 with windows over both
+    (a few of them longer than the split, so the long-window chunks run
+    there too), sum, max and min, each launch one ring_append_eval; held
+    against the plain version and, bit for bit, against the twin on that
+    row (and the appended cells against the rectangles)."""
+    from windflow_tpu_torch.ops import ring as rk
     from windflow_tpu_torch.ops.resident import ResidentWindowExecutor
     gen = np.random.default_rng(17)
     ex = ResidentWindowExecutor(("sum", "max", "min"), device=DEVICE)
@@ -954,16 +974,24 @@ def big_ring_phase(wr):
     # 16-byte group of the window or seven (the ring's last cells)
     lens[3:7] = (4, 28, 1, 25)
     starts[3:7] = BIG_CAP - lens[3:7]
+    # long windows (past the split): across both appends, and to the end
+    lens[7:11] = (2 * R, 6001, 2049, 4099)
+    starts[7:11] = BIG_CAP - lens[7:11] - np.array([0, 3, 1001, 0])
     rows = np.full(B, BIG_KEYS - 1, np.int32)
     empty = np.zeros(0, np.int32)
-    before = wr.windowed_reduce.launches
     ex.launch("fill", blks[0], offs[0], empty, empty, empty)
+    ex.drain()
+    # the last row as the eval launch finds it, for the twin
+    last_before = ex._ring[BIG_KEYS - 1:BIG_KEYS].clone()
+    counts = {k: w.launches for k, w in kernel_wrappers().items()}
     ex.launch("eval", blks[1], offs[1], rows, starts, lens)
     ready = ex.drain()
-    launches = wr.windowed_reduce.launches - before
-    if [m for m, _ in ready] != ["fill", "eval"] or launches != 1:
+    counts = {k: w.launches - counts[k]
+              for k, w in kernel_wrappers().items()}
+    if [m for m, _ in ready] != ["eval"] or counts["ring_append_eval"] != 1 \
+            or counts["ring_append"] or counts["windowed_reduce"]:
         raise AssertionError(f"big ring: {[m for m, _ in ready]}, "
-                             f"{launches} windowed_reduce launches")
+                             f"launches {counts}")
     ring = ex._ring
     last = ring[BIG_KEYS - 1:BIG_KEYS]
     tail = last[0, BIG_CAP - 2 * R:].cpu().numpy()
@@ -973,17 +1001,353 @@ def big_ring_phase(wr):
                              "differ from the rectangles")
     d = [torch.from_numpy(a).to(DEVICE) for a in (starts, lens)]
     zero = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    pad = 1 << 13
     want = wr.windowed_reduce_many_reference(
-        [(last, op) for op in ex.ops], zero, d[0], d[1], 512)
-    for op, got, w in zip(ex.ops, ready[1][1], want):
-        if not np.array_equal(got, w.cpu().numpy()):
+        [(last, op) for op in ex.ops], zero, d[0], d[1], pad)
+    # the twin on the last row alone: its flat offsets mod 4 are those of
+    # the whole ring's last row (BIG_CAP is a multiple of 4)
+    twin = rk.append_eval_order_twin(
+        last_before, torch.from_numpy(blks[1][-1:]).to(DEVICE),
+        torch.from_numpy(offs[1][-1:].astype(np.int32)).to(DEVICE), ex.ops,
+        zero, d[0], d[1], pad)
+    for op, got, w, t in zip(ex.ops, ready[0][1], want, twin):
+        if not (np.array_equal(got, w.cpu().numpy())
+                and np.array_equal(got, t.cpu().numpy())):
             raise AssertionError(f"big ring: {op} differs from the plain "
-                                 "version on the last row")
+                                 "version or the twin on the last row")
     emit("big_ring", ring=[BIG_KEYS, BIG_CAP], cells=BIG_KEYS * BIG_CAP,
          last_row_flat_offset=(BIG_KEYS - 1) * BIG_CAP, windows=B,
-         ops=list(ex.ops), windowed_reduce_launches=launches, identical=True)
-    del ex, ring, last
+         long_windows=int((lens > rk.LONG_SPLIT).sum()), ops=list(ex.ops),
+         launches=counts, identical=True, twin_bitwise=True)
+    del ex, ring, last, last_before
     torch.cuda.empty_cache()
+
+
+# ring_append_eval (phase 4c): the irregular resident dispatch in one
+# launch.  Each case: (KP, cap, Rb) ring and rectangle, K rows and R
+# columns of real data (the rest zero, as the executor pads), the wire and
+# accumulate dtypes, the ops, and the windows.
+AE_FLOAT_PROD_BOUND = 2.0 ** -23     # 2 (n - 1) 2^-24 of |x|, n cells
+
+
+def ae_values(gen, shape, dtype, prod):
+    """Seeded values for a ring or a rectangle: 1..97 (YSB's revenue) or,
+    for a product, values whose products stay finite (floats near 1, ints
+    in {-1, 1, 2})."""
+    if dtype.is_floating_point:
+        host = (gen.uniform(0.999, 1.001, size=shape) if prod
+                else gen.uniform(-100, 100, size=shape))
+    elif prod:
+        host = gen.choice(np.array([-1, 1, 1, 2]), size=shape)
+    else:
+        host = gen.integers(1, 98, size=shape)
+    return torch.from_numpy(np.asarray(host)).to(dtype)
+
+
+def ae_case(gen, dev, KP, cap, Rb, K, R, wire, acc, ops, rows, starts,
+            lens, offs, pad=None, split=None, chunk=None):
+    """One ring_append_eval case on `dev` (windows from host arrays)."""
+    from windflow_tpu_torch.ops import ring as rk
+    prod = "prod" in ops
+    ring = ae_values(gen, (KP, cap), acc, prod).to(dev)
+    blk = torch.zeros((KP, Rb), dtype=wire)
+    blk[:K, :R] = ae_values(gen, (K, R), wire, prod)
+    as32 = lambda a: torch.from_numpy(                       # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    pad = int(pad if pad is not None else max(1, int(np.max(lens, initial=1))))
+    long = rk.long_windows(rows, starts, lens, pad, cap,
+                           split if split is not None else rk.LONG_SPLIT,
+                           chunk if chunk is not None else rk.LONG_CHUNK)
+    return dict(ring=ring, blk=blk.to(dev), offs=as32(offs), ops=list(ops),
+                rows=as32(rows), starts=as32(starts), lens=as32(lens),
+                pad=pad, long=long)
+
+
+def ae_compare(got, want, scale, n, op, name):
+    """Max abs error of the kernel's (got) against the plain version's
+    (want); raises beyond the tolerance: ints, counts, min and max exact
+    (NaN equal to NaN), float32 sums within FLOAT_RTOL of the window's sum
+    of |x| (`scale`), float32 products within max(FLOAT_RTOL, 2 (n - 1)
+    2^-24) of |want| for a window of n cells."""
+    same = got == want
+    if got.is_floating_point():
+        same |= torch.isnan(got) & torch.isnan(want)
+    if not got.is_floating_point() or op in ("count", "min", "max"):
+        if not bool(same.all()):
+            bad = int((~same).nonzero()[0])
+            raise AssertionError(f"{name} {op}: window {bad} gives "
+                                 f"{got[bad].item()} != {want[bad].item()}")
+        return 0.0
+    err = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    if op == "sum":
+        tol = FLOAT_RTOL * scale.double()
+    else:
+        rel = torch.clamp(AE_FLOAT_PROD_BOUND * (n.double() - 1), min=FLOAT_RTOL)
+        tol = rel * want.double().abs()
+    if not bool((same | (err <= tol)).all()):
+        raise AssertionError(f"{name} {op}: max error {err.max()} beyond "
+                             "the stated tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_append_eval(case, name, counters=None):
+    """ring_append_eval on a copy of the case's ring, twice, against the
+    plain version and, bit for bit, against append_eval_order_twin (both
+    on the card): the rings identical, the two launches' outputs equal,
+    the counters left at zero.  Returns the largest error against the
+    plain version."""
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    c = case
+    args = (c["blk"], c["offs"], c["ops"], c["rows"], c["starts"],
+            c["lens"], c["pad"])
+    dev = c["ring"].device
+    if counters is None:
+        counters = torch.zeros(c["long"].n + 1, dtype=torch.int32,
+                               device=dev)
+    rings = [c["ring"].clone() for _ in range(3)]
+    got = rk.ring_append_eval(rings[0], *args, long=c["long"],
+                              counters=counters)
+    again = rk.ring_append_eval(rings[0], *args, long=c["long"],
+                                counters=counters)
+    plain = rk.ring_append_eval_reference(rings[1], *args)
+    twin = rk.append_eval_order_twin(rings[2], *args, split=c["long"].split,
+                                     chunk=c["long"].chunk)
+    _sync(dev)
+    if not (torch.equal(rings[0], rings[1]) and torch.equal(rings[0],
+                                                            rings[2])):
+        raise AssertionError(f"ring_append_eval {name}: the rings differ "
+                             "from the plain append")
+    if c["long"].n and bool(counters.any()):
+        raise AssertionError(f"ring_append_eval {name}: counters left at "
+                             f"{counters.nonzero().flatten().tolist()}")
+    bits = lambda t: t.view(torch.int32)                     # noqa: E731
+    n = c["lens"].long().clamp(0, c["pad"])
+    scale = wr.windowed_reduce_many_reference(
+        [(rings[1].abs(), "sum")], c["rows"], c["starts"], c["lens"],
+        c["pad"])[0] if rings[1].is_floating_point() else None
+    err = 0.0
+    for op, g, a, p, t in zip(c["ops"], got, again, plain, twin):
+        for other, what in ((t, "the twin"), (a, "a second launch")):
+            if not torch.equal(bits(g), bits(other)):
+                bad = int((bits(g) != bits(other)).nonzero()[0])
+                raise AssertionError(
+                    f"ring_append_eval {name} {op}: window {bad} gives "
+                    f"{g[bad].item()}, {what} {other[bad].item()}")
+        err = max(err, ae_compare(g, p, scale, n, op,
+                                  f"ring_append_eval {name}"))
+    return err
+
+
+def covered_outside(rows, starts, lens, pad, cap, offs, Rb):
+    """Ring cells the windows read outside the rectangle, each counted
+    once (a column past the row's end reads its last cell)."""
+    rows = np.asarray(rows, np.int64)
+    s = np.maximum(np.asarray(starts, np.int64), 0)
+    n = np.clip(np.asarray(lens, np.int64), 0, int(pad))
+    lo = np.minimum(s, cap - 1)
+    hi = np.where(n > 0, np.maximum(np.minimum(s + n, cap), lo + 1), lo)
+    offs = np.asarray(offs, np.int64)
+    total = 0
+    for r in np.unique(rows[n > 0]):
+        sel = (rows == r) & (n > 0)
+        a, b = lo[sel], hi[sel]
+        order = np.argsort(a)
+        o0, o1 = max(int(offs[r]), 0), min(int(offs[r]) + Rb, cap)
+        end = -1
+        for x, y in zip(a[order], b[order]):
+            x = max(int(x), end)
+            if y > x:
+                # [x, y) minus the rectangle [o0, o1)
+                total += (y - x) - max(0, min(y, o1) - max(x, o0))
+                end = int(y)
+    return int(total)
+
+
+def append_eval_bound(case):
+    """(ms, 'bytes'|'operations', bytes): blk read once, the rectangle
+    written once, the ring cells the windows read outside it once, the
+    offsets and the (row, start, len) descriptors, one output a window and
+    op; one combine a cell and value op."""
+    c = case
+    ring, blk = c["ring"], c["blk"]
+    KP, cap = ring.shape
+    Rb, B = blk.shape[1], c["starts"].numel()
+    cells = covered_outside(c["rows"].cpu().numpy(), c["starts"].cpu().numpy(),
+                            c["lens"].cpu().numpy(), c["pad"], cap,
+                            c["offs"].cpu().numpy(), Rb)
+    size = ring.element_size()
+    nbytes = (blk.numel() * (blk.element_size() + size) + 4 * KP
+              + size * cells + 12 * B + size * B * len(c["ops"]))
+    n_ops = (sum(op != "count" for op in c["ops"])
+             * int(c["lens"].long().clamp(0, c["pad"]).sum()))
+    b = bytes_bound(int(nbytes), n_ops)
+    return float(b[0]), b[1], int(nbytes)
+
+
+def time_append_eval(case):
+    """The kernel (a CUDA-graph replay, long-window list already on the
+    card) hot and cold (rings cycled through three times the L2), the old
+    pair ring_append + windowed_reduce_many alike, the plain version, the
+    empty launch, and the bound, at one case."""
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    c = case
+    dev = c["ring"].device
+    long = c["long"].on(torch.from_numpy(c["long"].vec).to(dev))
+    counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
+    args = (c["blk"], c["offs"], c["ops"], c["rows"], c["starts"],
+            c["lens"], c["pad"])
+    d = (c["rows"], c["starts"], c["lens"], c["pad"])
+
+    def kernel(r):
+        rk.ring_append_eval(r, *args, long=long, counters=counters)
+
+    def pair(r):
+        rk.ring_append(r, c["blk"], c["offs"])
+        wr.windowed_reduce_many([(r, op) for op in c["ops"]], *d)
+
+    ring = c["ring"].clone()
+    copies = cold_copies(dev, (ring,))
+    row = dict(
+        ms=kernel_ms(cycled(copies, kernel), reps=10 * len(copies)),
+        hot_ms=kernel_ms(lambda: kernel(ring)),
+        pair_ms=kernel_ms(cycled(copies, pair), reps=10 * len(copies)),
+        pair_hot_ms=kernel_ms(lambda: pair(ring)),
+        plain_ms=call_ms(lambda: rk.ring_append_eval_reference(ring, *args),
+                         reps=2),
+        floor_ms=kernel_ms(wr.empty_launch), cold_copies=len(copies))
+    if bool(counters.any()):
+        raise AssertionError("ring_append_eval: timed launches left a "
+                             "counter set")
+    b = append_eval_bound(c)
+    row.update(bound_ms=b[0], bound_by=b[1], bound_bytes=b[2],
+               library_ms=None)
+    del copies
+    return row
+
+
+def ae_shapes(gen, dev):
+    """The main-path shapes: {label: case}."""
+    i8, i32 = torch.int8, torch.int32
+    out = {}
+    # YSB 10 s (kf-gpu, one of 4 workers): 25 campaigns on a 32-row ring,
+    # one window a campaign of ~330k cells that ends at the appended
+    # span's end (so it straddles it)
+    KP, cap, Rb, K, R = 32, 1 << 19, 8192, 25, 6000
+    offs = np.zeros(KP, np.int64)
+    offs[:K] = 330_000 - R + gen.integers(0, 4, size=K)
+    lens = gen.integers(320_000, 330_000, size=K)
+    rows = np.arange(K)
+    out["ysb_10s"] = ae_case(gen, dev, KP, cap, Rb, K, R, i8, i32, ("sum",),
+                             rows, offs[:K] + R - lens, lens, offs,
+                             pad=1 << 19)
+    # YSB deterministic (16M events 2 us apart): 2 tumbling windows of
+    # ~16.7k cells a campaign, the second straddling the appended span
+    KP, cap, Rb, K, R = 32, 1 << 16, 4096, 25, 3000
+    offs = np.zeros(KP, np.int64)
+    offs[:K] = 33_500 - R + gen.integers(0, 4, size=K)
+    n1 = gen.integers(16_500, 16_800, size=K)
+    n2 = gen.integers(16_500, 16_800, size=K)
+    s2 = offs[:K] + R - n2
+    out["ysb_deterministic"] = ae_case(
+        gen, dev, KP, cap, Rb, K, R, i8, i32, ("sum",),
+        np.concatenate([rows[:K], rows[:K]]),
+        np.concatenate([s2 - n1, s2]), np.concatenate([n1, n2]), offs,
+        pad=1 << 15)
+    # sum_test's Reducer("max") prefix on the native core: 64 keys, CB
+    # 256/64, 128 windows a key ending at the appended span's end
+    KP, cap, Rb = 64, 262144, 8192
+    offs = np.full(KP, 100_000, np.int64) + np.arange(KP) % 4
+    i = np.arange(C_WINDOWS)
+    starts = (offs[:, None] + Rb - WIN - SLIDE * i[None, ::-1]).ravel()
+    out["max_prefix"] = ae_case(
+        gen, dev, KP, cap, Rb, KP, Rb, i8, i32, ("max",),
+        np.repeat(np.arange(KP), C_WINDOWS), starts,
+        np.full(KP * C_WINDOWS, WIN), offs, pad=WIN)
+    # windows of 1k-8k cells (the split's range): 1,024 windows, sum/max
+    KP, cap, Rb = 64, 1 << 17, 2048
+    offs = gen.integers(60_000, 70_000, size=KP)
+    B = 1024
+    lens = gen.integers(1000, 8000, size=B)
+    rows = gen.integers(0, KP, size=B)
+    out["mid_windows"] = ae_case(
+        gen, dev, KP, cap, Rb, KP, Rb, torch.int16, i32, ("sum", "max"),
+        rows, offs[rows] + Rb - lens + gen.integers(-500, 500, size=B),
+        lens, offs, pad=8192)
+    return out
+
+
+def ae_odd_cases(gen, dev, n=48):
+    """Soak-sized and edge cases: tiny and odd rings and rectangles (KP 1
+    to 8, Rb 1 to 48, rows >= K and columns >= R zero), offsets at every
+    residue mod 4, windows into the zero columns, past the row's end and
+    starting past it, empty, B = 0, ops with count, every wire x
+    accumulate dtype, and small split/chunk so the long-window path runs
+    at these sizes."""
+    out = {}
+    for i in range(n):
+        wire = WIRES[i % 4]
+        acc = ACCS[(i // 4) % 2]
+        KP = int(gen.choice([1, 2, 4, 8]))
+        cap = int(gen.choice([16, 64, 128, 1040]))
+        Rb = int(min(gen.choice([1, 3, 16, 40, 48]), cap))
+        K, R = int(gen.integers(1, KP + 1)), int(gen.integers(1, Rb + 1))
+        offs = gen.integers(0, cap - Rb + 1, size=KP)
+        offs[:4] = np.minimum(cap - Rb, 4 * (offs[:4] // 4) + np.arange(
+            min(KP, 4)))
+        B = int(gen.choice([0, 1, 7, 13, 64, 65, 200]))
+        lens = gen.integers(0, cap + 24, size=B)
+        starts = gen.integers(0, cap + 8, size=B)
+        rows = gen.integers(0, KP, size=B)
+        if B >= 4:     # into the zero columns, straddling the append
+            starts[0], lens[0] = offs[rows[0]] + R, Rb - R + 2
+            starts[1], lens[1] = max(0, offs[rows[1]] - 5), Rb + 10
+            lens[2] = -3 if i % 2 else 0
+            starts[3], lens[3] = cap - 1, 9
+        ops = [op for op in ("sum", "count", "min", "max", "prod")
+               if gen.random() < 0.5] or ["sum"]
+        if "prod" in ops:
+            ops = ["prod"] + (["count"] if "count" in ops else [])
+        split, chunk = [(0, 32), (8, 32), (40, 64), (2048, 512)][i % 4]
+        pad = int(gen.choice([max(1, int(lens.max(initial=1))), 5, cap + 30]))
+        out[f"odd{i}"] = ae_case(gen, dev, KP, cap, Rb, K, R, wire, acc, ops,
+                                 rows, starts, lens, offs, pad=pad,
+                                 split=split, chunk=chunk)
+    return out
+
+
+def append_eval_phase(dev, timed=True, n_odd=48):
+    """Phase 4c: ring_append_eval against its plain version and, bit for
+    bit, its twin at the main-path shapes (YSB 10 s, YSB deterministic,
+    the max prefix, 1k-8k windows) and the odd cases; then each main-path
+    shape timed beside its bound, the empty launch and the old pair.
+    Returns {label: timing row}."""
+    gen = np.random.default_rng(23)
+    shapes = ae_shapes(gen, dev)
+    err = 0.0
+    for label, case in {**shapes, **ae_odd_cases(gen, dev, n_odd)}.items():
+        err = max(err, check_append_eval(case, label))
+        if label.startswith("odd"):
+            continue
+        c = case
+        emit("append_eval", case=label, ring=list(c["ring"].shape),
+             Rb=c["blk"].shape[1], wire=str(c["blk"].dtype),
+             acc=str(c["ring"].dtype), ops=c["ops"],
+             B=c["starts"].numel(), pad=c["pad"],
+             cells=int(c["lens"].long().clamp(0, c["pad"]).sum()),
+             long_windows=c["long"].n, chunks=c["long"].chunks,
+             max_abs_err=err, twin_bitwise=True)
+    emit("append_eval", case="odd", cases=n_odd, max_abs_err=err,
+         twin_bitwise=True, ok=True)
+    rows = {}
+    if timed:
+        for label, case in shapes.items():
+            rows[label] = dict(max_abs_err=err, **time_append_eval(case))
+            emit("append_eval_timed", case=label, **rows[label])
+    del shapes
+    torch.cuda.empty_cache() if torch.cuda.is_available() else None
+    return rows
 
 
 @contextlib.contextmanager
@@ -995,9 +1359,9 @@ def recorded(name, record):
     from windflow_tpu_torch.ops import resident
     orig, calls = getattr(resident, name), []
 
-    def recording(*args):
-        calls.append(record(*args))
-        return orig(*args)
+    def recording(*args, **kw):
+        calls.append(record(*args, **kw))
+        return orig(*args, **kw)
 
     setattr(resident, name, recording)
     try:
@@ -1024,6 +1388,47 @@ def recorded_fused():
                         blk=blk.clone(), offs=offs.clone(),
                         rstart0=rstart0.clone(), rlen=rlen.clone(), C=int(C),
                         slide=int(slide)))
+
+
+def recorded_append_evals():
+    """Records every ring_append_eval call (the ring's shape and dtype,
+    copies of the rectangle, offsets and window descriptors, the ops, the
+    pad and the long-window list)."""
+    def record(ring, blk, offs, evals, rows, starts, lens, pad, long=None,
+               counters=None):
+        return dict(shape=tuple(ring.shape), dtype=ring.dtype,
+                    blk=blk.clone(), offs=offs.clone(), ops=list(evals),
+                    rows=rows.clone(), starts=starts.clone(),
+                    lens=lens.clone(), pad=int(pad),
+                    long=dataclasses.replace(long, dev=None)
+                    if long is not None else None)
+    return recorded("ring_append_eval", record)
+
+
+def append_eval_call_case(c, gen):
+    """A recorded ring_append_eval call as a case over a seeded ring of
+    its shape and dtype (values 1..97)."""
+    from windflow_tpu_torch.ops import ring as rk
+    long = c["long"] or rk.long_windows(
+        c["rows"].cpu().numpy(), c["starts"].cpu().numpy(),
+        c["lens"].cpu().numpy(), c["pad"], c["shape"][1])
+    return dict(ring=ae_values(gen, c["shape"], c["dtype"],
+                               "prod" in c["ops"]).to(c["blk"].device),
+                long=long, **{k: c[k] for k in ("blk", "offs", "ops", "rows",
+                                                "starts", "lens", "pad")})
+
+
+def check_append_evals(calls, name, seed=7):
+    """ring_append_eval against its plain version and its twin
+    (check_append_eval) on the inputs of every call in `calls`, each over
+    a seeded ring of the recorded shape and dtype.  Returns (calls
+    checked, the largest error)."""
+    gen = np.random.default_rng(seed)
+    err = 0.0
+    for i, c in enumerate(calls):
+        err = max(err, check_append_eval(append_eval_call_case(c, gen),
+                                         f"{name} call {i}"))
+    return len(calls), err
 
 
 def recorded_reduces():
@@ -1259,8 +1664,8 @@ def host_rows(wt, reducer, batches, schema):
 def end_to_end_resident(wr, rk):
     """sum_test, 16M tuples, through NativeResidentCore and the ring
     kernels; returns the ring kernels' launch counts in that run: one
-    fused launch a regular flush, ring_append only with an irregular
-    launch's windowed_reduce."""
+    fused launch a regular flush, one ring_append_eval an irregular
+    launch."""
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.ops import resident
     from windflow_tpu_torch.patterns.native_core import NativeResidentCore
@@ -1284,8 +1689,8 @@ def end_to_end_resident(wr, rk):
     stage = stage_with_core(lambda: resident_stage(wt), cores)
     torch.cuda.reset_peak_memory_stats()
     resident.stats_snapshot(reset=True)
-    counters = (rk.ring_append_regular_sum, rk.ring_append,
-                wr.windowed_reduce)
+    counters = (rk.ring_append_regular_sum, rk.ring_append_eval,
+                rk.ring_append, wr.windowed_reduce)
     for c in counters:
         c.launches = 0
     dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
@@ -1300,11 +1705,12 @@ def end_to_end_resident(wr, rk):
     if total != want:
         raise AssertionError(f"windowed-sum total {total} != oracle {want}")
     # every dispatch is one regular flush (one fused launch) or one
-    # irregular launch (ring_append + windowed_reduce for the one op)
+    # irregular launch (one ring_append_eval: the append and the one op),
+    # never the ring_append + windowed_reduce pair
     if not (launches["ring_append_regular_sum"] > 0
-            and launches["ring_append"] == launches["windowed_reduce"]
+            and launches["ring_append"] == launches["windowed_reduce"] == 0
             and stats["dispatches"] == launches["ring_append_regular_sum"]
-            + launches["ring_append"]):
+            + launches["ring_append_eval"]):
         raise AssertionError(f"the resident path launched {launches}, "
                              f"dispatches {stats['dispatches']}")
     emit("end_to_end_resident",
@@ -1316,9 +1722,10 @@ def end_to_end_resident(wr, rk):
 
 
 def irregular_and_python_core(wr, rk):
-    """Reducer("max") on the native core (irregular launches: the
-    windowed-reduce kernel on the ring) and Reducer("sum") on the Python
-    resident core, each byte for byte against the host core."""
+    """Reducer("max") on the native core (irregular launches: one
+    ring_append_eval each) and Reducer("sum") on the Python resident core,
+    each byte for byte against the host core, and every ring_append_eval
+    call against its plain version and its twin."""
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.core.windows import WindowSpec
     from windflow_tpu_torch.patterns.native_core import NativeResidentCore
@@ -1343,15 +1750,18 @@ def irregular_and_python_core(wr, rk):
         cores = []
         stage = stage_with_core(make, cores)
         counters = (wr.windowed_reduce, rk.ring_append,
-                    rk.ring_append_regular_sum)
+                    rk.ring_append_regular_sum, rk.ring_append_eval)
         counts = [c.launches for c in counters]
-        _, n_dev, _, dev_rows = run_pipeline(stage, prefix, schema, True)
+        with recorded_append_evals() as calls:
+            _, n_dev, _, dev_rows = run_pipeline(stage, prefix, schema,
+                                                 True)
         counts = [c.launches - a for c, a in zip(counters, counts)]
         if not (len(cores) == 1 and type(cores[0]) is cls
                 and getattr(cores[0], "_delegate", None) is None):
             raise AssertionError(f"{op}/{name}: the stage's core is {cores}")
-        if counts[0] == 0 or counts[1] == 0:
+        if counts[3] == 0 or counts[0] or counts[1]:
             raise AssertionError(f"{op}/{name}: launches {counts}")
+        n_calls, err = check_append_evals(calls, f"{op}/{name}")
         _, n_host, _, want_rows = host_rows(wt, wt.Reducer(op), prefix,
                                             schema)
         if n_dev != n_host or by_key(dev_rows) != by_key(want_rows):
@@ -1361,7 +1771,9 @@ def irregular_and_python_core(wr, rk):
              tuples=PREFIX_TUPLES, windows=n_dev, identical=True,
              launches={"windowed_reduce": counts[0],
                        "ring_append": counts[1],
-                       "ring_append_regular_sum": counts[2]})
+                       "ring_append_regular_sum": counts[2],
+                       "ring_append_eval": counts[3]},
+             append_eval_calls_checked=n_calls, append_eval_max_abs_err=err)
 
 
 # spatial_test wf-gpu's shape (apps/spatial.py defaults: 80,000 points/s
@@ -1904,6 +2316,7 @@ def kernel_wrappers():
     return {"windowed_reduce": wr.windowed_reduce,
             "ring_append": rk.ring_append,
             "ring_append_regular_sum": rk.ring_append_regular_sum,
+            "ring_append_eval": rk.ring_append_eval,
             "window_gather": gather.window_gather,
             "skyline_windows": skyline.skyline_windows,
             "sp_window_partial": mr.sp_window_partial,
@@ -2021,43 +2434,33 @@ def check_reduces(calls, gen):
     return err
 
 
-def ysb_reduce_phase(calls, variant):
-    """windowed_reduce against its plain version on the descriptors of
-    every call in `calls` (YSB's long TB windows, over a seeded ring of the
-    recorded shape), timed on the call with the most cells beside its
-    bound."""
-    from windflow_tpu_torch.ops import windowed_reduce as wr
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(9)
-    err = check_reduces(calls, gen)
-    big = max(calls, key=lambda c: int(c["lens"].sum()))
-    ring = torch.randint(1, 98, big["shape"], generator=gen, device=dev,
-                         dtype=torch.int32).to(big["dtype"])
-    evals = [(ring, op) for op in big["ops"]]
-    args = (big["rows"], big["starts"], big["lens"], big["pad"])
-    B = len(big["lens"])
-    cells = covered(big["starts"].cpu().numpy().astype(np.int64),
-                    big["lens"].cpu().numpy().astype(np.int64),
-                    big["rows"].cpu().numpy())
-    nbytes = cells * ring.element_size() + 12 * B + 4 * B * len(evals)
-    bound = bytes_bound(nbytes, int(big["lens"].sum()) * len(evals))
-    ms = kernel_ms(lambda: wr.windowed_reduce_many(evals, *args), reps=10)
-    plain = call_ms(lambda: wr.windowed_reduce_many_reference(evals, *args),
-                    reps=2)
-    emit("ysb_reduce", variant=variant, kernel="windowed_reduce",
-         calls_checked=len(calls),
-         max_abs_err=err, ring=list(big["shape"]), ops=big["ops"], B=B,
-         pad=big["pad"], cells=int(big["lens"].sum()), kernel_ms=ms,
-         plain_ms=plain, bound_bytes=nbytes, bound_ms=bound[0],
-         bound_by=bound[1])
+def ysb_append_eval_phase(calls, variant):
+    """ring_append_eval against its plain version and its twin on the
+    inputs of every call in `calls` (YSB's long TB windows, over a seeded
+    ring of the recorded shape), timed on the call with the most cells
+    beside its bound, the empty launch and the old ring_append +
+    windowed_reduce pair.  Returns the timing row."""
+    n, err = check_append_evals(calls, f"ysb {variant}")
+    big = max(calls, key=lambda c: int(c["lens"].long().clamp(
+        0, c["pad"]).sum()))
+    case = append_eval_call_case(big, np.random.default_rng(9))
+    row = dict(max_abs_err=err, **time_append_eval(case))
+    emit("ysb_append_eval", variant=variant, calls_checked=n,
+         ring=list(big["shape"]), Rb=big["blk"].shape[1],
+         wire=str(big["blk"].dtype), ops=big["ops"],
+         B=big["starts"].numel(), pad=big["pad"],
+         cells=int(big["lens"].long().clamp(0, big["pad"]).sum()),
+         long_windows=case["long"].n, chunks=case["long"].chunks, **row)
+    return row
 
 
 def ysb_deterministic():
     """kf-gpu and wmr-gpu over 16M deterministic events, every window's
     (count, lastUpdate, revenue) against the bincount oracle, and a
     1M-event prefix row for row against the port's host kf; every
-    ring_append and windowed_reduce call of the runs against its plain
-    version; returns each variant's kernel launches."""
+    ring_append_eval call of the runs against its plain version and its
+    twin, timed at the largest; returns each variant's kernel
+    launches."""
     from windflow_tpu_torch.ops.resident import ResidentWindowExecutor
     prefix = ysb_batches(YSB_PREFIX)
     _, host = run_ysb("kf", prefix, full_rows=True)
@@ -2073,8 +2476,8 @@ def ysb_deterministic():
     want = ysb_oracle(YSB_EVENTS)
     out = {}
     for variant in ("kf-gpu", "wmr-gpu"):
-        with kernel_launches() as counts, recorded_reduces() as reduces, \
-                recorded_appends() as appends, \
+        with kernel_launches() as counts, \
+                recorded_append_evals() as calls, \
                 counted_launches(ResidentWindowExecutor) as dispatches:
             dt, got = run_ysb(variant, batches)
         if got != want:
@@ -2082,10 +2485,13 @@ def ysb_deterministic():
             raise AssertionError(
                 f"ysb {variant}: campaigns {bad[:5]} differ from the oracle "
                 f"(first: {got.get(bad[0])} != {want[bad[0]]})")
-        # the revenue ring: ring_append + one windowed_reduce a launch
-        # that evaluates windows (TB windows are irregular)
-        require_launches(f"ysb {variant}", counts,
-                         ("ring_append", "windowed_reduce"))
+        # the revenue ring: one ring_append_eval a dispatch (TB windows
+        # are irregular), never the ring_append + windowed_reduce pair
+        require_launches(f"ysb {variant}", counts, ("ring_append_eval",))
+        if (counts["ring_append_eval"] != dispatches["calls"]
+                or counts["ring_append"] or counts["windowed_reduce"]):
+            raise AssertionError(f"ysb {variant}: launches {counts}, "
+                                 f"dispatches {dispatches}")
         out[variant] = counts
         emit("ysb_deterministic", variant=variant,
              workload="YSB 100 campaigns x 10 ads, TB tumbling 10 s, "
@@ -2093,40 +2499,50 @@ def ysb_deterministic():
              events=YSB_EVENTS, seconds=dt, events_per_s=YSB_EVENTS / dt,
              windows=sum(len(v) for v in got.values()),
              kept_events=sum(r[0] for v in got.values() for r in v),
-             oracle_match=True, launches=counts, dispatches=dispatches,
-             ring_append_calls_checked=check_appends(
-                 appends, f"ysb {variant}"))
-        ysb_reduce_phase(reduces, variant)
+             oracle_match=True, launches=counts, dispatches=dispatches)
+        ysb_append_eval_phase(calls, variant)
     return out
 
 
-def ysb_timed(length=YSB_TIMED_SEC, around=contextlib.nullcontext):
+def ysb_timed(length=YSB_TIMED_SEC, around=contextlib.nullcontext,
+              timing=None):
     """apps.ysb.run for kf-gpu and wmr-gpu, `length` seconds of full-speed
     generation each, after a warm-up (ysb.warmup) outside the counts; the
     timed run alone is counted and runs inside `around()` (a context
-    manager whose yielded dict, if any, is added to the phase line); every
-    ring_append call of it is checked against its plain version.  At
-    YSB_TIMED_SEC every campaign has one window, which closes at the end
-    of the stream.  Returns each variant's launches."""
+    manager whose yielded dict, if any, is added to the phase line); one
+    ring_append_eval a dispatch, and every call of it checked against its
+    plain version and its twin, timed at the largest call (the row goes
+    into `timing`, a dict, under the variant).  At YSB_TIMED_SEC every
+    campaign has one window, which closes at the end of the stream.
+    Returns each variant's launches."""
+    from windflow_tpu_torch.ops.resident import ResidentWindowExecutor
     from windflow_tpu_torch.apps import ysb
     out = {}
     for variant in ("kf-gpu", "wmr-gpu"):
         ysb.warmup(variant, 1, YSB_PARDEGREE2, YSB_WIN_SEC, YSB_CHUNK,
                    device=DEVICE)
         with around() as extra, kernel_launches() as counts, \
-                recorded_appends() as appends:
+                recorded_append_evals() as calls, \
+                counted_launches(ResidentWindowExecutor) as dispatches:
             m = ysb.run(variant, length, pardegree2=YSB_PARDEGREE2,
                         win_sec=YSB_WIN_SEC, chunk=YSB_CHUNK, warm=False,
                         device=DEVICE)
         if not (m["generated"] > 0 and m["results"] > 0):
             raise AssertionError(f"ysb {variant} timed run: {m}")
         require_launches(f"ysb timed {variant}", counts,
-                         ("ring_append", "windowed_reduce"))
+                         ("ring_append_eval",))
+        if (counts["ring_append_eval"] != dispatches["calls"]
+                or counts["ring_append"] or counts["windowed_reduce"]):
+            raise AssertionError(f"ysb timed {variant}: launches {counts}, "
+                                 f"dispatches {dispatches}")
         out[variant] = counts
         emit("ysb_timed", variant=variant, length_sec=length,
              windows_per_campaign=math.ceil(length / YSB_WIN_SEC),
-             launches=counts, ring_append_calls_checked=check_appends(
-                 appends, f"ysb timed {variant}"), **m, **(extra or {}))
+             launches=counts, executor_launches=dispatches, **m,
+             **(extra or {}))
+        row = ysb_append_eval_phase(calls, f"{variant} timed")
+        if timing is not None:
+            timing[variant] = row
     return out
 
 
@@ -2201,7 +2617,8 @@ def two_stage():
     total_counts = dict.fromkeys(kernel_wrappers(), 0)
     for name, make in comps.items():
         with kernel_launches() as counts, recorded_appends() as appends, \
-                recorded_fused() as fused:
+                recorded_fused() as fused, \
+                recorded_append_evals() as evals:
             dt, n, total, _ = run_pipeline(make(), batches, schema)
         if total != want:
             raise AssertionError(f"two_stage {name}: total {total} != the "
@@ -2211,13 +2628,16 @@ def two_stage():
         for k, v in counts.items():
             total_counts[k] += v
         n_fused, err = check_fused(fused, f"two_stage {name}")
+        n_evals, eval_err = check_append_evals(evals, f"two_stage {name}")
         emit("two_stage", composition=name, tuples=TWO_STAGE_TUPLES,
              seconds=dt, tuples_per_s=TWO_STAGE_TUPLES / dt, windows=n,
              host_windows=want_n, total=total, host_total=want,
              launches=counts,
              ring_append_calls_checked=check_appends(
                  appends, f"two_stage {name}"),
-             fused_calls_checked=n_fused, fused_max_abs_err=err)
+             fused_calls_checked=n_fused, fused_max_abs_err=err,
+             append_eval_calls_checked=n_evals,
+             append_eval_max_abs_err=eval_err)
     return total_counts
 
 
@@ -2239,12 +2659,13 @@ def calls_by_thread():
     calls}.  Under recovery= a native core launches in its worker's node
     thread, named "<dataflow>/<node>"."""
     names = {"ring_append_regular_sum": "ring_append_regular_sum",
+             "ring_append_eval": "ring_append_eval",
              "ring_append": "ring_append",
              "windowed_reduce_many": "windowed_reduce"}
     counts = {}
     with contextlib.ExitStack() as stack:
         seen = {kernel: stack.enter_context(recorded(
-            name, lambda *a: threading.current_thread().name))
+            name, lambda *a, **k: threading.current_thread().name))
             for name, kernel in names.items()}
         yield counts
     counts.update({k: dict(collections.Counter(v)) for k, v in seen.items()})
@@ -2387,6 +2808,7 @@ def layers(around=contextlib.nullcontext):
                 calls_by_thread() as threads, recorded_fused() as fused, \
                 recorded_appends() as appends, \
                 recorded_reduces() as reduces, \
+                recorded_append_evals() as evals, \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
@@ -2429,6 +2851,7 @@ def layers(around=contextlib.nullcontext):
         n_appends = check_appends(appends, "layers")
         reduce_err = check_reduces(
             reduces, torch.Generator(device=DEVICE).manual_seed(10))
+        n_evals, eval_err = check_append_evals(evals, "layers")
         summary, records = read_trace(trace_dir)
         traced_workers, dispatch_spans, epochs = check_layers_trace(
             summary, records)
@@ -2457,6 +2880,8 @@ def layers(around=contextlib.nullcontext):
              ring_append_calls_checked=n_appends,
              windowed_reduce_calls_checked=len(reduces),
              windowed_reduce_max_abs_err=reduce_err,
+             append_eval_calls_checked=n_evals,
+             append_eval_max_abs_err=eval_err,
              recorder_uninstalled=True, nvidia_smi=nvidia_smi_line(),
              **(extra or {}))
     finally:
@@ -2497,7 +2922,7 @@ MESH_STEP_RUNS = (("sum", "int32"), ("count", "int32"), ("min", "int32"),
                   ("sum", "float32"), ("mean", "float32"))
 
 
-def _stream_of(first, *_args):
+def _stream_of(first, *_args, **_kw):
     """The current CUDA stream of a kernel call whose first argument is
     the ring (or, for windowed_reduce_many, its evaluations)."""
     t = first[0][0] if isinstance(first, list) else first
@@ -2567,24 +2992,25 @@ def mesh_resident(mesh):
     resident.stats_snapshot(reset=True)
     with kernel_launches() as counts, recorded_fused() as fused, \
             recorded("ring_append_regular_sum", _stream_of) as fstreams, \
-            recorded_appends() as appends, \
-            recorded("ring_append", _stream_of) as astreams, \
-            recorded_reduces() as reduces:
+            recorded_append_evals() as evals, \
+            recorded("ring_append_eval", _stream_of) as estreams:
         dt, n_windows, total, _ = run_pipeline(stage, batches, schema)
     stats = resident.stats_snapshot(reset=True)
     core = mesh_core_of(cores, MeshResidentExecutor, "mesh sum_test")
     if total != want:
         raise AssertionError(f"mesh sum_test total {total} != oracle {want}")
     shards = {"ring_append_regular_sum": per_shard(fstreams, core.executors),
-              "ring_append": per_shard(astreams, core.executors)}
+              "ring_append_eval": per_shard(estreams, core.executors)}
     # a dispatch launches on every shard: the fused kernel for a regular
-    # flush, ring_append (+ windowed_reduce where a shard has windows) for
-    # an irregular one
+    # flush, one ring_append_eval for an irregular one (the append, and
+    # the shard's windows where it has some), never the old pair
     if not (min(shards["ring_append_regular_sum"]) > 0
             and len(set(shards["ring_append_regular_sum"])) == 1
-            and len(set(shards["ring_append"])) == 1
+            and len(set(shards["ring_append_eval"])) == 1
+            and counts["ring_append"] == counts["windowed_reduce"] == 0
             and stats["dispatches"] * MESH_KF
-            == counts["ring_append_regular_sum"] + counts["ring_append"]):
+            == counts["ring_append_regular_sum"]
+            + counts["ring_append_eval"]):
         raise AssertionError(f"mesh sum_test: launches {counts}, per shard "
                              f"{shards}, dispatches {stats['dispatches']}")
     n_fused, err = check_fused(fused, "mesh sum_test")
@@ -2594,17 +3020,14 @@ def mesh_resident(mesh):
          total=total, oracle=want, launches=counts,
          launches_per_shard=shards, dispatches=stats["dispatches"],
          fused_calls_checked=n_fused, fused_max_abs_err=err,
-         ring_append_calls_checked=check_appends(appends, "mesh sum_test"),
-         reduce_calls_checked=len(reduces),
-         reduce_max_abs_err=check_reduces(reduces, gen))
+         append_eval_calls=check_append_evals(evals, "mesh sum_test"))
     launches["sum_test"] = counts
 
     # (b) irregular launches: Reducer("max"), a 1M-tuple prefix
     cores = []
     stage = stage_with_core(lambda: mesh_stage(wt, mesh, max_r()), cores)
-    with kernel_launches() as counts, recorded_appends() as appends, \
-            recorded("ring_append", _stream_of) as astreams, \
-            recorded_reduces() as reduces:
+    with kernel_launches() as counts, recorded_append_evals() as evals, \
+            recorded("ring_append_eval", _stream_of) as estreams:
         _, n_mesh, _, rows = run_pipeline(stage, prefix, schema, True)
     core = mesh_core_of(cores, MeshResidentExecutor, "mesh max")
     _, n_flat, _, flat = run_pipeline(resident_stage(wt, max_r()), prefix,
@@ -2612,13 +3035,16 @@ def mesh_resident(mesh):
     if n_mesh != n_flat or by_key(rows) != by_key(flat):
         raise AssertionError("mesh max prefix differs from the un-meshed "
                              "resident route")
-    require_launches("mesh max", counts, ("ring_append", "windowed_reduce"))
-    shards = {"ring_append": per_shard(astreams, core.executors)}
+    require_launches("mesh max", counts, ("ring_append_eval",))
+    # one ring_append_eval a dispatch on every shard, never the old pair
+    shards = {"ring_append_eval": per_shard(estreams, core.executors)}
+    if not (len(set(shards["ring_append_eval"])) == 1
+            and counts["ring_append"] == counts["windowed_reduce"] == 0):
+        raise AssertionError(f"mesh max: launches {counts}, per shard "
+                             f"{shards}")
     emit("mesh_irregular", op="max", tuples=PREFIX_TUPLES, windows=n_mesh,
          identical=True, launches=counts, launches_per_shard=shards,
-         ring_append_calls_checked=check_appends(appends, "mesh max"),
-         reduce_calls_checked=len(reduces),
-         reduce_max_abs_err=check_reduces(reduces, gen))
+         append_eval_calls=check_append_evals(evals, "mesh max"))
     launches["irregular_max"] = counts
 
     # (c) the two-field MultiReducer: the native _multi branch over
@@ -3658,8 +4084,7 @@ SOAK_SEED = 11
 SOAK_NATIVE_CASES = 24
 SOAK_HOST_CASES = 8
 SOAK_OTHER_CASES = 4                 # of the rescale, wire and handoff twins
-RESIDENT_KERNELS = ("ring_append_regular_sum", "ring_append",
-                    "windowed_reduce")
+RESIDENT_KERNELS = ("ring_append_regular_sum", "ring_append_eval")
 ROLL_HOST_EPOCHS = 8
 LINT_APPS = ("ysb", "pipe", "spatial", "micro")
 LINT_TWINS = ("torch_soak_overload", "torch_soak_crash", "torch_soak_rescale",
@@ -3838,6 +4263,7 @@ def main() -> int:
     row = kernel_phase(wr, dev)
     rows = ring_kernel_phase(dev)
     big_ring_phase(wr)
+    ae_rows = append_eval_phase(dev)
     restaging_launches = end_to_end(wr)
     resident_launches = end_to_end_resident(wr, rk)
     irregular_and_python_core(wr, rk)
@@ -3848,10 +4274,12 @@ def main() -> int:
     spatial_app()
     multi_field_native(wr, rk)
 
-    # the new paths: each kernel's launches on them, and each of the three
-    # kernels these paths run launched at least once
+    # the new paths: each kernel's launches on them, and each of the two
+    # resident kernels these paths run launched at least once
+    ysb_rows = {}
     new_paths = {"ysb_deterministic": ysb_deterministic(),
-                 "ysb_timed": ysb_timed(), "pipe_test": pipe_test(),
+                 "ysb_timed": ysb_timed(timing=ysb_rows),
+                 "pipe_test": pipe_test(),
                  "two_stage": two_stage(), "layers": layers()}
     mesh_launches, mesh_rows = mesh_phase()
     new_paths["recover"] = recover_phase()
@@ -3862,7 +4290,7 @@ def main() -> int:
     emit("new_path_launches", **new_paths)
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]
-    for name in ("ring_append", "windowed_reduce", "ring_append_regular_sum"):
+    for name in ("ring_append_eval", "ring_append_regular_sum"):
         if not any(c[name] for c in runs):
             raise AssertionError(f"no new path launched {name}")
 
@@ -3887,6 +4315,18 @@ def main() -> int:
             name=name, route="cuda",
             source="windflow_tpu_torch/ops/csrc/resident.cu",
             replaces=replaces, launches=launches, **rows[name]))
+    # ring_append_eval's row: YSB kf-gpu's 10 s run (its launches; its
+    # largest call checked and timed at its own inputs, cold, beside the
+    # old ring_append + windowed_reduce pair as pair_ms)
+    kernels.append(dict(
+        name="ring_append_eval", route="cuda",
+        source="windflow_tpu_torch/ops/csrc/resident.cu",
+        replaces="windflow_tpu/ops/resident.py:260",
+        launches=new_paths["ysb_timed"]["kf-gpu"]["ring_append_eval"],
+        **{k: ysb_rows["kf-gpu"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "hot_ms", "pair_ms")}))
+    emit("append_eval_rows", synthetic=ae_rows, ysb_timed=ysb_rows)
     kernels.append(dict(
         name="window_gather", route="cuda",
         source="windflow_tpu_torch/ops/csrc/gather.cu",

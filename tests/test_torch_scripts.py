@@ -137,6 +137,44 @@ def test_wf_lint_cli_apps_clean(tmp_path):
     assert "5 graph(s), 0 diagnostic(s)" in r.stdout
 
 
+def test_wf_lint_cli_pipe_as_it_is():
+    """windflow_tpu_torch.apps.pipe lints as it is on a host without
+    CUDA: its hook asks for no device, the check build resolves none, and
+    the CLI exits 0 (also with --error) with the codes scripts/wf_lint.py
+    reports over windflow_tpu.apps.pipe."""
+    def codes(script, module, *extra):
+        r = _run(script, [module, "--json", *extra],
+                 CUDA_VISIBLE_DEVICES="")
+        assert r.returncode == 0, r.stdout + r.stderr
+        doc = json.loads(r.stdout)
+        return doc["targets"], sorted(d["id"] for d in doc["diagnostics"])
+
+    port = codes("torch_wf_lint.py", "windflow_tpu_torch.apps.pipe",
+                 "--error")
+    assert port == codes("wf_lint.py", "windflow_tpu.apps.pipe")
+    assert port[0] == 1
+
+
+def test_checked_pipe_still_needs_a_card_to_run(monkeypatch):
+    """The check build's deferred placement does not reach a run: after
+    validate() the pipe holds no built graph, and building it for a run
+    on a host without CUDA raises as before."""
+    import torch
+
+    from windflow_tpu_torch.apps import pipe
+    from windflow_tpu_torch.check import validate
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    target = pipe.wf_check_pipelines()[0]
+    assert len(validate(target)) == 0
+    assert target._df is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        target._build()
+    # on the CPU when asked, as before: the check keeps that build
+    target = pipe.wf_check_pipelines(device="cpu")[0]
+    assert len(validate(target)) == 0
+    assert target._df is not None
+
+
 def test_wf_lint_cli_plane_corpus():
     """--plane over the port's misconfigured 2-host spec reports the full
     planted WF22x + cross-host set; the minimally-fixed twin reports

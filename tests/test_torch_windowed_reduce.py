@@ -452,15 +452,15 @@ def test_resident_descriptors_past_2_31_cells(monkeypatch):
     from windflow_tpu_torch.ops import resident
     KP, cap = 16, 2 ** 28
     seen = {}
-    monkeypatch.setattr(resident, "ring_append",
-                        lambda ring, blk, offs: ring)
 
-    def many(evals, rows, starts, lens, pad):
-        seen.update(evals=evals, rows=rows.clone(), starts=starts.clone(),
-                    lens=lens.clone(), pad=pad)
+    def append_eval(ring, blk, offs, evals, rows, starts, lens, pad,
+                    long=None):
+        seen.update(evals=[(ring, op) for op in evals], rows=rows.clone(),
+                    starts=starts.clone(), lens=lens.clone(), pad=pad,
+                    long=long)
         return [torch.zeros(len(starts), dtype=torch.int32) for _ in evals]
 
-    monkeypatch.setattr(resident, "windowed_reduce_many", many)
+    monkeypatch.setattr(resident, "ring_append_eval", append_eval)
     ex = resident.ResidentWindowExecutor(("sum", "max"), device="cpu")
     ex.reset(KP - 3, cap)
     assert (ex.KP, ex.cap) == (KP, cap) and ex.KP * ex.cap >= 2 ** 31
@@ -478,6 +478,7 @@ def test_resident_descriptors_past_2_31_cells(monkeypatch):
     assert seen["starts"].tolist() == wstarts.tolist()
     assert seen["lens"].tolist() == wlens.tolist()
     assert seen["pad"] == 512
+    assert seen["long"].n == 0 and seen["long"].dev.tolist() == [0]
     # the flat offsets of the last row's cells are past 2**31
     assert (KP - 1) * cap + int(wstarts[0]) > 2 ** 31
     vec = resident.launch_vec(KP, offs, 4, (wrows, wstarts, wlens))

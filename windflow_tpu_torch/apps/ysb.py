@@ -25,9 +25,9 @@ Differences, per the framework's batch idiom:
   ``device_aggregate`` (the kf-gpu stage — count/max are monoids).
 
 The device variants are ``kf-gpu`` (``KeyFarmGPU`` over the native core's
-per-field rings: the revenue ring on the card, appended by the
-``ring_append`` kernel and summed over the TB windows by one
-``windowed_reduce`` launch a dispatch) and ``wmr-gpu``
+per-field rings: the revenue ring on the card, appended and summed over
+the TB windows by one ``ring_append_eval`` launch a dispatch) and
+``wmr-gpu``
 (``WinMapReduceGPU``: the MAP stage on the card, REDUCE on the host) —
 the JAX package's ``kf-tpu`` and ``wmr-tpu``.  They run on the card unless
 ``device="cpu"`` is passed.  Run on the card with ``python3 -m

@@ -69,13 +69,18 @@ def validate(target) -> CheckReport:
         report.extend(pre)
         if any(d.code in ("WF208", "WF210", "WF211") for d in pre):
             return report.finish()
-        with warnings.catch_warnings():
+        from ..patterns.win_seq_gpu import deferred_devices
+        with warnings.catch_warnings(), deferred_devices() as placed:
             # the Dataflow constructor re-warns the WF207/WF209
             # conditions this report already carries as diagnostics —
             # a lint run must not double-fire them as live warnings
             warnings.simplefilter("ignore")
             df = target._build()
         report.extend(check_dataflow(df, skip_config=True))
+        if placed["deferred"]:
+            # built for the check alone, with no device resolved: a run
+            # builds the graph anew and resolves its devices then
+            target._df = None
         return report.finish()
     # a built Dataflow
     report.extend(check_dataflow(target))

@@ -14,8 +14,66 @@
 //    instantiation that kept it, and so its registers, measured 7-8%
 //    slower at both of ring_append's main-path shapes on the H100
 //    (PERF.md).
-// The irregular evaluation (_ring_eval) runs through the windowed_reduce
-// kernel over (row, start, len) descriptors (ops/resident.py).
+// A second kernel body, append_eval_kernel, replaces the other jitted
+// body of the single-ring step:
+//  * ring_append_eval: the whole of _append_eval (:260-269; built by
+//    _make_step :272 and, on every kf shard, _make_mesh_step :285) in one
+//    launch: the append, then every op of the dispatch over (row, start,
+//    len) window descriptors of the ring after it (_ring_eval :243).
+//
+// The irregular evaluation.  For window w < B, with len = min(lens[w],
+// pad) (0 if negative) and s = max(starts[w], 0), and each op e:
+//     out_e[w] = op-reduce of ring'[rows[w], min(s + j, cap - 1)], j < len
+// (the identity for an empty window; count writes lens[w]; int32 sum and
+// prod wrap modulo 2^32 in uint32; float min and max propagate NaN).  A
+// cell inside the rectangle [offs[r], offs[r] + Rb) is read from blk and
+// widened, any other from the ring, as in the regular sums: no block reads
+// a cell this launch writes, so the launch needs no grid sync.
+// Order.  With a = (rows[w]*cap + s) mod 4, cell j lies in the window's
+// 16-byte group (a + j) / 4 (groups aligned in the ring).
+//  * A window of len <= split cells is reduced by a team of 8 lanes (a
+//    warp takes 4 windows): lane g mod 8 takes group g and combines its
+//    cells in ascending j from the identity; then a butterfly of
+//    __shfl_xor_sync over 4, 2, 1, each lane its own value first.  That
+//    is windowed_reduce's order (ops/windowed_reduce.py lane_order_twin).
+//  * A longer window is cut into chunks of `chunk` cells, chunk c holding
+//    groups [c*chunk/4, (c+1)*chunk/4); each chunk is reduced in the
+//    team's order and the chunk partials are folded in chunk order from
+//    the identity (ops/ring.py append_eval_order_twin reproduces both).
+// Design.  One launch, three kinds of block.  The first take the long
+// windows' chunks, 32 a block (a team a chunk), so a few windows of
+// ~330k cells (YSB's 10 s TB windows) spread over the whole card instead
+// of one block's 8 lanes a window (windowed_reduce's design, which made
+// such a launch one block on one SM).  The host lists the long windows
+// and their first chunks (it holds the descriptors); a team finds its
+// window by a binary search of that list.  Each team writes its chunk's
+// partial to scratch after the outputs; the block then adds, for each
+// window it touched, its chunks to the window's counter (after a
+// __threadfence), and the block that completes a window resets its
+// counter and folds the window's partials, a warp a (window, op): the
+// partials are staged in shared memory from L2 and lane 0 folds them in
+// chunk order.  The counters are zero between launches, so the launch
+// leaves no state.  Then short blocks take 64 windows each (a team a
+// window, skipping the long ones), and the last blocks are the append's.
+// A lane loads a group of the ring with one 16-byte load where the whole
+// group lies in the window, in the row and outside the rectangle, a
+// group inside the rectangle as 4 cells of blk (one load where they are
+// aligned), and any other cell by cell (the window's first and last
+// groups, clamped columns, groups cut by the rectangle's ends), combining
+// in the same order either way.  The launch bounds ask for 4 resident
+// blocks an SM (at most 64 registers a thread; without them the int32
+// instantiations took 121-125).  Split and chunk are arguments
+// (ops/ring.py LONG_SPLIT = 512, LONG_CHUNK = 512).  Measured on the H100
+// (scripts/torch_append_eval_sweep.py, PERF.md): split 512 against 2048
+// took 2.7x less at 1,024 windows of 1k-8k cells (64 windows a short
+// block left most SMs idle); chunks of 1024 cells were 9% faster at YSB's
+// 10 s windows and 128 cells 36% faster at its deterministic ones, 512
+// the best of one size for both; 4 blocks an SM and the rectangle's whole
+// groups read in one go took 34% less at the 1k-8k windows, within 5% at
+// the other shapes.
+// Bound, by bytes: blk read once, the rectangle written once, the ring
+// cells the windows cover outside the rectangle read once, the 3*B int32
+// descriptors and KP offsets, and the B outputs an op written once.
 //
 // The append.  For every row r < KP and column j < Rb:
 //     ring[r, offs[r] + j] = (Acc) blk[r, j]
@@ -73,6 +131,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -381,6 +441,445 @@ template <typename W, typename A> struct AppendSumL {
   }
 };
 
+// ------------------------------------------- ring_append_eval (see the top)
+
+enum Op { OP_SUM = 0, OP_COUNT = 1, OP_MIN = 2, OP_MAX = 3, OP_PROD = 4 };
+
+constexpr int kMaxEvals = 8;               // evaluations a launch
+constexpr int kGroup = 4;                  // cells of a 16-byte group
+constexpr int kLanes = 8;                  // lanes of a team
+constexpr int kTeams = kThreads / kLanes;  // teams (chunks) of a long block
+constexpr int kEvalWindows = 64;           // windows of a short block
+constexpr int kGroupUnroll = 4;            // groups in flight a lane
+constexpr int kFoldCells = 512;            // partials a warp stages a round
+constexpr int kEvalMinBlocks = 4;          // launch bounds: blocks an SM
+constexpr int kBlkGroups = 1;              // whole groups of blk in one go
+// shared staging of a block: the append's units, or a long block's folds
+constexpr int kStageBytes = kWarps * (kWarpCells + kChunk) * 4;
+static_assert(kWarps * kFoldCells * 4 <= kStageBytes, "fold staging");
+
+struct AppendEval {
+  void* ring;
+  const void* blk;
+  const int32_t* offs;
+  const int32_t* rows;
+  const int32_t* starts;
+  const int32_t* lens;
+  const int32_t* long_win;    // the n_long long windows
+  const int32_t* long_first;  // each one's first chunk; [n_long] = chunks
+  int32_t* counters;          // chunks done a long window: 0 between launches
+  uint32_t* out[kMaxEvals];   // B results, then the chunks' partials
+  int op[kMaxEvals];
+  uint32_t ident[kMaxEvals];  // the identity's bits
+  long long cap;
+  int n_evals, KP, Rb, B, pad, n_long, chunks, split;
+  int chunk;                  // groups a chunk, a multiple of kLanes
+  int long_blocks, short_blocks;
+  bool vec;                   // the ring 16-byte aligned (window loads)
+  bool avec;                  // the append's vector path
+};
+
+// working type: int32 sum/prod wrap in uint32, everything else in A itself
+template <int OP, typename A> struct Work { using type = A; };
+template <> struct Work<OP_SUM, int32_t> { using type = uint32_t; };
+template <> struct Work<OP_PROD, int32_t> { using type = uint32_t; };
+
+__device__ __forceinline__ bool is_nan(float x) { return x != x; }
+__device__ __forceinline__ bool is_nan(int32_t) { return false; }
+__device__ __forceinline__ bool is_nan(uint32_t) { return false; }
+
+template <int OP, typename T>
+__device__ __forceinline__ T combine(T a, T b) {
+  if constexpr (OP == OP_SUM) {
+    return a + b;
+  } else if constexpr (OP == OP_PROD) {
+    return a * b;
+  } else if constexpr (OP == OP_MIN) {
+    return (is_nan(a) || a < b) ? a : b;
+  } else {
+    return (is_nan(a) || a > b) ? a : b;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t bits) {
+  static_assert(sizeof(T) == sizeof(uint32_t), "32-bit types only");
+  T v;
+  memcpy(&v, &bits, sizeof(v));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t to_bits(T v) {
+  uint32_t bits;
+  memcpy(&bits, &v, sizeof(bits));
+  return bits;
+}
+
+__device__ __forceinline__ uint32_t lane_of(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One window of ring row r: cells j = 0 .. len - 1 at columns min(s + j,
+// cap - 1); a column inside the rectangle [o, o_end) is read from blk and
+// widened, any other from the ring.  `a` is the flat index of column s
+// mod 4: cell j lies in the window's 16-byte group (a + j) / 4.
+template <typename W, typename A>
+struct Window {
+  const A* row;
+  const W* brow;
+  long long o, o_end, s, last;
+  int a, len;
+
+  __device__ __forceinline__ int groups() const {
+    return (int)(((long long)a + len + kGroup - 1) / kGroup);
+  }
+  __device__ __forceinline__ A cell(long long c) const {
+    c = c < last ? c : last;
+    return c >= o && c < o_end ? widen<A, W>(__ldg(brow + (c - o)))
+                               : __ldg(row + c);
+  }
+};
+
+template <typename W, typename A>
+__device__ __forceinline__ Window<W, A> window_of(const AppendEval& p, int r,
+                                                   long long s, int len) {
+  const long long base = (long long)r * p.cap;
+  Window<W, A> c;
+  c.row = static_cast<const A*>(p.ring) + base;
+  c.brow = static_cast<const W*>(p.blk) + (long long)r * p.Rb;
+  c.o = p.Rb > 0 ? p.offs[r] : 0;
+  c.o_end = c.o + p.Rb;
+  c.s = s;
+  c.last = p.cap - 1;
+  c.a = (int)((base + s) & 3);
+  c.len = len;
+  return c;
+}
+
+// 4 wire cells in one load
+template <typename W> struct Wire4;
+template <> struct Wire4<int8_t> { using type = char4; };
+template <> struct Wire4<int16_t> { using type = short4; };
+template <> struct Wire4<int32_t> { using type = int4; };
+template <> struct Wire4<float> { using type = float4; };
+
+// Group g of a window: its 4 cells' bits into v; returns the mask of the
+// cells that lie in the window (bit k: cell 4g + k - a).  A whole group
+// inside the window and the row takes one 16-byte load from the ring
+// where it lies outside the rectangle, or 4 cells of blk where it lies
+// inside it (one load where they are aligned); any other group loads the
+// window's cells alone.
+template <typename W, typename A>
+__device__ __forceinline__ unsigned load_group(const Window<W, A>& c,
+                                               bool vec, int g, uint4& v) {
+  const long long j0 = (long long)kGroup * g - c.a;
+  const long long c0 = c.s + j0;
+  if (j0 >= 0 && j0 + kGroup <= c.len && c0 + kGroup - 1 <= c.last) {
+    if (c0 + kGroup <= c.o || c0 >= c.o_end) {
+      if (vec) {
+        v = __ldg(reinterpret_cast<const uint4*>(c.row + c0));
+        return 0xfu;
+      }
+    } else if (kBlkGroups && c0 >= c.o && c0 + kGroup <= c.o_end) {
+      const W* b = c.brow + (c0 - c.o);
+      W x[kGroup];
+      if ((reinterpret_cast<uintptr_t>(b) & (sizeof(W) * kGroup - 1)) == 0) {
+        const auto q = __ldg(reinterpret_cast<const typename Wire4<W>::type*>(
+            b));
+        x[0] = q.x;
+        x[1] = q.y;
+        x[2] = q.z;
+        x[3] = q.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) x[k] = __ldg(b + k);
+      }
+      v = make_uint4(to_bits<A>(widen<A, W>(x[0])),
+                     to_bits<A>(widen<A, W>(x[1])),
+                     to_bits<A>(widen<A, W>(x[2])),
+                     to_bits<A>(widen<A, W>(x[3])));
+      return 0xfu;
+    }
+  }
+  uint32_t x[kGroup] = {0u, 0u, 0u, 0u};
+  unsigned live = 0u;
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    const long long j = j0 + k;
+    if (j >= 0 && j < c.len) {
+      x[k] = to_bits<A>(c.cell(c.s + j));
+      live |= 1u << k;
+    }
+  }
+  v = make_uint4(x[0], x[1], x[2], x[3]);
+  return live;
+}
+
+// Lane q's part of groups [gb, ge) of a window (gb a multiple of kLanes):
+// groups gb + q, gb + q + kLanes, ... in ascending order, each group's
+// cells in ascending order, combined into acc.
+template <int OP, typename T, typename W, typename A>
+__device__ __forceinline__ T fold_span(const Window<W, A>& c, bool vec,
+                                       int gb, int ge, int q, T acc) {
+  for (int g1 = gb + q; g1 < ge; g1 += kLanes * kGroupUnroll) {
+    uint4 v[kGroupUnroll];
+    unsigned live[kGroupUnroll];
+#pragma unroll
+    for (int i = 0; i < kGroupUnroll; ++i) {
+      const int g = g1 + kLanes * i;
+      live[i] = g < ge ? load_group<W, A>(c, vec, g, v[i]) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kGroupUnroll; ++i) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (live[i] & (1u << k)) {
+          acc = combine<OP, T>(acc, from_bits<T>(lane_of(v[i], k)));
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+// One evaluation of a span by its team of kLanes lanes: each lane's fold,
+// then a butterfly over 4, 2, 1 (each lane combines its own value first)
+// and lane 0 writes *dst (null: nothing).  Every lane of the warp calls it.
+template <int OP, typename W, typename A>
+__device__ __forceinline__ void team_eval(const Window<W, A>& c, bool vec,
+                                          int gb, int ge, int q,
+                                          uint32_t ident, uint32_t* dst) {
+  using T = typename Work<OP, A>::type;
+  T acc = fold_span<OP, T, W, A>(c, vec, gb, ge, q, from_bits<T>(ident));
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    acc = combine<OP, T>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  }
+  if (q == 0 && dst != nullptr) *dst = to_bits<T>(acc);
+}
+
+template <typename W, typename A>
+__device__ __forceinline__ void eval_span(int op, const Window<W, A>& c,
+                                          bool vec, int gb, int ge, int q,
+                                          uint32_t ident, uint32_t* dst) {
+  switch (op) {
+    case OP_SUM: team_eval<OP_SUM, W, A>(c, vec, gb, ge, q, ident, dst); break;
+    case OP_MIN: team_eval<OP_MIN, W, A>(c, vec, gb, ge, q, ident, dst); break;
+    case OP_MAX: team_eval<OP_MAX, W, A>(c, vec, gb, ge, q, ident, dst); break;
+    default: team_eval<OP_PROD, W, A>(c, vec, gb, ge, q, ident, dst); break;
+  }
+}
+
+// A short block: windows [64 b, 64 b + 64), a team a window, 4 a warp at a
+// time.  A window longer than `split` is left to the long blocks; count
+// writes lens[w] for every window.
+template <typename W, typename A>
+__device__ void short_windows(const AppendEval& p, int b) {
+  __shared__ int s_row[kEvalWindows], s_start[kEvalWindows],
+      s_len[kEvalWindows], s_count[kEvalWindows];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = lane % kLanes;
+  const long long w0 = (long long)b * kEvalWindows;
+  const int nw = (int)(p.B - w0 < kEvalWindows ? p.B - w0 : kEvalWindows);
+  if (tid < nw) {
+    const long long w = w0 + tid;
+    const int count = p.lens[w];
+    s_row[tid] = p.rows[w];
+    s_start[tid] = max(p.starts[w], 0);
+    s_len[tid] = max(0, min(count, p.pad));
+    s_count[tid] = count;
+  }
+  __syncthreads();
+  constexpr int kPerWarp = 32 / kLanes;
+  for (int k0 = warp * kPerWarp; k0 < nw; k0 += kWarps * kPerWarp) {
+    const int k = k0 + lane / kLanes;   // a lane past nw reduces nothing
+    const bool live = k < nw;
+    const int len = live ? s_len[k] : 0;
+    const bool mine = live && len <= p.split;
+    const Window<W, A> c = window_of<W, A>(p, live ? s_row[k] : 0,
+                                           live ? s_start[k] : 0,
+                                           mine ? len : 0);
+    for (int e = 0; e < p.n_evals; ++e) {
+      if (p.op[e] == OP_COUNT) {
+        if (live && q == 0) {
+          p.out[e][w0 + k] = std::is_same<A, float>::value
+                                 ? to_bits<float>((float)s_count[k])
+                                 : (uint32_t)s_count[k];
+        }
+        continue;
+      }
+      eval_span<W, A>(p.op[e], c, p.vec, 0, c.groups(), q, p.ident[e],
+                      mine ? p.out[e] + w0 + k : nullptr);
+    }
+  }
+}
+
+// Lane 0 of a warp folds the n chunk partials of one long window in chunk
+// order from the identity; the warp stages them in `buf` (kFoldCells at a
+// time, read from L2: other blocks wrote them) and lane 0 writes *dst.
+template <int OP, typename T>
+__device__ __forceinline__ void fold_chunks_op(const uint32_t* part, int n,
+                                               uint32_t ident, int lane,
+                                               uint32_t* buf, uint32_t* dst) {
+  T acc = from_bits<T>(ident);
+  for (int p0 = 0; p0 < n; p0 += kFoldCells) {
+    const int m = min(kFoldCells, n - p0);
+#pragma unroll
+    for (int u = 0; u < kFoldCells / 32; ++u) {
+      const int j = 32 * u + lane;
+      if (j < m) buf[j] = __ldcg(part + p0 + j);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      int j = 0;
+      for (; j + 8 <= m; j += 8) {
+        uint32_t x[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) x[u] = buf[j + u];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc = combine<OP, T>(acc, from_bits<T>(x[u]));
+      }
+      for (; j < m; ++j) acc = combine<OP, T>(acc, from_bits<T>(buf[j]));
+    }
+    __syncwarp();
+  }
+  if (lane == 0) *dst = to_bits<T>(acc);
+}
+
+template <typename A>
+__device__ __forceinline__ void fold_chunks(int op, const uint32_t* part,
+                                            int n, uint32_t ident, int lane,
+                                            uint32_t* buf, uint32_t* dst) {
+  switch (op) {
+    case OP_SUM:
+      fold_chunks_op<OP_SUM, typename Work<OP_SUM, A>::type>(
+          part, n, ident, lane, buf, dst);
+      break;
+    case OP_MIN:
+      fold_chunks_op<OP_MIN, A>(part, n, ident, lane, buf, dst);
+      break;
+    case OP_MAX:
+      fold_chunks_op<OP_MAX, A>(part, n, ident, lane, buf, dst);
+      break;
+    default:
+      fold_chunks_op<OP_PROD, typename Work<OP_PROD, A>::type>(
+          part, n, ident, lane, buf, dst);
+      break;
+  }
+}
+
+// A long block: chunks [32 b, 32 b + 32) of the long windows' chunks, a
+// team a chunk.  Each team writes its chunk's partials; then, for each long
+// window the block touched, one thread adds the block's chunks of it to
+// the window's counter, and the block that brings it to the window's
+// chunk count resets it and folds the window.
+template <typename W, typename A>
+__device__ void long_chunks(const AppendEval& p, int b, uint32_t* stage) {
+  __shared__ int s_win[kTeams];    // each team's long window, -1: none
+  __shared__ int s_fold[kTeams];   // the long windows this block folds
+  __shared__ int s_nfold;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int team = tid / kLanes, q = tid % kLanes;
+  const int k = b * kTeams + team;   // the team's chunk
+  int i = -1;
+  if (k < p.chunks) {              // its window: long_first[i] <= k
+    int lo = 0, hi = p.n_long - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (p.long_first[mid] <= k) lo = mid; else hi = mid - 1;
+    }
+    i = lo;
+  }
+  if (tid == 0) s_nfold = 0;
+  if (q == 0) s_win[team] = i;
+  const int w = i >= 0 ? p.long_win[i] : 0;
+  const Window<W, A> c = window_of<W, A>(
+      p, i >= 0 ? p.rows[w] : 0, i >= 0 ? max(p.starts[w], 0) : 0,
+      i >= 0 ? max(0, min(p.lens[w], p.pad)) : 0);
+  const int gb = i >= 0 ? (k - p.long_first[i]) * p.chunk : 0;
+  const int ge = i >= 0 ? min(gb + p.chunk, c.groups()) : 0;
+  for (int e = 0; e < p.n_evals; ++e) {
+    if (p.op[e] == OP_COUNT) continue;
+    eval_span<W, A>(p.op[e], c, p.vec, gb, ge, q, p.ident[e],
+                    i >= 0 ? p.out[e] + p.B + k : nullptr);
+  }
+  __threadfence();   // the partials reach L2 before the counts do
+  __syncthreads();
+  if (tid < kTeams) {
+    const int it = s_win[tid];
+    if (it >= 0 && (tid == 0 || s_win[tid - 1] != it)) {
+      int n = 1;
+      while (tid + n < kTeams && s_win[tid + n] == it) ++n;
+      const int total = p.long_first[it + 1] - p.long_first[it];
+      if (atomicAdd(p.counters + it, n) + n == total) {
+        p.counters[it] = 0;   // no other block touches it in this launch
+        s_fold[atomicAdd(&s_nfold, 1)] = it;
+      }
+    }
+  }
+  __syncthreads();
+  const int nfold = s_nfold;
+  if (nfold == 0) return;
+  __threadfence();
+  uint32_t* buf = stage + warp * kFoldCells;
+  for (int pr = warp; pr < nfold * p.n_evals; pr += kWarps) {
+    const int it = s_fold[pr / p.n_evals], e = pr % p.n_evals;
+    if (p.op[e] == OP_COUNT) continue;
+    const int first = p.long_first[it];
+    fold_chunks<A>(p.op[e], p.out[e] + p.B + first,
+                   p.long_first[it + 1] - first, p.ident[e], lane, buf,
+                   p.out[e] + p.long_win[it]);
+  }
+}
+
+// blocks [0, long_blocks): the long windows' chunks; then the short
+// windows, 64 a block; then the append, a warp a 512-cell chunk of a row
+template <typename W, typename A>
+__global__ void __launch_bounds__(kThreads, kEvalMinBlocks)
+append_eval_kernel(const __grid_constant__ AppendEval p) {
+  __shared__ __align__(16) unsigned char stage[kStageBytes];
+  const int b = blockIdx.x;
+  if (b < p.long_blocks) {
+    long_chunks<W, A>(p, b, reinterpret_cast<uint32_t*>(stage));
+  } else if (b < p.long_blocks + p.short_blocks) {
+    short_windows<W, A>(p, b - p.long_blocks);
+  } else {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    append_warp<W, A>(
+        static_cast<A*>(p.ring), static_cast<const W*>(p.blk), p.offs, p.KP,
+        p.cap, p.Rb, p.avec,
+        (long long)(b - p.long_blocks - p.short_blocks) * kWarps + warp,
+        lane,
+        reinterpret_cast<W*>(stage) + warp * WarpAppend<W, A>::kBufCells);
+  }
+}
+
+template <typename W, typename A>
+int launch_append_eval(AppendEval p, cudaStream_t st) {
+  p.vec = aligned16(p.ring);
+  p.avec = p.Rb > 0 && p.Rb % kChunk == 0 && aligned16(p.ring)
+           && aligned16(p.blk);
+  const long long append_warps =
+      (long long)p.KP * ((p.Rb + kWarpCells - 1) / kWarpCells);
+  const long long append_blocks = (append_warps + kWarps - 1) / kWarps;
+  p.long_blocks = (p.chunks + kTeams - 1) / kTeams;
+  p.short_blocks =
+      p.n_evals > 0 ? (p.B + kEvalWindows - 1) / kEvalWindows : 0;
+  const long long blocks =
+      (long long)p.long_blocks + p.short_blocks + append_blocks;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  append_eval_kernel<W, A><<<(unsigned)blocks, kThreads, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename W, typename A> struct AppendEvalL {
+  static int run(const AppendEval& p, cudaStream_t st) {
+    return launch_append_eval<W, A>(p, st);
+  }
+};
+
 }  // namespace
 
 // Appends the (KP, Rb) rectangle `blk` (wire dtype) into the (KP, cap) ring
@@ -417,4 +916,58 @@ extern "C" int wf_ring_append_regular_sum(void* ring, const void* blk,
       static_cast<const int32_t*>(offs), static_cast<const int32_t*>(rstart0),
       static_cast<const int32_t*>(rlen), out, KP, cap, Rb, C, slide,
       static_cast<cudaStream_t>(stream));
+}
+
+// One irregular resident dispatch in one launch on `stream`: appends the
+// (KP, Rb) rectangle `blk` into the (KP, cap) ring as wf_ring_append does,
+// then evaluates the n_evals ops (ops[e], identity bits idents[e]) over the
+// B windows (rows, starts, lens; int32) of the ring after the append,
+// window w's cells at columns min(max(starts[w], 0) + j, cap - 1), j <
+// min(lens[w], pad), writing B values at outs[e] (acc dtype), each
+// followed by room for `chunks` partials.  The n_long windows longer than
+// `split` cells (long_win, ascending) are cut into chunks of `chunk` cells
+// (a multiple of 32) from their first aligned 16-byte group, window i's
+// from long_first[i] on (long_first[n_long] = chunks); `counters` holds
+// n_long int32 zeros and is left so.  Returns cudaGetLastError().
+extern "C" int wf_ring_append_eval(
+    void* ring, const void* blk, const void* offs, int KP, long long cap,
+    int Rb, int wire, int acc, const int* ops, const unsigned int* idents,
+    void* const* outs, int n_evals, const void* rows, const void* starts,
+    const void* lens, int B, int pad, const void* long_win,
+    const void* long_first, void* counters, int n_long, int chunks,
+    int split, int chunk, void* stream) {
+  if (KP < 0 || cap <= 0 || Rb < 0 || B < 0 || pad < 0 || n_evals < 0 ||
+      n_evals > kMaxEvals || n_long < 0 || chunks < n_long || split < 0 ||
+      chunk <= 0 || chunk % (kGroup * kLanes) != 0 || (B > 0 && KP == 0) ||
+      (long long)B + chunks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AppendEval p{};
+  p.ring = ring;
+  p.blk = blk;
+  p.offs = static_cast<const int32_t*>(offs);
+  p.rows = static_cast<const int32_t*>(rows);
+  p.starts = static_cast<const int32_t*>(starts);
+  p.lens = static_cast<const int32_t*>(lens);
+  p.long_win = static_cast<const int32_t*>(long_win);
+  p.long_first = static_cast<const int32_t*>(long_first);
+  p.counters = static_cast<int32_t*>(counters);
+  for (int e = 0; e < n_evals; ++e) {
+    if (ops[e] < OP_SUM || ops[e] > OP_PROD) return (int)cudaErrorInvalidValue;
+    p.op[e] = ops[e];
+    p.ident[e] = idents[e];
+    p.out[e] = static_cast<uint32_t*>(outs[e]);
+  }
+  p.cap = cap;
+  p.n_evals = n_evals;
+  p.KP = KP;
+  p.Rb = Rb;
+  p.B = B;
+  p.pad = pad;
+  p.n_long = n_long;
+  p.chunks = chunks;
+  p.split = split;
+  p.chunk = chunk / kGroup;
+  return dispatch<AppendEvalL>(Rb > 0 ? wire : (int)W_INT8, acc, p,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -47,7 +47,7 @@ import torch
 
 from . import _nvcc
 from .monoid import identity
-from .windowed_reduce import GROUP, _combine, _wrap32, team_fold
+from .windowed_reduce import GROUP, _combine, _wrap32, chunked_fold
 
 #: op codes of the C launchers (enum Op in the .cu source)
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4, "mean": 5}
@@ -207,59 +207,23 @@ def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
     dtype = vals.dtype
     _check_op(op, dtype)
     device = vals.device
-    B, Ns = starts.numel(), vals.numel()
+    Ns = vals.numel()
     lo, hi = _bounds(starts, lens, base, Ns)
     n = (hi - lo).clamp(min=0)
-    a = lo % GROUP
-    groups = (a + n + GROUP - 1) // GROUP
     is_int = dtype == torch.int32
     work = torch.int64 if is_int else dtype
     red = "sum" if op in ("count", "mean") else op
     ident = _ident(red, dtype).to(work).to(device)
-    # the spans a team reduces: a short window's groups, or one chunk
-    cg = chunk // GROUP
-    long = n > split
-    nch = torch.where(long, (groups + cg - 1) // cg, torch.ones_like(n))
-    win = torch.repeat_interleave(torch.arange(B, device=device), nch)
-    ch = (torch.arange(win.numel(), device=device)
-          - (torch.cumsum(nch, 0) - nch)[win])
-    span_long = long[win]
-    gb = torch.where(span_long, ch * cg, torch.zeros_like(ch))
-    ge = torch.where(span_long, torch.minimum(gb + cg, groups[win]),
-                     groups[win])
-    lo_s = lo[win]
 
-    def cells(j):
+    def cells(win, j):
         if Ns == 0:
             return None, False
-        idx = (lo_s[:, None] + j).clamp(0, Ns - 1)
+        idx = (lo[win][:, None] + j).clamp(0, Ns - 1)
         v = vals[idx].to(work) if op != "count" else None
         return v, (keep[idx] if keep is not None else True)
 
-    sv, sc = team_fold(red, is_int, ident, gb, ge, a[win], n[win], cells)
-    acc = torch.empty(B, dtype=work, device=device)
-    cnt = torch.zeros(B, dtype=torch.int64, device=device)
-    one = ~span_long
-    acc[win[one]] = sv[one]
-    cnt[win[one]] = sc[one]
-    if bool(long.any()):
-        # the chunk partials of the L long windows as an (L, chunks) grid,
-        # folded column by column in chunk order from the identity
-        lw = torch.nonzero(long).flatten()
-        rank = torch.zeros(B, dtype=torch.long, device=device)
-        rank[lw] = torch.arange(lw.numel(), device=device)
-        chunks = nch[lw]
-        grid = ident.expand(lw.numel(), int(chunks.max())).clone()
-        gcnt = torch.zeros_like(grid, dtype=torch.int64)
-        at = (rank[win[span_long]], ch[span_long])
-        grid[at] = sv[span_long]
-        gcnt[at] = sc[span_long]
-        tot = ident.expand(lw.numel()).clone()
-        for c in range(grid.shape[1]):
-            tot = torch.where(c < chunks,
-                              _combine(red, tot, grid[:, c], is_int), tot)
-        acc[lw] = tot
-        cnt[lw] = gcnt.sum(dim=1)
+    acc, cnt = chunked_fold(red, is_int, ident, lo % GROUP, n, split, chunk,
+                            cells)
     part = cnt.to(dtype) if op == "count" else acc.to(dtype)
     return part, (cnt.to(torch.int32) if needs_count(op) else None)
 

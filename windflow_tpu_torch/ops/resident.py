@@ -11,12 +11,12 @@ reads device memory:
 * each launch appends the new rows as ONE rectangle in the narrowest wire
   dtype that holds them (int8/int16/int32/float32), widened to the
   accumulate dtype on the card;
-* the fired windows are then evaluated over the ring: regular windows in
-  the same launch as the append (the ``ring_append_regular_sum`` kernel,
-  one launch a flush, as the JAX step ``_regular_body`` is one jitted
-  step), windows given by explicit (row, start, len) descriptors by the
-  windowed-reduce kernel, every op in one launch (as JAX's
-  ``_append_eval`` evaluates every op in one jitted step);
+* the fired windows are then evaluated over the ring in the same launch
+  as the append: regular windows by the ``ring_append_regular_sum``
+  kernel (one launch a flush, as the JAX step ``_regular_body`` is one
+  jitted step), windows given by explicit (row, start, len) descriptors
+  by the ``ring_append_eval`` kernel, every op in that one launch (as
+  JAX's ``_append_eval`` is one jitted step);
 * with several fields (:class:`MultiFieldResidentExecutor`) each field has
   a ring of its own, each ``(op, field)`` stat reads its field's ring (all
   stats of a launch in one windowed-reduce launch), and
@@ -63,7 +63,8 @@ import torch
 from ..utils import profile
 from .device import _bucket
 from .gather import window_gather
-from .ring import ring_append, ring_append_regular_sum
+from .ring import (long_windows, ring_append, ring_append_eval,
+                   ring_append_regular_sum)
 from .windowed_reduce import windowed_reduce_many
 
 # -- wire diagnostics (always on: one lock round-trip per dispatch) ---------
@@ -444,7 +445,10 @@ class ResidentWindowExecutor:
         KP = self.KP
         with profile.span("device_put"):
             blkp = self._stage_block(blk, Rb)
-            vec = launch_vec(KP, offs, B, (wrows, wstarts, wlens))
+            long = long_windows(wrows, wstarts, wlens, pad, self.cap)
+            vec = np.concatenate([launch_vec(KP, offs, B,
+                                             (wrows, wstarts, wlens)),
+                                  long.vec])
             with self._on_stream():
                 d_blk, p_blk = self._to_device(blkp)
                 d_vec, p_vec = self._to_device(vec)
@@ -452,10 +456,10 @@ class ResidentWindowExecutor:
         profile.add("rows_shipped", blk.size)
         profile.add("windows", B)
         with profile.span("dispatch"), self._on_stream():
-            ring = ring_append(self._ring_arr(), d_blk, d_vec[:KP])
-            rows, starts, lens = launch_cols(d_vec, KP, B, 3)
-            outs = tuple(windowed_reduce_many([(ring, op) for op in self.ops],
-                                              rows, starts, lens, pad))
+            outs = tuple(ring_append_eval(
+                self._ring_arr(), d_blk, d_vec[:KP], self.ops,
+                *launch_cols(d_vec, KP, B, 3), pad,
+                long=long.on(d_vec[KP + 3 * B:])))
             hosts, event = self._fetch(outs)
         stats_add("dispatches")
         self._inflight.append((meta, B, hosts, event,
@@ -928,8 +932,8 @@ class MeshResidentExecutor(_MeshShards, ResidentWindowExecutor):
     """Resident ring sharded over a device mesh's key-group axis: dense-key
     ring rows are strided over the axis's shards, each shard appending to
     and evaluating windows over its own ``(rps, cap)`` ring with the
-    single-device kernels — ``launch`` (M1: ``ring_append`` + one
-    ``windowed_reduce_many`` a shard, of ``_make_mesh_step``) and
+    single-device kernels — ``launch`` (M1: one ``ring_append_eval`` a
+    shard, of ``_make_mesh_step``) and
     ``launch_regular`` (M2: one ``ring_append_regular_sum`` a shard, of
     ``_make_mesh_regular_step``).  The kf axis exchanges nothing, as in
     JAX; the harvest reads every shard's results back in window order."""
@@ -963,21 +967,22 @@ class MeshResidentExecutor(_MeshShards, ResidentWindowExecutor):
             for s in range(S):
                 m = masks[s]
                 c = int(m.sum())
-                vec = launch_vec(rps, self._shard_rows(offs, s), c,
-                                 (local[m], wstarts[m], wlens[m]))
+                cols = (local[m], wstarts[m], wlens[m])
+                long = long_windows(*cols, pad, self.cap)
+                vec = np.concatenate([launch_vec(
+                    rps, self._shard_rows(offs, s), c, cols), long.vec])
                 with self._on_shard(s):
                     d_blk, p_blk = _upload(self._shard_rows(blk, s, Rb),
                                            self.shard_devices[s],
                                            self._streams[s])
                     d_vec, p_vec = _upload(vec, self.shard_devices[s],
                                            self._streams[s])
-                    ring = ring_append(rings[s][0], d_blk, d_vec[:rps])
-                    outs = ()
-                    if c:
-                        r, st, ln = launch_cols(d_vec, rps, c, 3)
-                        outs = tuple(windowed_reduce_many(
-                            [(ring, op) for op in self.ops], r, st, ln, pad))
-                    h, e = _download(outs, self._streams[s])
+                    outs = tuple(ring_append_eval(
+                        rings[s][0], d_blk, d_vec[:rps], self.ops,
+                        *launch_cols(d_vec, rps, c, 3), pad,
+                        long=long.on(d_vec[rps + 3 * c:])))
+                    # a shard without windows evaluates none
+                    h, e = _download(outs if c else (), self._streams[s])
                 hosts.append(h)
                 events.append(e)
                 keep.append((p_blk, p_vec, d_blk, d_vec, outs))

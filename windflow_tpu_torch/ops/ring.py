@@ -18,10 +18,17 @@ These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
   XLA's int32 cumsum difference does.  With an empty ``(KP, 0)``
   rectangle it computes those window sums alone.
 
-The irregular evaluation (``_ring_eval``) is the windowed-reduce kernel
-over (row, start, len) descriptors (ops/windowed_reduce.py,
-ops/resident.py); :func:`ring_eval_reference` is a plain transcription of
-``_ring_eval`` that it is held against.
+* :func:`ring_append_eval` — the whole of ``_append_eval`` in one launch:
+  the same append, then every op of the dispatch (sum, count, min, max,
+  prod; up to :data:`EVALS_PER_LAUNCH`) over the ``(row, start, len)``
+  windows of the ring after it, window ``w`` covering columns
+  ``min(max(starts[w], 0) + j, cap - 1)`` for ``j < min(lens[w], pad)``.
+  A window longer than :data:`LONG_SPLIT` cells is cut into chunks of
+  :data:`LONG_CHUNK` cells spread over the card (:class:`LongWindows` lists
+  them; the caller that holds the windows on the host builds it).
+  :func:`append_eval_order_twin` reproduces its combine order.
+
+:func:`ring_eval_reference` is a plain transcription of ``_ring_eval``.
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``); a CPU tensor runs the plain version.
@@ -31,12 +38,16 @@ There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 
+import numpy as np
 import torch
 
 from . import _nvcc
 from .monoid import identity
+from .windowed_reduce import (GROUP, _OPS, _check_op, _ident_bits,
+                              chunked_fold, windowed_reduce_many_reference)
 
 #: wire dtypes of the rectangle (enum Wire in the .cu source)
 _WIRES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
@@ -49,6 +60,14 @@ _ACCS = {torch.int32: 0, torch.float32: 1}
 CHUNK = 16
 #: consecutive windows of one row a warp of ring_append_regular_sum sums
 WIN_PER_WARP = 2
+#: ops ring_append_eval evaluates in one launch (kMaxEvals)
+EVALS_PER_LAUNCH = 8
+#: ring_append_eval: a window of at most LONG_SPLIT cells is reduced by a
+#: team of 8 lanes, a longer one in chunks of LONG_CHUNK cells (a multiple
+#: of 32) spread over the card and folded in chunk order (PERF.md: chosen
+#: on the H100)
+LONG_SPLIT = 512
+LONG_CHUNK = 512
 
 _lock = threading.Lock()
 _lib = None
@@ -73,6 +92,11 @@ def _load():
                 c_p, c_p, c_p, c_p, c_p, c_p, c_int, c_ll, c_int, c_int,
                 c_int, c_int, c_int, c_p]
             lib.wf_ring_append_regular_sum.restype = c_int
+            lib.wf_ring_append_eval.argtypes = (
+                [c_p, c_p, c_p, c_int, c_ll, c_int, c_int, c_int, c_p, c_p,
+                 c_p, c_int, c_p, c_p, c_p, c_int, c_int, c_p, c_p, c_p]
+                + [c_int] * 4 + [c_p])
+            lib.wf_ring_append_eval.restype = c_int
             _lib = lib
         return _lib
 
@@ -268,3 +292,219 @@ def ring_eval_reference(op: str, ring: torch.Tensor, rows: torch.Tensor,
             return vals.long().prod(dim=1).to(torch.int32)
         return vals.prod(dim=1)
     return vals.amin(dim=1) if op == "min" else vals.amax(dim=1)
+
+
+# ------------------------------------------------------ irregular dispatch
+
+@dataclasses.dataclass(frozen=True)
+class LongWindows:
+    """The windows of one :func:`ring_append_eval` launch longer than
+    `split` cells, in the layout the kernel reads: ``vec`` (int32) holds
+    the ``n`` long windows' indices, ascending, then each one's first
+    chunk and, last, the number of chunks (``n + 1`` entries).  A window's
+    chunks hold `chunk` cells each from its first 16-byte group of the
+    ring.  ``dev`` is the same vector where the caller has put it on the
+    ring's device (None: the wrapper copies ``vec`` there)."""
+
+    vec: np.ndarray
+    n: int
+    chunks: int
+    split: int = LONG_SPLIT
+    chunk: int = LONG_CHUNK
+    dev: torch.Tensor | None = None
+
+    def on(self, dev: torch.Tensor) -> "LongWindows":
+        """This list with its copy on the device."""
+        return dataclasses.replace(self, dev=dev)
+
+
+def long_windows(rows, starts, lens, pad: int, cap: int, split: int = LONG_SPLIT,
+                 chunk: int = LONG_CHUNK) -> LongWindows:
+    """The :class:`LongWindows` of windows ``(rows, starts, lens)`` (host
+    arrays) over a ring of `cap` columns: a window of ``min(lens, pad)``
+    cells from ``max(starts, 0)`` is long past `split` cells, and with a
+    = the flat index of its first cell mod 4 its chunks are ``ceil(ceil((a
+    + len) / 4) / (chunk / 4))``."""
+    if chunk <= 0 or chunk % (GROUP * 8) or split < 0:
+        raise ValueError(f"chunk must be a positive multiple of 32 and "
+                         f"split >= 0, got chunk={chunk}, split={split}")
+    rows = np.asarray(rows, dtype=np.int64)
+    s = np.maximum(np.asarray(starts, dtype=np.int64), 0)
+    n = np.clip(np.asarray(lens, dtype=np.int64), 0, int(pad))
+    idx = np.flatnonzero(n > split)
+    a = (rows[idx] * int(cap) + s[idx]) % GROUP
+    cg = chunk // GROUP
+    nch = ((a + n[idx] + GROUP - 1) // GROUP + cg - 1) // cg
+    first = np.zeros(len(idx) + 1, dtype=np.int64)
+    np.cumsum(nch, out=first[1:])
+    return LongWindows(np.concatenate([idx, first]).astype(np.int32),
+                       len(idx), int(first[-1]), int(split), int(chunk))
+
+
+_NO_LONG = LongWindows(np.zeros(1, dtype=np.int32), 0, 0)
+
+#: per (device, stream): the long windows' counters, int32 zeros that
+#: every launch leaves at zero (launches on one stream run in order)
+_counters = {}
+
+
+def _long_counters(device: torch.device, stream: int, n: int):
+    with _lock:
+        key = (device.index, stream)
+        t = _counters.get(key)
+        if t is None or t.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("ring_append_eval under graph capture "
+                                   "takes its counters= from the caller")
+            t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _counters[key] = t
+        return t
+
+
+def ring_append_eval_reference(ring: torch.Tensor, blk: torch.Tensor,
+                               offs: torch.Tensor, evals, rows: torch.Tensor,
+                               starts: torch.Tensor, lens: torch.Tensor,
+                               pad: int) -> list:
+    """Plain version of the kernel: the plain append, then the plain
+    windowed reduction of every op over the ring after it."""
+    ring_append_reference(ring, blk, offs)
+    return windowed_reduce_many_reference([(ring, op) for op in evals], rows,
+                                          starts, lens, pad)
+
+
+def append_eval_order_twin(ring: torch.Tensor, blk: torch.Tensor,
+                           offs: torch.Tensor, evals, rows: torch.Tensor,
+                           starts: torch.Tensor, lens: torch.Tensor,
+                           pad: int, split: int = LONG_SPLIT,
+                           chunk: int = LONG_CHUNK) -> list:
+    """Plain torch that reproduces the kernel's combine order
+    (csrc/resident.cu, "Order"), so that the kernel can be held to it bit
+    for bit; no path of the port calls it.  The plain append, then for
+    each op: with n = min(lens, pad) cells from s = max(starts, 0) and a =
+    (rows * cap + s) mod 4, cell j lies in group (a + j) // 4; a window of
+    at most `split` cells is one team's (windowed_reduce.team_fold over
+    all its groups), a longer one is cut into chunks of ``chunk // 4``
+    groups, each reduced in the team's order, and the chunk partials are
+    folded in chunk order from the identity
+    (windowed_reduce.chunked_fold)."""
+    ring_append_reference(ring, blk, offs)
+    cap = ring.shape[1]
+    r = rows.long()
+    s = starts.long().clamp(min=0)
+    n = lens.long().clamp(0, int(pad))
+    is_int = ring.dtype == torch.int32
+    work = torch.int64 if is_int else ring.dtype
+
+    def cells(win, j):
+        col = (s[win][:, None] + j).clamp(0, cap - 1)
+        return ring[r[win][:, None], col].to(work), True
+
+    outs = []
+    for op in evals:
+        _check_op(op)
+        if op == "count":
+            outs.append(lens.to(ring.dtype))
+            continue
+        ident = torch.tensor(identity(op, ring.dtype).item(), dtype=work,
+                             device=ring.device)
+        acc, _ = chunked_fold(op, is_int, ident, (r * cap + s) % GROUP, n,
+                              split, chunk, cells)
+        outs.append(acc.to(ring.dtype))
+    return outs
+
+
+def _check_eval(ring, evals, rows, starts, lens, pad):
+    evals = list(evals)
+    if len(evals) > EVALS_PER_LAUNCH:
+        raise ValueError(f"ring_append_eval takes at most "
+                         f"{EVALS_PER_LAUNCH} ops a launch, got "
+                         f"{len(evals)}")
+    for op in evals:
+        _check_op(op)
+    B = starts.numel()
+    for name, t in (("rows", rows), ("starts", starts), ("lens", lens)):
+        _check_vec(name, t, B, ring.device)
+    if int(pad) < 0:
+        raise ValueError(f"pad must be >= 0, got {pad}")
+    return evals
+
+
+def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
+                     offs: torch.Tensor, evals, rows: torch.Tensor,
+                     starts: torch.Tensor, lens: torch.Tensor, pad: int,
+                     long: LongWindows | None = None,
+                     counters: torch.Tensor | None = None) -> list:
+    """:func:`ring_append` of `blk` at `offs`, then every op of `evals`
+    (sum, count, min, max, prod; at most :data:`EVALS_PER_LAUNCH`) over the
+    B windows ``(rows[w], starts[w], min(lens[w], pad))`` of the ring after
+    it, a column past the row's end reading its last cell; returns one (B,)
+    tensor an op in the ring's dtype (count: ``lens``), and `ring` is
+    updated in place.  One kernel launch on a CUDA ring (none when there
+    is no cell to write and no window); the plain version on a CPU one.
+
+    `long` is :func:`long_windows` of these windows, which the caller that
+    holds them on the host passes (without it the wrapper reads the
+    windows back, which waits for the device).  `counters` is an int32
+    tensor of at least ``long.n`` zeros on the ring's device that the
+    launch leaves at zero (None: the wrapper's own for the current
+    stream).  The outputs are views of one buffer that also holds the
+    long windows' chunk partials: keep them alive while the launch runs."""
+    _check_append(ring, blk, offs)
+    evals = _check_eval(ring, evals, rows, starts, lens, pad)
+    if not _on_card("ring_append_eval", ring, blk, offs, rows, starts,
+                    lens):
+        return ring_append_eval_reference(ring, blk, offs, evals, rows,
+                                          starts, lens, pad)
+    KP, cap = ring.shape
+    Rb, B, n = blk.shape[1], starts.numel(), len(evals)
+    if not B or all(op == "count" for op in evals):
+        long = _NO_LONG
+    elif long is None:
+        long = long_windows(rows.cpu().numpy(), starts.cpu().numpy(),
+                            lens.cpu().numpy(), pad, cap)
+    buf = torch.empty((n, B + long.chunks), dtype=ring.dtype,
+                      device=ring.device)
+    outs = [buf[e, :B] for e in range(n)]
+    if KP * Rb == 0 and (B == 0 or n == 0):
+        return outs
+    plan = long.dev
+    if plan is None:
+        plan = torch.from_numpy(long.vec).to(ring.device)
+    if (plan.dtype != torch.int32 or plan.numel() != 2 * long.n + 1
+            or plan.device != ring.device or not plan.is_contiguous()):
+        raise TypeError(f"long.dev must be a contiguous ({2 * long.n + 1},) "
+                        f"int32 tensor on {ring.device}")
+    lib = _load()
+    with torch.cuda.device(ring.device):
+        stream = _stream_of(ring)
+        if long.n and counters is None:
+            counters = _long_counters(ring.device, stream, long.n)
+        if counters is not None and (
+                counters.dtype != torch.int32 or counters.numel() < long.n
+                or counters.device != ring.device):
+            raise TypeError(f"counters must be an int32 tensor of at least "
+                            f"{long.n} zeros on {ring.device}")
+        ops = (ctypes.c_int * max(n, 1))(*(_OPS[op] for op in evals))
+        ids = (ctypes.c_uint * max(n, 1))(*(
+            _ident_bits("sum" if op == "count" else op, ring.dtype)
+            for op in evals))
+        ptrs = (ctypes.c_void_p * max(n, 1))(*(o.data_ptr() for o in outs))
+        at = plan.data_ptr()
+        rc = lib.wf_ring_append_eval(
+            ring.data_ptr(), blk.data_ptr() if Rb else None,
+            offs.data_ptr() if KP else None, KP, cap, Rb, _WIRES[blk.dtype],
+            _ACCS[ring.dtype], ops, ids, ptrs, n,
+            rows.data_ptr() if B else None, starts.data_ptr() if B else None,
+            lens.data_ptr() if B else None, B, int(pad), at,
+            at + 4 * long.n,
+            counters.data_ptr() if counters is not None else None, long.n,
+            long.chunks, long.split, long.chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_append_eval kernel launch failed: CUDA "
+                           f"error {rc}")
+    ring_append_eval.launches += 1
+    return outs
+
+
+#: kernel launches since the count was last reset
+ring_append_eval.launches = 0

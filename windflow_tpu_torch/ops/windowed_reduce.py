@@ -205,6 +205,60 @@ def team_fold(op, is_int, ident, gb, ge, a, n, cells):
     return acc[:, 0], cnt[:, 0]
 
 
+def chunked_fold(op, is_int, ident, a, n, split, chunk, cells):
+    """The order of the kernels that cut long windows into chunks
+    (csrc/mesh_reduce.cu sp_window_partial, csrc/resident.cu
+    ring_append_eval), shared by their CPU twins.
+
+    For B windows of n cells whose cell j lies in 16-byte group (a + j) //
+    GROUP: a window of at most `split` cells is one team's
+    (:func:`team_fold` over all its groups); a longer one is cut into
+    chunks of ``chunk // GROUP`` groups from its first group, each reduced
+    in the team's order, and the chunk partials are folded in chunk order
+    from the identity.  ``cells(win, j)`` gives what team_fold's `cells`
+    gives for spans of the windows `win`.  Returns the (B,) values and
+    the (B,) numbers of cells combined."""
+    device, B = n.device, n.numel()
+    groups = (a + n + GROUP - 1) // GROUP
+    cg = chunk // GROUP
+    long = n > split
+    # the spans a team reduces: a short window's groups, or one chunk
+    nch = torch.where(long, (groups + cg - 1) // cg, torch.ones_like(n))
+    win = torch.repeat_interleave(torch.arange(B, device=device), nch)
+    ch = (torch.arange(win.numel(), device=device)
+          - (torch.cumsum(nch, 0) - nch)[win])
+    span_long = long[win]
+    gb = torch.where(span_long, ch * cg, torch.zeros_like(ch))
+    ge = torch.where(span_long, torch.minimum(gb + cg, groups[win]),
+                     groups[win])
+    sv, sc = team_fold(op, is_int, ident, gb, ge, a[win], n[win],
+                       lambda j: cells(win, j))
+    acc = ident.expand(B).clone()
+    cnt = torch.zeros(B, dtype=torch.int64, device=device)
+    one = ~span_long
+    acc[win[one]] = sv[one]
+    cnt[win[one]] = sc[one]
+    if bool(long.any()):
+        # the chunk partials of the L long windows as an (L, chunks) grid,
+        # folded column by column in chunk order from the identity
+        lw = torch.nonzero(long).flatten()
+        rank = torch.zeros(B, dtype=torch.long, device=device)
+        rank[lw] = torch.arange(lw.numel(), device=device)
+        chunks = nch[lw]
+        grid = ident.expand(lw.numel(), int(chunks.max())).clone()
+        gcnt = torch.zeros_like(grid, dtype=torch.int64)
+        at = (rank[win[span_long]], ch[span_long])
+        grid[at] = sv[span_long]
+        gcnt[at] = sc[span_long]
+        tot = ident.expand(lw.numel()).clone()
+        for c in range(grid.shape[1]):
+            tot = torch.where(c < chunks,
+                              _combine(op, tot, grid[:, c], is_int), tot)
+        acc[lw] = tot
+        cnt[lw] = gcnt.sum(dim=1)
+    return acc, cnt
+
+
 def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
     """Plain torch that reproduces the kernel's ownership of cells and its
     combine order (csrc/windowed_reduce.cu, "Order"), so that the kernel

@@ -30,6 +30,9 @@ mesh's key-group axis (ops/resident.py ``MeshResidentExecutor`` and
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
@@ -47,6 +50,27 @@ from .win_mapreduce import WinMapReduce
 from .win_seq import WinSeqNode
 
 
+#: set by :func:`deferred_devices` while the static checker builds a graph
+_DEFERRED = contextvars.ContextVar("wf_deferred_devices", default=None)
+
+
+@contextlib.contextmanager
+def deferred_devices():
+    """While active (in this thread), a worker asked for no device on a
+    host without a card is placed on the ``meta`` device instead of
+    raising: the static checker (check.validate) builds graphs it never
+    runs, and resolves no device for them.  The yielded dict's
+    ``"deferred"`` says whether any placement was deferred: such a graph
+    must not run (its cores hold no data), and is built anew for a run,
+    which then resolves its devices (and raises without a card)."""
+    seen = {"deferred": False}
+    token = _DEFERRED.set(seen)
+    try:
+        yield seen
+    finally:
+        _DEFERRED.reset(token)
+
+
 def resolve_worker_device(device, i: int) -> torch.device:
     """Per-worker device placement — farm worker *i* owns a card the way
     each reference GPU worker owns a CUDA stream/device
@@ -54,14 +78,19 @@ def resolve_worker_device(device, i: int) -> torch.device:
 
     ``None`` spreads workers round-robin over the visible CUDA devices and
     raises ``RuntimeError`` when there is none (it never falls back to the
-    CPU: pass ``device="cpu"`` to run the kernels' plain versions); a
-    list/tuple spreads over exactly those devices; a single device pins
-    every worker to it."""
+    CPU: pass ``device="cpu"`` to run the kernels' plain versions; inside
+    :func:`deferred_devices` it gives the ``meta`` device); a list/tuple
+    spreads over exactly those devices; a single device pins every worker
+    to it."""
     if isinstance(device, (list, tuple)):
         return torch.device(device[i % len(device)])
     if device is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n == 0:
+            deferred = _DEFERRED.get()
+            if deferred is not None:
+                deferred["deferred"] = True
+                return torch.device("meta")
             raise RuntimeError(
                 "no CUDA device: the device path runs on the card; pass "
                 "device='cpu' explicitly to run it on the host")
