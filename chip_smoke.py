@@ -58,6 +58,21 @@ catches its own failure):
    B = 0, count, every wire x accumulate dtype, small splits and chunks);
    each main shape timed cold and hot beside its bytes bound, the empty
    launch and the old ring_append + windowed_reduce pair;
+4d. multi_append_eval: ring_append_multi_eval (the per-field step in one
+   launch: every field's append, every stat, a window function's tiles
+   and mask) against its plain version and, bit for bit, against
+   multi_append_eval_order_twin, two launches equal and the counters left
+   at zero, at a spatial resident launch (2 float32 fields, tiles at pad
+   4096, 256 windows, 8 x 2^22 rings, a 2^19-column rectangle), a
+   MultiReducer launch (int8 and int16 wires into int32 rings, sum and
+   max of 8,192 windows), 1,024 windows of 1k-8k cells over 3 fields of
+   int32 and float32 rings (all five ops and two fields' tiles), and 48
+   odd cases (1-5 fields of every wire x accumulate dtype, offsets at
+   every residue mod 4, Rb not a multiple of 16, windows across the
+   rectangle's edges, B = 0, a field with neither stat nor tile, 9-12
+   stats in two launches, small splits and chunks); each main shape timed
+   cold and hot beside its bytes bound, the empty launch and the old
+   composition (ring_append a field, windowed_reduce_many, window_gather);
 5. end_to_end (restaging): sum_test (Source -> WinSeqGPU(Reducer("sum"),
    256, 64, CB, use_reduce_kernel=True) -> Sink) over 16M tuples of 64 keys,
    held against a numpy oracle, with the kernel's launch count read around
@@ -94,12 +109,16 @@ catches its own failure):
    WinFarmGPU(device_skyline(), ..., use_resident=True): every window's
    (size, checksum) against a numpy sort-and-sweep oracle, a prefix of the
    windows byte for byte against the port's host WinSeq(SkylineWindow()),
-   and the launch counts in that run: exactly 8 ring_append (2 rings x 2
-   launches x 2 workers), 4 window_gather (both fields in one) and 4
-   skyline_windows; then ring_append against its plain version on the
-   inputs of each of those 8 launches (their rectangles and offsets,
-   float32 into 8 x 2^22 float32 rings), timed on the largest (the
-   kernels line's ring_append row);
+   and the launch counts in that run: exactly 4 ring_append_multi_eval
+   (2 launches x 2 workers, both rings' appends and both fields' tiles in
+   each) and 4 skyline_windows, no ring_append and no window_gather; then
+   ring_append_multi_eval against its plain version and its twin at the
+   inputs of each of those 4 launches, timed on the largest beside the
+   old composition (the kernels line's ring_append_multi_eval row), and
+   ring_append against its plain version at their 8 rectangles (float32
+   into 8 x 2^22 float32 rings), timed on the largest (the kernels line's
+   ring_append row: ring_append has no main-path launch since the
+   per-field step was fused);
 11. spatial_restaging: the same stream through the restaging route
    (WinFarmGPU without use_resident), against the same oracle;
 12. spatial_app: apps.spatial.run("wf-gpu") at its defaults (8 s at
@@ -107,8 +126,9 @@ catches its own failure):
 13. multi_field_native: MultiReducer(sum(a), max(b), count) over CB 256/64
    and 64 keys, 4M tuples, through the native core's per-field rings
    (NativeResidentCore._multi -> MultiFieldResidentExecutor), byte for
-   byte against the port's host core, with one windowed-reduce launch for
-   each of the executor's launches that evaluates windows;
+   byte against the port's host core, with one ring_append_multi_eval
+   launch for each of the executor's launches (no ring_append, no
+   windowed_reduce), each call against its plain version and twin;
 14. ysb_deterministic: the Yahoo Streaming Benchmark (apps/ysb.py) at its
    published shape (100 campaigns x 10 ads, TB tumbling windows of 10 s,
    COUNT + MAX(ts) + SUM(revenue) per campaign, pardegree2 4, chunks of
@@ -167,7 +187,9 @@ catches its own failure):
    ring_append_eval a shard a dispatch, with or without windows); (c) the
    two-field
    MultiReducer's 4M tuples on the mesh (the native _multi branch over
-   MeshMultiFieldResidentExecutor); (b) and (c) per key against the
+   MeshMultiFieldResidentExecutor: one ring_append_multi_eval on every
+   shard a dispatch, no ring_append, windowed_reduce or window_gather);
+   (b) and (c) per key against the
    un-meshed route; each run's launches per shard (from the shards'
    streams) and every ring kernel call against its plain version; (d)
    MeshStreamStep at pipe_test's chain (map 3v+1, filter v % 5 != 0) over
@@ -245,7 +267,7 @@ catches its own failure):
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append_eval and ring_append_regular_sum must have been
 launched on one of them; the mesh runs' launches follow (mesh_launches).
-Then it prints the kernels' JSON line (eight kernels, each with the
+Then it prints the kernels' JSON line (nine kernels, each with the
 empty-launch floor beside its times), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without printing a
@@ -1350,6 +1372,301 @@ def append_eval_phase(dev, timed=True, n_odd=48):
     return rows
 
 
+# ring_append_multi_eval (phase 4d): the per-field resident step in one
+# launch.  Each case: a (KP, cap) ring a field, their (KP, Rb) rectangles
+# (K rows and R columns of data, the rest zero), the shared offsets, the
+# (field, op) stats, the tile fields and the windows.
+
+def mae_case(gen, dev, KP, cap, Rb, K, R, fields, evals, tile_fields, rows,
+             starts, lens, offs, pad=None, split=None, chunk=None):
+    """One ring_append_multi_eval case on `dev`: `fields` is a (wire, acc)
+    pair a field (windows from host arrays)."""
+    from windflow_tpu_torch.ops import ring as rk
+    rings, blks = [], []
+    for f, (wire, acc) in enumerate(fields):
+        prod = any(g == f and op == "prod" for g, op in evals)
+        rings.append(ae_values(gen, (KP, cap), acc, prod).to(dev))
+        blk = torch.zeros((KP, Rb), dtype=wire)
+        blk[:K, :R] = ae_values(gen, (K, R), wire, prod)
+        blks.append(blk.to(dev))
+    as32 = lambda a: torch.from_numpy(                       # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    pad = int(pad if pad is not None else max(1, int(np.max(lens, initial=1))))
+    long = rk.long_windows(rows, starts, lens, pad, cap,
+                           split if split is not None else rk.LONG_SPLIT,
+                           chunk if chunk is not None else rk.LONG_CHUNK)
+    return dict(rings=rings, blks=blks, offs=as32(offs), evals=list(evals),
+                tile_fields=tuple(tile_fields), rows=as32(rows),
+                starts=as32(starts), lens=as32(lens), pad=pad, long=long)
+
+
+def check_multi_append_eval(case, name):
+    """ring_append_multi_eval on copies of the case's rings, twice, against
+    the plain version and, bit for bit, against
+    multi_append_eval_order_twin (both on the card): every ring identical,
+    the two launches' outputs equal, the tiles and the mask bit for bit
+    equal to the plain gather's, the counters left at zero.  Returns the
+    largest error of a stat against the plain version."""
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    c = case
+    args = (c["blks"], c["offs"], c["evals"], c["rows"], c["starts"],
+            c["lens"], c["pad"])
+    dev = c["offs"].device
+    counters = torch.zeros(c["long"].n + 1, dtype=torch.int32, device=dev)
+    rings = [[r.clone() for r in c["rings"]] for _ in range(3)]
+    got = rk.ring_append_multi_eval(rings[0], *args, c["tile_fields"],
+                                    long=c["long"], counters=counters)
+    again = rk.ring_append_multi_eval(rings[0], *args, c["tile_fields"],
+                                      long=c["long"], counters=counters)
+    plain = rk.ring_append_multi_eval_reference(rings[1], *args,
+                                                c["tile_fields"])
+    twin = rk.multi_append_eval_order_twin(
+        rings[2], *args, c["tile_fields"], split=c["long"].split,
+        chunk=c["long"].chunk)
+    _sync(dev)
+    for f in range(len(c["rings"])):
+        if not (torch.equal(rings[0][f], rings[1][f])
+                and torch.equal(rings[0][f], rings[2][f])):
+            raise AssertionError(f"ring_append_multi_eval {name}: field "
+                                 f"{f}'s ring differs from the plain append")
+    if c["long"].n and bool(counters.any()):
+        raise AssertionError(f"ring_append_multi_eval {name}: counters left "
+                             f"at {counters.nonzero().flatten().tolist()}")
+    bits = lambda t: t.view(torch.int32)                     # noqa: E731
+    for what, other in (("the plain gather", plain), ("a second launch",
+                                                        again)):
+        for t, (g, o) in enumerate(zip(got[1], other[1])):
+            if not torch.equal(bits(g), bits(o)):
+                raise AssertionError(f"ring_append_multi_eval {name}: tile "
+                                     f"{t} differs from {what}'s")
+        if (got[2] is None) != (other[2] is None) or (
+                got[2] is not None and not torch.equal(got[2], other[2])):
+            raise AssertionError(f"ring_append_multi_eval {name}: the mask "
+                                 f"differs from {what}'s")
+    n = c["lens"].long().clamp(0, c["pad"])
+    err = 0.0
+    for e, (f, op) in enumerate(c["evals"]):
+        g, a, p, t = got[0][e], again[0][e], plain[0][e], twin[0][e]
+        for other, what in ((t, "the twin"), (a, "a second launch")):
+            if not torch.equal(bits(g), bits(other)):
+                bad = int((bits(g) != bits(other)).nonzero()[0])
+                raise AssertionError(
+                    f"ring_append_multi_eval {name} {op} of field {f}: "
+                    f"window {bad} gives {g[bad].item()}, {what} "
+                    f"{other[bad].item()}")
+        ring = rings[1][f]
+        scale = wr.windowed_reduce_many_reference(
+            [(ring.abs(), "sum")], c["rows"], c["starts"], c["lens"],
+            c["pad"])[0] if ring.is_floating_point() else None
+        err = max(err, ae_compare(g, p, scale, n, op,
+                                  f"ring_append_multi_eval {name}"))
+    return err
+
+
+def multi_append_eval_bound(case):
+    """(ms, 'bytes'|'operations', bytes): every field's blk read once and
+    its rectangle written once; for each field a stat or a tile reads, the
+    ring cells the windows cover outside the rectangle once; the offsets
+    and the (row, start, len) descriptors; one output a window and stat,
+    every tile and the mask written once; one combine a cell a value
+    stat."""
+    c = case
+    KP, cap = c["rings"][0].shape
+    Rb, B, pad = c["blks"][0].shape[1], c["starts"].numel(), c["pad"]
+    cells = covered_outside(c["rows"].cpu().numpy(), c["starts"].cpu().numpy(),
+                            c["lens"].cpu().numpy(), pad, cap,
+                            c["offs"].cpu().numpy(), Rb)
+    read = {f for f, _op in c["evals"]} | set(c["tile_fields"])
+    nbytes = (sum(b.numel() * (b.element_size() + r.element_size())
+                  for r, b in zip(c["rings"], c["blks"])) + 4 * KP
+              + 4 * cells * len(read) + 12 * B + 4 * B * len(c["evals"])
+              + (B * pad * (4 * len(c["tile_fields"]) + 1)
+                 if c["tile_fields"] else 0))
+    n_ops = (sum(op != "count" for _f, op in c["evals"])
+             * int(c["lens"].long().clamp(0, pad).sum()))
+    b = bytes_bound(int(nbytes), n_ops)
+    return float(b[0]), b[1], int(nbytes)
+
+
+def time_multi_append_eval(case):
+    """The kernel (a CUDA-graph replay) cold (its rings cycled through
+    three times the L2) and hot, the old composition (ring_append a field,
+    windowed_reduce_many, window_gather) alike, the plain version, the
+    empty launch and the bound, at one case."""
+    from windflow_tpu_torch.ops import gather
+    from windflow_tpu_torch.ops import ring as rk
+    from windflow_tpu_torch.ops import windowed_reduce as wr
+    c = case
+    dev = c["offs"].device
+    long = c["long"].on(torch.from_numpy(c["long"].vec).to(dev))
+    counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
+    d = (c["rows"], c["starts"], c["lens"], c["pad"])
+
+    def kernel(*rings):
+        rk.ring_append_multi_eval(rings, c["blks"], c["offs"], c["evals"],
+                                  *d, c["tile_fields"], long=long,
+                                  counters=counters)
+
+    def old(*rings):
+        for r, b in zip(rings, c["blks"]):
+            rk.ring_append(r, b, c["offs"])
+        if c["evals"]:
+            wr.windowed_reduce_many([(rings[f], op) for f, op in c["evals"]],
+                                    *d)
+        if c["tile_fields"]:
+            gather.window_gather([rings[f] for f in c["tile_fields"]], *d)
+
+    rings = [r.clone() for r in c["rings"]]
+    copies = cold_copies(dev, rings)
+    row = dict(
+        ms=kernel_ms(cycled(copies, kernel), reps=10 * len(copies)),
+        hot_ms=kernel_ms(lambda: kernel(*rings)),
+        old_ms=kernel_ms(cycled(copies, old), reps=10 * len(copies)),
+        old_hot_ms=kernel_ms(lambda: old(*rings)),
+        plain_ms=call_ms(lambda: rk.ring_append_multi_eval_reference(
+            rings, c["blks"], c["offs"], c["evals"], *d, c["tile_fields"]),
+            reps=2),
+        floor_ms=kernel_ms(wr.empty_launch), cold_copies=len(copies))
+    if bool(counters.any()):
+        raise AssertionError("ring_append_multi_eval: timed launches left a "
+                             "counter set")
+    b = multi_append_eval_bound(c)
+    row.update(bound_ms=b[0], bound_by=b[1], bound_bytes=b[2],
+               library_ms=None)
+    del copies
+    return row
+
+
+def mae_shapes(gen, dev):
+    """The main-path shapes: {label: case}."""
+    f32, i8, i16, i32 = torch.float32, torch.int8, torch.int16, torch.int32
+    out = {}
+    # (a) a spatial resident launch: one key's 2^19-column float32
+    # rectangle of x and y into 8 x 2^22 float32 rings, SP_B windows of
+    # ~SP_WIN points SP_SLIDE apart (some straddling the appended span's
+    # start), tiles of both fields at SP_PAD, no stat
+    o = 1_000_000
+    offs = np.zeros(SP_KP, np.int64)
+    offs[0] = o
+    starts = o - 20 * SP_SLIDE + SP_SLIDE * np.arange(SP_B)
+    lens = SP_WIN - gen.integers(0, 50, size=SP_B)
+    out["spatial"] = mae_case(
+        gen, dev, SP_KP, SP_CAP, 1 << 19, 1, SP_B * SP_SLIDE,
+        [(f32, f32), (f32, f32)], [], (0, 1), np.zeros(SP_B, np.int64),
+        starts, lens, offs, pad=SP_PAD)
+    # (b) a MultiReducer launch (sum(a) + max(b), CB 256/64, 64 keys): a
+    # flush of 8,192 rows a key, a in int8 and b in int16 wires into int32
+    # rings, 128 windows a key ending at the appended span's end
+    KP, cap, Rb = N_KEYS, 262144, FLUSH_ROWS // N_KEYS
+    offs = np.full(KP, 100_000, np.int64) + np.arange(KP) % 4
+    i = np.arange(C_WINDOWS)
+    starts = (offs[:, None] + Rb - WIN - SLIDE * i[None, ::-1]).ravel()
+    out["multi_reducer"] = mae_case(
+        gen, dev, KP, cap, Rb, KP, Rb, [(i8, i32), (i16, i32)],
+        [(0, "sum"), (1, "max")], (), np.repeat(np.arange(KP), C_WINDOWS),
+        starts, np.full(KP * C_WINDOWS, WIN), offs, pad=WIN)
+    # (c) 1,024 windows of 1k-8k cells (past the split) over 3 fields,
+    # int32 and float32 rings, all five ops and a function's tiles
+    KP, cap, Rb = 64, 1 << 17, 2048
+    offs = gen.integers(60_000, 70_000, size=KP)
+    B = 1024
+    lens = gen.integers(1000, 8000, size=B)
+    rows = gen.integers(0, KP, size=B)
+    out["long_windows"] = mae_case(
+        gen, dev, KP, cap, Rb, KP, Rb, [(i16, i32), (f32, f32), (i8, i32)],
+        [(0, "sum"), (1, "min"), (1, "max"), (0, "count"), (2, "prod"),
+         (1, "sum")], (0, 1), rows,
+        offs[rows] + Rb - lens + gen.integers(-500, 500, size=B), lens, offs,
+        pad=8192)
+    return out
+
+
+def mae_odd_cases(gen, dev, n=48):
+    """Soak-sized and edge cases: 1-5 fields of every wire x accumulate
+    dtype (9 and 10 in the last two: a launch a group of 8), tiny and odd
+    rings and rectangles (Rb 1 to 48, rows >= K and columns >= R zero),
+    offsets at every residue mod 4, windows into the zero columns, across the rectangle's edges, past the row's end and
+    starting past it, empty, B = 0, a field with neither stat nor tile,
+    0-12 stats (9-12 in two launches), tiles at odd pads, small split and
+    chunk so the long-window path runs at these sizes."""
+    out = {}
+    ops = ("sum", "count", "min", "max")
+    for i in range(n):
+        nf = 1 + i % 5 if i < n - 2 else 11 - (n - i)
+        fields = [(WIRES[(i + f) % 4], ACCS[(i // 4 + f) % 2])
+                  for f in range(nf)]
+        KP = int(gen.choice([1, 2, 4, 8]))
+        cap = int(gen.choice([16, 64, 128, 1040]))
+        Rb = int(min(gen.choice([1, 3, 16, 40, 48]), cap))
+        K, R = int(gen.integers(1, KP + 1)), int(gen.integers(1, Rb + 1))
+        offs = gen.integers(0, cap - Rb + 1, size=KP)
+        offs[:4] = np.minimum(cap - Rb, 4 * (offs[:4] // 4) + np.arange(
+            min(KP, 4)))
+        B = int(gen.choice([0, 1, 7, 13, 64, 65, 200]))
+        lens = gen.integers(0, cap + 24, size=B)
+        starts = gen.integers(0, cap + 8, size=B)
+        rows = gen.integers(0, KP, size=B)
+        if B >= 4:     # into the zero columns, straddling the append
+            starts[0], lens[0] = offs[rows[0]] + R, Rb - R + 2
+            starts[1], lens[1] = max(0, offs[rows[1]] - 5), Rb + 10
+            lens[2] = -3 if i % 2 else 0
+            starts[3], lens[3] = cap - 1, 9
+        # the last field of a multi-field case has neither stat nor tile;
+        # a field of products takes prod and count only (its values keep
+        # products finite)
+        live = nf - 1 if nf > 1 else 1
+        prods = gen.random(live) < 0.3
+        evals = []
+        for _ in range([0, 1, 3, 8, 9, 12][i % 6]):
+            f = int(gen.integers(0, live))
+            evals.append((f, str(gen.choice(("prod", "count") if prods[f]
+                                            else ops))))
+        tiles = [f for f in range(live) if gen.random() < 0.6]
+        split, chunk = [(0, 32), (8, 32), (40, 64), (2048, 512)][i % 4]
+        pad = int(gen.choice([max(1, int(lens.max(initial=1))), 5, cap + 30]))
+        out[f"odd{i}"] = mae_case(gen, dev, KP, cap, Rb, K, R, fields, evals,
+                                  tiles, rows, starts, lens, offs, pad=pad,
+                                  split=split, chunk=chunk)
+    return out
+
+
+def multi_append_eval_phase(dev, timed=True, n_odd=48):
+    """Phase 4d: ring_append_multi_eval against its plain version and, bit
+    for bit, its twin at the main-path shapes (a spatial launch, a
+    MultiReducer launch, long windows over 3 fields) and the odd cases;
+    then each main-path shape timed beside its bound, the empty launch and
+    the old composition.  Returns {label: timing row}."""
+    gen = np.random.default_rng(29)
+    shapes = mae_shapes(gen, dev)
+    err = 0.0
+    for label, case in {**shapes, **mae_odd_cases(gen, dev, n_odd)}.items():
+        err = max(err, check_multi_append_eval(case, label))
+        if label.startswith("odd"):
+            continue
+        c = case
+        emit("multi_append_eval", case=label, ring=list(c["rings"][0].shape),
+             Rb=c["blks"][0].shape[1],
+             fields=[[str(b.dtype), str(r.dtype)]
+                     for r, b in zip(c["rings"], c["blks"])],
+             evals=c["evals"], tile_fields=list(c["tile_fields"]),
+             B=c["starts"].numel(), pad=c["pad"],
+             cells=int(c["lens"].long().clamp(0, c["pad"]).sum()),
+             long_windows=c["long"].n, chunks=c["long"].chunks,
+             max_abs_err=err, twin_bitwise=True)
+    emit("multi_append_eval", case="odd", cases=n_odd, max_abs_err=err,
+         twin_bitwise=True, ok=True)
+    rows = {}
+    if timed:
+        for label, case in shapes.items():
+            rows[label] = dict(max_abs_err=err,
+                               **time_multi_append_eval(case))
+            emit("multi_append_eval_timed", case=label, **rows[label])
+    del shapes
+    torch.cuda.empty_cache() if torch.cuda.is_available() else None
+    return rows
+
+
 @contextlib.contextmanager
 def recorded(name, record):
     """Records every call the resident executors make to the kernel wrapper
@@ -1370,12 +1687,79 @@ def recorded(name, record):
         setattr(resident, name, orig)
 
 
-def recorded_appends():
-    """Records every ring_append call (the ring's shape and dtype, copies
-    of the rectangle and the offsets)."""
-    return recorded("ring_append", lambda ring, blk, offs: dict(
-        shape=tuple(ring.shape), dtype=ring.dtype, blk=blk.clone(),
-        offs=offs.clone()))
+def recorded_multi_evals():
+    """Records every ring_append_multi_eval call (the rings' shape and
+    dtypes, copies of the rectangles, offsets and window descriptors, the
+    stats, the tile fields, the pad and the long-window list)."""
+    def record(rings, blks, offs, evals, rows, starts, lens, pad,
+               tile_fields=(), long=None, counters=None):
+        return dict(shape=tuple(rings[0].shape),
+                    dtypes=[r.dtype for r in rings],
+                    blks=[b.clone() for b in blks], offs=offs.clone(),
+                    evals=list(evals), tile_fields=tuple(tile_fields),
+                    rows=rows.clone(), starts=starts.clone(),
+                    lens=lens.clone(), pad=int(pad),
+                    long=dataclasses.replace(long, dev=None)
+                    if long is not None else None)
+    return recorded("ring_append_multi_eval", record)
+
+
+def multi_eval_call_case(c, gen):
+    """A recorded ring_append_multi_eval call as a case over seeded rings
+    of its shape and dtypes (values 1..97; a field of products near 1)."""
+    from windflow_tpu_torch.ops import ring as rk
+    long = c["long"] or rk.long_windows(
+        c["rows"].cpu().numpy(), c["starts"].cpu().numpy(),
+        c["lens"].cpu().numpy(), c["pad"], c["shape"][1])
+    dev = c["offs"].device
+    rings = [ae_values(gen, c["shape"], dt,
+                       any(g == f and op == "prod" for g, op in c["evals"])
+                       ).to(dev) for f, dt in enumerate(c["dtypes"])]
+    return dict(rings=rings, long=long,
+                **{k: c[k] for k in ("blks", "offs", "evals", "tile_fields",
+                                     "rows", "starts", "lens", "pad")})
+
+
+def check_multi_evals(calls, name, seed=7):
+    """ring_append_multi_eval against its plain version and its twin
+    (check_multi_append_eval) on the inputs of every call in `calls`, each
+    over seeded rings of the recorded shape and dtypes.  Returns (calls
+    checked, the largest error)."""
+    gen = np.random.default_rng(seed)
+    err = 0.0
+    for i, c in enumerate(calls):
+        err = max(err, check_multi_append_eval(multi_eval_call_case(c, gen),
+                                               f"{name} call {i}"))
+    return len(calls), err
+
+
+def multi_eval_row(calls, name):
+    """Every call checked (check_multi_evals), the largest (by its
+    rectangles' cells) timed at its own inputs (time_multi_append_eval);
+    returns its row (the spatial run's is the kernels line's)."""
+    n, err = check_multi_evals(calls, name)
+    big = max(calls, key=lambda c: (sum(b.numel() for b in c["blks"]),
+                                    c["starts"].numel()))
+    case = multi_eval_call_case(big, np.random.default_rng(8))
+    row = dict(max_abs_err=err, **time_multi_append_eval(case))
+    emit("multi_append_eval_calls", run=name, calls_checked=n,
+         timed=dict(rings=[list(big["shape"])] * len(big["dtypes"]),
+                    Rb=big["blks"][0].shape[1],
+                    fields=[[str(b.dtype), str(dt)] for b, dt in
+                            zip(big["blks"], big["dtypes"])],
+                    evals=big["evals"],
+                    tile_fields=list(big["tile_fields"]),
+                    B=big["starts"].numel(), pad=big["pad"]), **row)
+    del case
+    return row
+
+
+def rectangles_of(calls):
+    """Each field's (rectangle, offsets) of the recorded
+    ring_append_multi_eval calls, as ring_append calls (ring_append_phase
+    checks and times ring_append at them)."""
+    return [dict(shape=c["shape"], dtype=dt, blk=b, offs=c["offs"])
+            for c in calls for dt, b in zip(c["dtypes"], c["blks"])]
 
 
 def recorded_fused():
@@ -1431,16 +1815,6 @@ def check_append_evals(calls, name, seed=7):
     return len(calls), err
 
 
-def recorded_reduces():
-    """Records every windowed_reduce_many call (the ring's shape and dtype,
-    the ops, copies of the descriptors, the pad)."""
-    def record(evals, rows, starts, lens, pad):
-        return dict(shape=tuple(evals[0][0].shape), dtype=evals[0][0].dtype,
-                    ops=[op for _, op in evals], rows=rows.clone(),
-                    starts=starts.clone(), lens=lens.clone(), pad=pad)
-    return recorded("windowed_reduce_many", record)
-
-
 def seeded_ring(gen, shape, dtype):
     """A ring of `shape` and `dtype` on the card with seeded contents in
     [-100, 100)."""
@@ -1490,14 +1864,15 @@ def check_fused(calls, name):
 
 def ring_append_phase(dev, calls):
     """ring_append against its plain version on the inputs of every call in
-    `calls` (check_appends), timed on the largest.  Its rectangle and the
+    `calls` (check_appends: the spatial run's rectangles, which its fused
+    launches append), timed on the largest.  Its rectangle and the
     cells it writes fit in the card's L2, so a replay of the same inputs
     would find them there: the timed calls cycle through copies of the
     inputs whose sum is three times the L2 (at most 16 copies), each call
     on cold cells (the same inputs back to back are reported beside, as
     hot_l2_ms).  Returns the kernels-line row."""
     from windflow_tpu_torch.ops import ring as rk
-    check_appends(calls, "spatial resident run")
+    check_appends(calls, "spatial resident run's rectangles")
     big = max(calls, key=lambda c: c["blk"].numel())
     ring = seeded_ring(torch.Generator(device=dev).manual_seed(5),
                        big["shape"], big["dtype"])
@@ -2135,8 +2510,9 @@ def check_spatial_oracle(rows, batches, name):
 
 def spatial_phases(wr, rk):
     """The spatial skyline, resident and restaging routes, against the
-    oracle and the host core; returns the main path's launch counts and
-    its ring_append calls (recorded_appends)."""
+    oracle and the host core; returns each route's launch counts and the
+    resident route's ring_append_multi_eval calls
+    (recorded_multi_evals)."""
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.apps.spatial import (POINT_SCHEMA,
                                                  SkylineWindow,
@@ -2150,26 +2526,30 @@ def spatial_phases(wr, rk):
                              wt.WinType.TB, pardegree=SP_PARDEGREE,
                              batch_len=SP_BATCH, device=DEVICE, **kw)
 
-    counters = (rk.ring_append, g.window_gather, sk.skyline_windows,
-                wr.windowed_reduce)
+    counters = (rk.ring_append, rk.ring_append_multi_eval, g.window_gather,
+                sk.skyline_windows, wr.windowed_reduce)
     runs = {}
     for name, kw in (("spatial_resident", dict(use_resident=True)),
                      ("spatial_restaging", {})):
         for c in counters:
             c.launches = 0
-        with recorded_appends() as calls:
+        with recorded_multi_evals() as calls:
             dt, rows = run_rows(farm(**kw), batches, POINT_SCHEMA)
         launches = {c.__name__: c.launches for c in counters}
         check_spatial_oracle(rows, batches, name)
-        # one gather launch per fn launch (both fields in one); the
-        # resident run: 2 workers x (a full batch + EOS), 2 rings each
+        # the resident run: 2 workers x (a full batch + EOS), one fused
+        # launch each (both rings' appends and both fields' tiles), one
+        # skyline launch each; the restaging run: one gather launch per
+        # fn launch (both fields in one)
         if name == "spatial_resident":
-            ok = (launches["window_gather"] == 4
+            ok = (launches["ring_append_multi_eval"] == 4
                   and launches["skyline_windows"] == 4
-                  and launches["ring_append"] == 8)
+                  and launches["ring_append"] == 0
+                  and launches["window_gather"] == 0)
         else:
             ok = (launches["window_gather"] == launches["skyline_windows"]
-                  > 0 and launches["ring_append"] == 0)
+                  > 0 and launches["ring_append"] == 0
+                  and launches["ring_append_multi_eval"] == 0)
         if not ok:
             raise AssertionError(f"{name}: launches {launches}")
         runs[name] = (rows, launches, calls)
@@ -2198,7 +2578,8 @@ def spatial_phases(wr, rk):
                              "from the host core's")
     emit("spatial_prefix_vs_host_core", windows=SP_PREFIX_WINDOWS,
          identical=True)
-    return runs["spatial_resident"][1:]
+    return (runs["spatial_resident"][1], runs["spatial_restaging"][1],
+            runs["spatial_resident"][2])
 
 
 def spatial_app():
@@ -2252,7 +2633,10 @@ def multi_agg(wt):
 
 def multi_field_native(wr, rk):
     """sum(a) + max(b) + count over CB 256/64, 64 keys, 4M tuples: the
-    native core's per-field rings against the port's host core."""
+    native core's per-field rings against the port's host core, one
+    ring_append_multi_eval launch a dispatch (never ring_append or
+    windowed_reduce), every call against its plain version and twin.
+    Returns the fused kernel's launches in the run."""
     import windflow_tpu_torch as wt
     schema, batches = multi_stream(wt)
 
@@ -2264,18 +2648,21 @@ def multi_field_native(wr, rk):
     stage = stage_with_core(lambda: wt.WinSeqGPU(
         agg(), WIN, SLIDE, wt.WinType.CB, batch_len=BATCH_LEN,
         flush_rows=FLUSH_ROWS, depth=DEPTH, device=DEVICE), cores)
-    counts = (wr.windowed_reduce.launches, rk.ring_append.launches)
-    with counted_launches(MultiFieldResidentExecutor) as dispatches:
+    wrappers = (wr.windowed_reduce, rk.ring_append, rk.ring_append_multi_eval)
+    for w in wrappers:
+        w.launches = 0
+    with counted_launches(MultiFieldResidentExecutor) as dispatches, \
+            recorded_multi_evals() as calls:
         dt, rows = run_rows(stage, batches, schema)
-    counts = {"windowed_reduce": wr.windowed_reduce.launches - counts[0],
-              "ring_append": rk.ring_append.launches - counts[1]}
+    counts = {w.__name__: w.launches for w in wrappers}
     if not (len(cores) == 1 and getattr(cores[0], "_multi", False)
             and cores[0]._delegate is None):
         raise AssertionError(f"multi_field_native: the core is {cores}")
-    # every stat of a dispatch in one windowed_reduce launch (the JAX
-    # step evaluates them in one jitted step)
-    if (counts["ring_append"] == 0 or counts["windowed_reduce"] == 0
-            or counts["windowed_reduce"] != dispatches["with_windows"]):
+    # one fused launch a dispatch: both rings' appends and both stats (the
+    # JAX step is one jitted program a dispatch)
+    if not (counts["ring_append_multi_eval"] == dispatches["calls"] > 0
+            and dispatches["with_windows"] > 0
+            and counts["ring_append"] == counts["windowed_reduce"] == 0):
         raise AssertionError(f"multi_field_native: launches {counts}, "
                              f"dispatches {dispatches}")
     _, host = run_rows(wt.WinSeq(agg(), WIN, SLIDE, wt.WinType.CB), batches,
@@ -2287,7 +2674,9 @@ def multi_field_native(wr, rk):
          "count) CB win=256 slide=64 keys=64", tuples=MULTI_TUPLES,
          seconds=dt, tuples_per_s=MULTI_TUPLES / dt, windows=len(rows),
          fields=list(cores[0]._ship_fields), identical=True,
-         launches=counts, dispatches=dispatches)
+         launches=counts, dispatches=dispatches,
+         multi_eval=multi_eval_row(calls, "multi_field_native"))
+    return counts["ring_append_multi_eval"]
 
 
 # the Yahoo Streaming Benchmark at its published shape (apps/ysb.py, the
@@ -2317,6 +2706,7 @@ def kernel_wrappers():
             "ring_append": rk.ring_append,
             "ring_append_regular_sum": rk.ring_append_regular_sum,
             "ring_append_eval": rk.ring_append_eval,
+            "ring_append_multi_eval": rk.ring_append_multi_eval,
             "window_gather": gather.window_gather,
             "skyline_windows": skyline.skyline_windows,
             "sp_window_partial": mr.sp_window_partial,
@@ -2411,27 +2801,6 @@ def run_ysb(variant, batches, full_rows=False):
     if sent[0] != sum(len(b) for b in batches):
         raise AssertionError(f"ysb {variant}: sent {sent[0]}")
     return dt, by_key
-
-
-def check_reduces(calls, gen):
-    """windowed_reduce against its plain version (compare) on the
-    descriptors of every call in `calls`, each over a ring of the recorded
-    shape and dtype seeded from `gen`.  Returns the largest error."""
-    from windflow_tpu_torch.ops import windowed_reduce as wr
-    err = 0.0
-    for c in calls:
-        ring = torch.randint(1, 98, c["shape"], generator=gen,
-                             device=gen.device,
-                             dtype=torch.int32).to(c["dtype"])
-        evals = [(ring, op) for op in c["ops"]]
-        args = (c["rows"], c["starts"], c["lens"], c["pad"])
-        got = wr.windowed_reduce_many(evals, *args)
-        want = wr.windowed_reduce_many_reference(evals, *args)
-        for (_, op), g, w in zip(evals, got, want):
-            err = max(err, compare(g, w, ring, c["starts"], c["lens"], op,
-                                   c["rows"]))
-        del ring, evals, got, want
-    return err
 
 
 def ysb_append_eval_phase(calls, variant):
@@ -2616,8 +2985,7 @@ def two_stage():
     }
     total_counts = dict.fromkeys(kernel_wrappers(), 0)
     for name, make in comps.items():
-        with kernel_launches() as counts, recorded_appends() as appends, \
-                recorded_fused() as fused, \
+        with kernel_launches() as counts, recorded_fused() as fused, \
                 recorded_append_evals() as evals:
             dt, n, total, _ = run_pipeline(make(), batches, schema)
         if total != want:
@@ -2632,10 +3000,7 @@ def two_stage():
         emit("two_stage", composition=name, tuples=TWO_STAGE_TUPLES,
              seconds=dt, tuples_per_s=TWO_STAGE_TUPLES / dt, windows=n,
              host_windows=want_n, total=total, host_total=want,
-             launches=counts,
-             ring_append_calls_checked=check_appends(
-                 appends, f"two_stage {name}"),
-             fused_calls_checked=n_fused, fused_max_abs_err=err,
+             launches=counts, fused_calls_checked=n_fused, fused_max_abs_err=err,
              append_eval_calls_checked=n_evals,
              append_eval_max_abs_err=eval_err)
     return total_counts
@@ -2660,8 +3025,7 @@ def calls_by_thread():
     thread, named "<dataflow>/<node>"."""
     names = {"ring_append_regular_sum": "ring_append_regular_sum",
              "ring_append_eval": "ring_append_eval",
-             "ring_append": "ring_append",
-             "windowed_reduce_many": "windowed_reduce"}
+             "ring_append_multi_eval": "ring_append_multi_eval"}
     counts = {}
     with contextlib.ExitStack() as stack:
         seen = {kernel: stack.enter_context(recorded(
@@ -2806,8 +3170,6 @@ def layers(around=contextlib.nullcontext):
             raise AssertionError(f"layers: workers {workers}")
         with around() as extra, kernel_launches() as counts, \
                 calls_by_thread() as threads, recorded_fused() as fused, \
-                recorded_appends() as appends, \
-                recorded_reduces() as reduces, \
                 recorded_append_evals() as evals, \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -2848,9 +3210,6 @@ def layers(around=contextlib.nullcontext):
             raise AssertionError(f"layers: fused launches by worker "
                                  f"{fused_by}")
         n_fused, fused_err = check_fused(fused, "layers")
-        n_appends = check_appends(appends, "layers")
-        reduce_err = check_reduces(
-            reduces, torch.Generator(device=DEVICE).manual_seed(10))
         n_evals, eval_err = check_append_evals(evals, "layers")
         summary, records = read_trace(trace_dir)
         traced_workers, dispatch_spans, epochs = check_layers_trace(
@@ -2877,9 +3236,6 @@ def layers(around=contextlib.nullcontext):
                                     for w in caught
                                     if issubclass(w.category, CheckWarning)}),
              fused_calls_checked=n_fused, fused_max_abs_err=fused_err,
-             ring_append_calls_checked=n_appends,
-             windowed_reduce_calls_checked=len(reduces),
-             windowed_reduce_max_abs_err=reduce_err,
              append_eval_calls_checked=n_evals,
              append_eval_max_abs_err=eval_err,
              recorder_uninstalled=True, nvidia_smi=nvidia_smi_line(),
@@ -2924,8 +3280,11 @@ MESH_STEP_RUNS = (("sum", "int32"), ("count", "int32"), ("min", "int32"),
 
 def _stream_of(first, *_args, **_kw):
     """The current CUDA stream of a kernel call whose first argument is
-    the ring (or, for windowed_reduce_many, its evaluations)."""
-    t = first[0][0] if isinstance(first, list) else first
+    the ring (or, for windowed_reduce_many, its evaluations; for
+    ring_append_multi_eval, its rings)."""
+    t = first
+    while not isinstance(t, torch.Tensor):
+        t = t[0]
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -2968,7 +3327,6 @@ def mesh_resident(mesh):
     from windflow_tpu_torch.ops.resident import (
         MeshMultiFieldResidentExecutor, MeshResidentExecutor)
     schema = wt.Schema(value=np.int64)
-    gen = torch.Generator(device=DEVICE).manual_seed(19)
     sum_r = lambda: wt.Reducer("sum", value_range=(0, 100))    # noqa: E731
     max_r = lambda: wt.Reducer("max", value_range=(0, 100))    # noqa: E731
     launches = {}
@@ -3053,9 +3411,9 @@ def mesh_resident(mesh):
     cores = []
     stage = stage_with_core(lambda: mesh_stage(wt, mesh, multi_agg(wt)),
                             cores)
-    with kernel_launches() as counts, recorded_appends() as appends, \
-            recorded("ring_append", _stream_of) as astreams, \
-            recorded_reduces() as reduces:
+    with kernel_launches() as counts, recorded_multi_evals() as calls, \
+            recorded("ring_append_multi_eval", _stream_of) as mstreams, \
+            counted_launches(MeshMultiFieldResidentExecutor) as dispatches:
         dt, rows = run_rows(stage, mbatches, mschema)
     core = mesh_core_of(cores, MeshMultiFieldResidentExecutor, "mesh multi")
     if not core._multi:
@@ -3066,16 +3424,20 @@ def mesh_resident(mesh):
     if by_key([rows]) != by_key([flat]):
         raise AssertionError("mesh multi differs from the un-meshed "
                              "resident route")
-    require_launches("mesh multi", counts, ("ring_append", "windowed_reduce"))
+    require_launches("mesh multi", counts, ("ring_append_multi_eval",))
+    # one fused launch a shard a dispatch (every field's append and the
+    # shard's stats), never the old composition
+    shards = {"ring_append_multi_eval": per_shard(mstreams, core.executors)}
+    if not (set(shards["ring_append_multi_eval"]) == {dispatches["calls"]}
+            and counts["ring_append"] == counts["windowed_reduce"]
+            == counts["window_gather"] == 0):
+        raise AssertionError(f"mesh multi: launches {counts}, per shard "
+                             f"{shards}, dispatches {dispatches}")
     emit("mesh_multi_field", workload="MultiReducer(sum(a), max(b), count) "
          "CB win=256 slide=64 keys=64", tuples=MULTI_TUPLES, seconds=dt,
          tuples_per_s=MULTI_TUPLES / dt, windows=len(rows), identical=True,
-         launches=counts,
-         launches_per_shard={"ring_append": per_shard(astreams,
-                                                      core.executors)},
-         ring_append_calls_checked=check_appends(appends, "mesh multi"),
-         reduce_calls_checked=len(reduces),
-         reduce_max_abs_err=check_reduces(reduces, gen))
+         launches=counts, launches_per_shard=shards, dispatches=dispatches,
+         multi_eval=multi_eval_row(calls, "mesh multi"))
     launches["multi_field"] = counts
     return launches
 
@@ -4264,15 +4626,18 @@ def main() -> int:
     rows = ring_kernel_phase(dev)
     big_ring_phase(wr)
     ae_rows = append_eval_phase(dev)
+    mae_rows = multi_append_eval_phase(dev)
     restaging_launches = end_to_end(wr)
     resident_launches = end_to_end_resident(wr, rk)
     irregular_and_python_core(wr, rk)
     gather_row = gather_phase(dev)
     skyline_row = skyline_phase(dev)
-    spatial_launches, spatial_appends = spatial_phases(wr, rk)
-    rows["ring_append"] = ring_append_phase(dev, spatial_appends)
+    spatial_launches, sp_restaging, spatial_calls = spatial_phases(wr, rk)
+    rows["ring_append"] = ring_append_phase(dev, rectangles_of(spatial_calls))
+    mae_row = multi_eval_row(spatial_calls, "spatial_resident")
+    del spatial_calls
     spatial_app()
-    multi_field_native(wr, rk)
+    multi_launches = multi_field_native(wr, rk)
 
     # the new paths: each kernel's launches on them, and each of the two
     # resident kernels these paths run launched at least once
@@ -4302,10 +4667,10 @@ def main() -> int:
         ms=row["ms"], cold_ms=row["cold_ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
         library_ms=None)]
-    # ring_append's row: the spatial resident run's launches (the per-field
-    # rings append every launch), checked and timed at their own inputs; in
-    # sum_test it runs only with the irregular launches, the regular
-    # flushes append inside the fused kernel
+    # ring_append's row: no main-path launch since the per-field launches
+    # append inside ring_append_multi_eval (its launches: the spatial
+    # resident run's, 0); checked and timed at the rectangles of that
+    # run's fused launches, the inputs it took there before
     for name, replaces, launches in (
             ("ring_append", "windflow_tpu/ops/resident.py:234",
              spatial_launches["ring_append"]),
@@ -4327,12 +4692,30 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "hot_ms", "pair_ms")}))
     emit("append_eval_rows", synthetic=ae_rows, ysb_timed=ysb_rows)
+    # ring_append_multi_eval's row: the spatial resident run (its launches;
+    # its largest call checked and timed at its own inputs, cold, beside
+    # the old composition as old_ms), with the launches of the _multi run
+    # and mesh (c) beside
+    kernels.append(dict(
+        name="ring_append_multi_eval", route="cuda",
+        source="windflow_tpu_torch/ops/csrc/resident.cu",
+        replaces="windflow_tpu/ops/resident.py:599, :784",
+        launches=spatial_launches["ring_append_multi_eval"],
+        launches_multi_field_native=multi_launches,
+        launches_mesh_multi=mesh_launches["multi_field"][
+            "ring_append_multi_eval"],
+        **{k: mae_row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "hot_ms", "old_ms")}))
+    emit("multi_append_eval_rows", synthetic=mae_rows, spatial=mae_row)
+    # window_gather's row: the restaging spatial run (the resident one
+    # gathers inside ring_append_multi_eval)
     kernels.append(dict(
         name="window_gather", route="cuda",
         source="windflow_tpu_torch/ops/csrc/gather.cu",
         replaces="windflow_tpu/ops/resident.py:618, "
                  "windflow_tpu/ops/device.py:156",
-        launches=spatial_launches["window_gather"], **gather_row))
+        launches=sp_restaging["window_gather"], **gather_row))
     kernels.append(dict(
         name="skyline_windows", route="cuda",
         source="windflow_tpu_torch/ops/csrc/skyline.cu",

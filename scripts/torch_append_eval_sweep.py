@@ -29,9 +29,15 @@ read cell by cell (kBlkGroups = 0; VARIANTS), each built with nvcc into
 windflow_tpu_torch/_build/variants/, held against the twin at every
 shape and timed cold there, in turns A, B, B, A with the first.
 
+With ``--one-field`` it times ring_append_eval (A) against
+ring_append_multi_eval over one field (B) with the same inputs, at every
+shape in turns A, B, B, A (``one_field`` lines), after holding the two
+equal bit for bit: the same function, with the types fixed at compile
+time (A) or switched at run time (B).
+
 Usage, from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_append_eval_sweep.py [--variants]
+    python3 scripts/torch_append_eval_sweep.py [--variants | --one-field]
 """
 
 import json
@@ -94,18 +100,55 @@ def variants(cs, rk, shapes, emit):
                  kGroupUnroll=unroll, kBlkGroups=blk_groups, **row)
 
 
-def cold_ms(cs, rk, case):
+def one_field(cs, rk, shapes, emit):
+    """ring_append_eval (A) and a one-field ring_append_multi_eval (B) at
+    every shape: first both on copies of the ring, the rings and every
+    output equal bit for bit; then timed cold in turns A, B, B, A."""
+    import torch
+    for label, case in shapes.items():
+        c = case
+        args = (c["offs"], c["ops"], c["rows"], c["starts"], c["lens"],
+                c["pad"])
+        rings = [c["ring"].clone() for _ in range(2)]
+        a = rk.ring_append_eval(rings[0], c["blk"], *args, long=c["long"])
+        b, _t, _m = rk.ring_append_multi_eval(
+            [rings[1]], [c["blk"]], c["offs"], [(0, op) for op in c["ops"]],
+            *args[2:], long=c["long"])
+        torch.cuda.synchronize()
+        if not torch.equal(rings[0], rings[1]) or not all(
+                torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(a, b)):
+            raise AssertionError(f"one_field {label}: ring_append_eval and "
+                                 "the one-field multi kernel differ")
+        del rings
+        ms = {"A": [], "B": []}
+        for turn in "ABBA":
+            ms[turn].append(cold_ms(cs, rk, case, multi=turn == "B"))
+        emit("one_field", case=label, eval_ms=ms["A"], multi_ms=ms["B"])
+
+
+def cold_ms(cs, rk, case, multi=False):
     """The kernel's time at `case`, cold (chip_smoke.kernel_ms over rings
-    cycled through three times the L2)."""
+    cycled through three times the L2); with `multi`, that of
+    ring_append_multi_eval over the one field."""
     import torch
     dev = case["ring"].device
     long = case["long"].on(torch.from_numpy(case["long"].vec).to(dev))
     counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
-    args = (case["blk"], case["offs"], case["ops"], case["rows"],
-            case["starts"], case["lens"], case["pad"])
+    args = (case["offs"], case["ops"], case["rows"], case["starts"],
+            case["lens"], case["pad"])
+    evals = [(0, op) for op in case["ops"]]
+
+    def kernel(r):
+        if multi:
+            rk.ring_append_multi_eval([r], [case["blk"]], case["offs"], evals,
+                                      *args[2:], long=long,
+                                      counters=counters)
+        else:
+            rk.ring_append_eval(r, case["blk"], *args, long=long,
+                                counters=counters)
     copies = cs.cold_copies(dev, (case["ring"].clone(),))
-    ms = cs.kernel_ms(cs.cycled(copies, lambda r: rk.ring_append_eval(
-        r, *args, long=long, counters=counters)), reps=10 * len(copies))
+    ms = cs.kernel_ms(cs.cycled(copies, kernel), reps=10 * len(copies))
     if bool(counters.any()):
         raise AssertionError("a timed launch left a counter set")
     return ms
@@ -137,6 +180,10 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          nvidia_smi=cs.nvidia_smi_line())
     shapes = cs.ae_shapes(np.random.default_rng(23), dev)
+    if "--one-field" in sys.argv[1:]:
+        one_field(cs, rk, shapes, emit)
+        emit("env", nvidia_smi=cs.nvidia_smi_line())
+        return 0
     if "--variants" in sys.argv[1:]:
         variants(cs, rk, shapes, emit)
         emit("env", nvidia_smi=cs.nvidia_smi_line())

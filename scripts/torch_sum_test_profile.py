@@ -62,12 +62,15 @@ them its cold times and the empty-launch floor), of
 its ring-kernel phase (the fused ring_append_regular_sum, ring_append at
 that shape), of its gather and skyline phases, ring_append at the inputs
 of the spatial resident run's launches (where that checkout's
-chip_smoke.py records them), sum_test's resident tuples/s with the ring
+chip_smoke.py records them; since the per-field fusion the rectangles of
+its ring_append_multi_eval calls, and that kernel at the largest call),
+sum_test's resident tuples/s with the ring
 kernels' launch counts of those runs, the spatial stream's points/s on the
 resident and restaging routes (3 runs each after a warm-up), the
 irregular evaluation of sum, min, max and prod over 32768 windows of a
 64 x 262144 int32 ring, and the 4M native _multi run's windowed_reduce
-launches and device time (under torch.profiler).
+launches and device time, and its ring_append_multi_eval launches and
+device time where the checkout has the kernel (under torch.profiler).
 
 Usage, from the repository root on a machine with a CUDA card:
 
@@ -240,7 +243,16 @@ for name, kw in (("resident", {"use_resident": True}), ("restaging", {})):
     out[name + "_points_per_s"] = [
         cs.SP_POINTS / cs.run_rows(farm(**kw), batches, POINT_SCHEMA)[0]
         for _ in range(3)]
-if hasattr(cs, "recorded_appends"):
+if hasattr(cs, "recorded_multi_evals"):
+    # the per-field step in one launch: its calls, and ring_append at
+    # their rectangles
+    with cs.recorded_multi_evals() as calls:
+        cs.run_rows(farm(use_resident=True), batches, POINT_SCHEMA)
+    out["ring_append_spatial"] = cs.ring_append_phase(
+        dev, cs.rectangles_of(calls))
+    out["multi_eval_spatial"] = cs.multi_eval_row(calls, "spatial_resident")
+    del calls
+elif hasattr(cs, "recorded_appends"):
     with cs.recorded_appends() as calls:
         cs.run_rows(farm(use_resident=True), batches, POINT_SCHEMA)
     out["ring_append_spatial"] = cs.ring_append_phase(dev, calls)
@@ -272,6 +284,12 @@ out["multi_windowed_reduce_launches"] = wr.windowed_reduce.launches - before
 out["multi_windowed_reduce_device_ms"] = sum(
     (getattr(ev, "device_time_total", 0) or 0) / 1e3
     for ev in prof.key_averages() if "windowed_reduce" in ev.key)
+# the fused per-field kernel where the checkout has it
+fused = getattr(rk, "ring_append_multi_eval", None)
+out["multi_fused_launches"] = fused.launches if fused else None
+out["multi_fused_device_ms"] = sum(
+    (getattr(ev, "device_time_total", 0) or 0) / 1e3
+    for ev in prof.key_averages() if "multi_eval_kernel" in ev.key)
 print("AB " + json.dumps(out))
 """
 

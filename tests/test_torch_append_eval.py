@@ -448,6 +448,7 @@ def test_executor_launches_one_kernel_a_dispatch(monkeypatch):
     never ring_append or windowed_reduce_many; its inputs stay referenced
     until the harvest."""
     from windflow_tpu_torch.ops import resident
+    from windflow_tpu_torch.ops import windowed_reduce as wr
     from windflow_tpu_torch.parallel import make_mesh
     calls = []
     orig = resident.ring_append_eval
@@ -457,8 +458,8 @@ def test_executor_launches_one_kernel_a_dispatch(monkeypatch):
         return orig(ring, *args, **kw)
 
     monkeypatch.setattr(resident, "ring_append_eval", counting)
-    for name in ("ring_append", "windowed_reduce_many"):
-        monkeypatch.setattr(resident, name,
+    for mod, name in ((rk, "ring_append"), (wr, "windowed_reduce_many")):
+        monkeypatch.setattr(mod, name,
                             lambda *a, **k: pytest.fail("old pair called"))
     seq = launches(5, 5, 4096)
     run_executor(resident.ResidentWindowExecutor("sum", device="cpu"), seq,

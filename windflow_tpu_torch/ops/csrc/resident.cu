@@ -75,6 +75,39 @@
 // cells the windows cover outside the rectangle read once, the 3*B int32
 // descriptors and KP offsets, and the B outputs an op written once.
 //
+// The per-field step.  A third kernel body, multi_eval_kernel, replaces
+// the jitted step of _make_multi_step (:599-628; on every kf shard
+// _make_mesh_multi_step :784):
+//  * ring_append_multi_eval: a ring a field (at most kMaxFields, each
+//    with its own wire and accumulate dtype, all of one (KP, cap) shape,
+//    their rectangles of one (KP, Rb) shape at the shared offsets): every
+//    field's append, every (field, op) stat over the (row, start, len)
+//    windows of the rings after it as ring_append_eval evaluates them (at
+//    most kMaxEvals a launch; the wrapper takes more in further launches
+//    with Rb = 0), and for each tile field the (B, pad) tile
+//        tile[w, j] = j < lens[w] ? ring'[rows[w], clip(starts[w] + j, 0,
+//                                                        cap - 1)] : 0
+//    with the bool mask j < lens[w] (window_gather's function, there a
+//    second launch).
+// Design.  The blocks of ring_append_eval, in one grid: the stats' long
+// chunks (one long-window list for every stat: the windows are shared,
+// and so is each window's alignment a, since the rings share cap), the
+// short windows, then tile blocks (window_gather's layout: 1,024 lanes a
+// block, 4 a thread, one 16-byte store a field), then each field's append
+// blocks.  short_windows and long_chunks take a source policy: OneRing
+// (ring_append_eval's ring, types fixed at compile time) or FieldRings
+// (evaluation e reads field src[e]; with_types switches to its wire and
+// accumulate types at run time).  A block's switch is uniform: an append
+// or tile field's blocks are that field's, and the evaluation blocks walk
+// the stats in one order.  The tiles obey the rule the evaluations do: a
+// cell inside the field's rectangle is read from its blk and widened, so
+// no block reads a cell this launch writes.
+// Bound, by bytes: every field's blk read once and its rectangle written
+// once, for each field a stat or tile reads the ring cells the windows
+// cover outside the rectangle once, the offsets and descriptors, the
+// stats' outputs, every tile (4 bytes a lane) and the mask (1 byte a
+// lane) written once.
+//
 // The append.  For every row r < KP and column j < Rb:
 //     ring[r, offs[r] + j] = (Acc) blk[r, j]
 // over the whole padded rectangle, zero rows and columns included, so the
@@ -458,6 +491,18 @@ constexpr int kBlkGroups = 1;              // whole groups of blk in one go
 constexpr int kStageBytes = kWarps * (kWarpCells + kChunk) * 4;
 static_assert(kWarps * kFoldCells * 4 <= kStageBytes, "fold staging");
 
+constexpr int kMaxFields = 8;             // rings of a multi launch
+
+// One field of ring_append_multi_eval: its (KP, cap) ring and (KP, Rb)
+// rectangle, their dtypes, and whether the window loads (vec) and the
+// append (avec) take their 16-byte paths.
+struct FieldRing {
+  void* ring;
+  const void* blk;
+  int wire, acc;
+  bool vec, avec;
+};
+
 struct AppendEval {
   void* ring;
   const void* blk;
@@ -477,6 +522,18 @@ struct AppendEval {
   int long_blocks, short_blocks;
   bool vec;                   // the ring 16-byte aligned (window loads)
   bool avec;                  // the append's vector path
+  // ring_append_multi_eval only: a ring a field, evaluation e reading
+  // field src[e]; the (B, pad) tiles of fields tile_src[t] and the mask
+  FieldRing field[kMaxFields];
+  int n_fields;
+  int src[kMaxEvals];
+  uint32_t* tile[kMaxFields];
+  int tile_src[kMaxFields];
+  int n_tiles;
+  bool* mask;
+  int tile_runs;              // blocks a window's tiles take
+  int tile_blocks;
+  int append_blocks;          // append blocks a field
 };
 
 // working type: int32 sum/prod wrap in uint32, everything else in A itself
@@ -541,13 +598,16 @@ struct Window {
   }
 };
 
+// window (r, s, len) of the ring `ring` whose rectangle is `blk`
 template <typename W, typename A>
-__device__ __forceinline__ Window<W, A> window_of(const AppendEval& p, int r,
+__device__ __forceinline__ Window<W, A> window_of(const void* ring,
+                                                   const void* blk,
+                                                   const AppendEval& p, int r,
                                                    long long s, int len) {
   const long long base = (long long)r * p.cap;
   Window<W, A> c;
-  c.row = static_cast<const A*>(p.ring) + base;
-  c.brow = static_cast<const W*>(p.blk) + (long long)r * p.Rb;
+  c.row = static_cast<const A*>(ring) + base;
+  c.brow = static_cast<const W*>(blk) + (long long)r * p.Rb;
   c.o = p.Rb > 0 ? p.offs[r] : 0;
   c.o_end = c.o + p.Rb;
   c.s = s;
@@ -555,6 +615,35 @@ __device__ __forceinline__ Window<W, A> window_of(const AppendEval& p, int r,
   c.a = (int)((base + s) & 3);
   c.len = len;
   return c;
+}
+
+template <typename W, typename A>
+__device__ __forceinline__ Window<W, A> window_of(const AppendEval& p, int r,
+                                                   long long s, int len) {
+  return window_of<W, A>(p.ring, p.blk, p, r, s, len);
+}
+
+// Calls fn(W{}, A{}) with the wire and accumulate types of the codes:
+// the run-time switch into the templated helpers (a block calls it with
+// one field's codes, or walks the evaluations in one order, so the switch
+// is uniform across it).
+template <typename F>
+__device__ __forceinline__ void with_types(int wire, int acc, F&& fn) {
+  if (acc == A_INT32) {
+    switch (wire) {
+      case W_INT8: fn(int8_t{}, int32_t{}); break;
+      case W_INT16: fn(int16_t{}, int32_t{}); break;
+      case W_INT32: fn(int32_t{}, int32_t{}); break;
+      default: fn(float{}, int32_t{}); break;
+    }
+  } else {
+    switch (wire) {
+      case W_INT8: fn(int8_t{}, float{}); break;
+      case W_INT16: fn(int16_t{}, float{}); break;
+      case W_INT32: fn(int32_t{}, float{}); break;
+      default: fn(float{}, float{}); break;
+    }
+  }
 }
 
 // 4 wire cells in one load
@@ -671,46 +760,57 @@ __device__ __forceinline__ void eval_span(int op, const Window<W, A>& c,
   }
 }
 
-// A short block: windows [64 b, 64 b + 64), a team a window, 4 a warp at a
-// time.  A window longer than `split` is left to the long blocks; count
-// writes lens[w] for every window.
-template <typename W, typename A>
+// A short block: items [64 b, 64 b + 64), a team an item, 4 a warp at a
+// time.  An item is a window whose team evaluates every stat or, where
+// S::kStatItems, one (stat, window) pair, stat-major (item g * B4 + w is
+// stat g of window w, B4 = B rounded up to 4, so the 4 teams of a warp
+// share their stat, and so the switch on its types); items of windows
+// past B reduce nothing.  A window longer than `split` is left to the
+// long blocks; count writes lens[w] for every window.  S says where an
+// evaluation reads (OneRing, FieldRings below).
+template <class S>
 __device__ void short_windows(const AppendEval& p, int b) {
   __shared__ int s_row[kEvalWindows], s_start[kEvalWindows],
       s_len[kEvalWindows], s_count[kEvalWindows];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q = lane % kLanes;
-  const long long w0 = (long long)b * kEvalWindows;
-  const int nw = (int)(p.B - w0 < kEvalWindows ? p.B - w0 : kEvalWindows);
-  if (tid < nw) {
-    const long long w = w0 + tid;
-    const int count = p.lens[w];
-    s_row[tid] = p.rows[w];
-    s_start[tid] = max(p.starts[w], 0);
+  const int B4 = (p.B + 3) & ~3;
+  const long long items = S::kStatItems ? (long long)p.n_evals * B4 : B4;
+  const long long i0 = (long long)b * kEvalWindows;
+  // a multiple of 4: a warp's teams are all in or all out
+  const int ni = (int)(items - i0 < kEvalWindows ? items - i0 : kEvalWindows);
+  if (tid < ni) {
+    const int w = (int)((i0 + tid) % B4);
+    const bool live = w < p.B;
+    const int count = live ? p.lens[w] : 0;
+    s_row[tid] = live ? p.rows[w] : 0;
+    s_start[tid] = live ? max(p.starts[w], 0) : 0;
     s_len[tid] = max(0, min(count, p.pad));
     s_count[tid] = count;
   }
   __syncthreads();
   constexpr int kPerWarp = 32 / kLanes;
-  for (int k0 = warp * kPerWarp; k0 < nw; k0 += kWarps * kPerWarp) {
-    const int k = k0 + lane / kLanes;   // a lane past nw reduces nothing
-    const bool live = k < nw;
-    const int len = live ? s_len[k] : 0;
+  for (int k0 = warp * kPerWarp; k0 < ni; k0 += kWarps * kPerWarp) {
+    const int k = k0 + lane / kLanes;
+    const long long i = i0 + k;
+    const int w = (int)(i % B4);
+    const bool live = w < p.B;
+    const int len = s_len[k];
     const bool mine = live && len <= p.split;
-    const Window<W, A> c = window_of<W, A>(p, live ? s_row[k] : 0,
-                                           live ? s_start[k] : 0,
-                                           mine ? len : 0);
-    for (int e = 0; e < p.n_evals; ++e) {
+    const typename S::Win c = S::window(p, s_row[k], s_start[k],
+                                        mine ? len : 0);
+    const int e0 = S::kStatItems ? (int)(i / B4) : 0;
+    const int e1 = S::kStatItems ? e0 + 1 : p.n_evals;
+    for (int e = e0; e < e1; ++e) {
       if (p.op[e] == OP_COUNT) {
         if (live && q == 0) {
-          p.out[e][w0 + k] = std::is_same<A, float>::value
-                                 ? to_bits<float>((float)s_count[k])
-                                 : (uint32_t)s_count[k];
+          p.out[e][w] = S::is_float(p, e)
+                            ? to_bits<float>((float)s_count[k])
+                            : (uint32_t)s_count[k];
         }
         continue;
       }
-      eval_span<W, A>(p.op[e], c, p.vec, 0, c.groups(), q, p.ident[e],
-                      mine ? p.out[e] + w0 + k : nullptr);
+      S::eval(p, e, c, 0, c.groups(), q, mine ? p.out[e] + w : nullptr);
     }
   }
 }
@@ -769,12 +869,90 @@ __device__ __forceinline__ void fold_chunks(int op, const uint32_t* part,
   }
 }
 
+// Where an evaluation reads.  OneRing: ring_append_eval's one ring, its
+// types fixed at compile time (a one-field ring_append_multi_eval, the
+// same function in the same order, took 20% more at the max prefix's
+// 8,192 windows of 256 cells and within 2.5% at the other shapes of
+// scripts/torch_append_eval_sweep.py --one-field on the H100, PERF.md).
+// FieldRings: evaluation e of ring_append_multi_eval reads the ring of
+// field src[e], its types switched at run time (every block walks the
+// evaluations in one order, so the switch is uniform across the block).  S::window gives a window
+// that S::eval reduces a span of (eval_span) and whose groups() it has;
+// S::fold folds a long window's chunk partials (fold_chunks).
+template <typename W, typename A>
+struct OneRing {
+  using Win = Window<W, A>;
+  static constexpr bool kStatItems = false;
+  __device__ static Win window(const AppendEval& p, int r, long long s,
+                               int len) {
+    return window_of<W, A>(p, r, s, len);
+  }
+  __device__ static bool is_float(const AppendEval&, int) {
+    return std::is_same<A, float>::value;
+  }
+  __device__ static void eval(const AppendEval& p, int e, const Win& c,
+                              int gb, int ge, int q, uint32_t* dst) {
+    eval_span<W, A>(p.op[e], c, p.vec, gb, ge, q, p.ident[e], dst);
+  }
+  __device__ static void fold(const AppendEval& p, int e,
+                              const uint32_t* part, int n, int lane,
+                              uint32_t* buf, uint32_t* dst) {
+    fold_chunks<A>(p.op[e], part, n, p.ident[e], lane, buf, dst);
+  }
+};
+
+// a window of every field's ring: rows and columns are shared, so is a
+struct Span {
+  int r, len, a;
+  long long s;
+  __device__ __forceinline__ int groups() const {
+    return (int)(((long long)a + len + kGroup - 1) / kGroup);
+  }
+};
+
+struct FieldRings {
+  using Win = Span;
+  static constexpr bool kStatItems = true;   // a team a (stat, window)
+  __device__ static Win window(const AppendEval& p, int r, long long s,
+                               int len) {
+    Span c;
+    c.r = r;
+    c.s = s;
+    c.len = len;
+    c.a = (int)(((long long)r * p.cap + s) & 3);
+    return c;
+  }
+  __device__ static bool is_float(const AppendEval& p, int e) {
+    return p.field[p.src[e]].acc == A_FLOAT32;
+  }
+  __device__ static void eval(const AppendEval& p, int e, const Win& c,
+                              int gb, int ge, int q, uint32_t* dst) {
+    const FieldRing& f = p.field[p.src[e]];
+    with_types(f.wire, f.acc, [&](auto w, auto a) {
+      using W = decltype(w);
+      using A = decltype(a);
+      eval_span<W, A>(p.op[e], window_of<W, A>(f.ring, f.blk, p, c.r, c.s,
+                                               c.len),
+                      f.vec, gb, ge, q, p.ident[e], dst);
+    });
+  }
+  __device__ static void fold(const AppendEval& p, int e,
+                              const uint32_t* part, int n, int lane,
+                              uint32_t* buf, uint32_t* dst) {
+    if (is_float(p, e)) {
+      fold_chunks<float>(p.op[e], part, n, p.ident[e], lane, buf, dst);
+    } else {
+      fold_chunks<int32_t>(p.op[e], part, n, p.ident[e], lane, buf, dst);
+    }
+  }
+};
+
 // A long block: chunks [32 b, 32 b + 32) of the long windows' chunks, a
 // team a chunk.  Each team writes its chunk's partials; then, for each long
 // window the block touched, one thread adds the block's chunks of it to
 // the window's counter, and the block that brings it to the window's
 // chunk count resets it and folds the window.
-template <typename W, typename A>
+template <class S>
 __device__ void long_chunks(const AppendEval& p, int b, uint32_t* stage) {
   __shared__ int s_win[kTeams];    // each team's long window, -1: none
   __shared__ int s_fold[kTeams];   // the long windows this block folds
@@ -794,15 +972,14 @@ __device__ void long_chunks(const AppendEval& p, int b, uint32_t* stage) {
   if (tid == 0) s_nfold = 0;
   if (q == 0) s_win[team] = i;
   const int w = i >= 0 ? p.long_win[i] : 0;
-  const Window<W, A> c = window_of<W, A>(
+  const typename S::Win c = S::window(
       p, i >= 0 ? p.rows[w] : 0, i >= 0 ? max(p.starts[w], 0) : 0,
       i >= 0 ? max(0, min(p.lens[w], p.pad)) : 0);
   const int gb = i >= 0 ? (k - p.long_first[i]) * p.chunk : 0;
   const int ge = i >= 0 ? min(gb + p.chunk, c.groups()) : 0;
   for (int e = 0; e < p.n_evals; ++e) {
     if (p.op[e] == OP_COUNT) continue;
-    eval_span<W, A>(p.op[e], c, p.vec, gb, ge, q, p.ident[e],
-                    i >= 0 ? p.out[e] + p.B + k : nullptr);
+    S::eval(p, e, c, gb, ge, q, i >= 0 ? p.out[e] + p.B + k : nullptr);
   }
   __threadfence();   // the partials reach L2 before the counts do
   __syncthreads();
@@ -827,9 +1004,8 @@ __device__ void long_chunks(const AppendEval& p, int b, uint32_t* stage) {
     const int it = s_fold[pr / p.n_evals], e = pr % p.n_evals;
     if (p.op[e] == OP_COUNT) continue;
     const int first = p.long_first[it];
-    fold_chunks<A>(p.op[e], p.out[e] + p.B + first,
-                   p.long_first[it + 1] - first, p.ident[e], lane, buf,
-                   p.out[e] + p.long_win[it]);
+    S::fold(p, e, p.out[e] + p.B + first, p.long_first[it + 1] - first,
+            lane, buf, p.out[e] + p.long_win[it]);
   }
 }
 
@@ -841,9 +1017,9 @@ append_eval_kernel(const __grid_constant__ AppendEval p) {
   __shared__ __align__(16) unsigned char stage[kStageBytes];
   const int b = blockIdx.x;
   if (b < p.long_blocks) {
-    long_chunks<W, A>(p, b, reinterpret_cast<uint32_t*>(stage));
+    long_chunks<OneRing<W, A>>(p, b, reinterpret_cast<uint32_t*>(stage));
   } else if (b < p.long_blocks + p.short_blocks) {
-    short_windows<W, A>(p, b - p.long_blocks);
+    short_windows<OneRing<W, A>>(p, b - p.long_blocks);
   } else {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     append_warp<W, A>(
@@ -879,6 +1055,118 @@ template <typename W, typename A> struct AppendEvalL {
     return launch_append_eval<W, A>(p, st);
   }
 };
+
+// ------------------------------------- ring_append_multi_eval (see the top)
+
+constexpr int kTileLanes = 4;              // tile lanes a thread writes
+
+// Tile block tb: lanes [1024 run, 1024 run + 1024) of window b's tiles and
+// mask, 4 lanes a thread with one 16-byte store a field (lane by lane where
+// a row of an odd pad straddles a 16-byte edge), window_gather's layout.
+// A live lane's column is clamped to [0, cap); a column inside the row's
+// rectangle is read from the field's blk and widened, any other from its
+// ring.  A masked lane is 0 and loads nothing.
+__device__ void tile_block(const AppendEval& p, int tb) {
+  const int b = tb / p.tile_runs, run = tb % p.tile_runs;
+  const int len = p.lens[b];
+  const long long start = p.starts[b];
+  const int r = p.rows[b];
+  const long long o = p.Rb > 0 ? p.offs[r] : 0, o_end = o + p.Rb;
+  const long long t0 = (long long)b * p.pad;   // the row's first tile cell
+  const int h = (int)(t0 & (kTileLanes - 1));  // its lanes before a 16 B edge
+  const int groups = (p.pad + h + kTileLanes - 1) / kTileLanes;
+  for (int g = run * kThreads + threadIdx.x; g < groups;
+       g += p.tile_runs * kThreads) {
+    const int j0 = g * kTileLanes - h;
+    const bool whole = j0 >= 0 && j0 + kTileLanes <= p.pad;
+    long long col[kTileLanes];
+    bool live[kTileLanes];
+#pragma unroll
+    for (int t = 0; t < kTileLanes; ++t) {
+      const int j = j0 + t;
+      live[t] = j >= 0 && j < p.pad && j < len;
+      long long c = start + j;
+      c = c < p.cap - 1 ? c : p.cap - 1;
+      col[t] = c < 0 ? 0 : c;
+    }
+    for (int f = 0; f < p.n_tiles; ++f) {
+      const FieldRing& fr = p.field[p.tile_src[f]];
+      uint32_t v[kTileLanes];
+      with_types(fr.wire, fr.acc, [&](auto w, auto a) {
+        using W = decltype(w);
+        using A = decltype(a);
+        const A* row = static_cast<const A*>(fr.ring) + (long long)r * p.cap;
+        const W* brow = static_cast<const W*>(fr.blk) + (long long)r * p.Rb;
+#pragma unroll
+        for (int t = 0; t < kTileLanes; ++t) {
+          const long long c = col[t];
+          v[t] = !live[t] ? 0u
+                 : c >= o && c < o_end
+                     ? to_bits<A>(widen<A, W>(__ldg(brow + (c - o))))
+                     : to_bits<A>(__ldg(row + c));
+        }
+      });
+      uint32_t* dst = p.tile[f] + t0 + j0;
+      if (whole) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < kTileLanes; ++t) {
+          if (j0 + t >= 0 && j0 + t < p.pad) dst[t] = v[t];
+        }
+      }
+    }
+    bool* m = p.mask + t0 + j0;
+    if (whole) {
+      uchar4 x;
+      x.x = j0 < len;
+      x.y = j0 + 1 < len;
+      x.z = j0 + 2 < len;
+      x.w = j0 + 3 < len;
+      *reinterpret_cast<uchar4*>(m) = x;
+    } else {
+#pragma unroll
+      for (int t = 0; t < kTileLanes; ++t) {
+        if (j0 + t >= 0 && j0 + t < p.pad) m[t] = j0 + t < len;
+      }
+    }
+  }
+}
+
+// blocks [0, long_blocks): the long windows' chunks of every stat; then
+// the short windows, 64 a block; then the tiles, tile_runs blocks a
+// window; then each field's append, append_blocks blocks a field
+__global__ void __launch_bounds__(kThreads, kEvalMinBlocks)
+multi_eval_kernel(const __grid_constant__ AppendEval p) {
+  __shared__ __align__(16) unsigned char stage[kStageBytes];
+  int b = blockIdx.x;
+  if (b < p.long_blocks) {
+    long_chunks<FieldRings>(p, b, reinterpret_cast<uint32_t*>(stage));
+    return;
+  }
+  b -= p.long_blocks;
+  if (b < p.short_blocks) {
+    short_windows<FieldRings>(p, b);
+    return;
+  }
+  b -= p.short_blocks;
+  if (b < p.tile_blocks) {
+    tile_block(p, b);
+    return;
+  }
+  b -= p.tile_blocks;
+  const FieldRing& f = p.field[b / p.append_blocks];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long gw = (long long)(b % p.append_blocks) * kWarps + warp;
+  with_types(f.wire, f.acc, [&](auto w, auto a) {
+    using W = decltype(w);
+    using A = decltype(a);
+    append_warp<W, A>(
+        static_cast<A*>(f.ring), static_cast<const W*>(f.blk), p.offs, p.KP,
+        p.cap, p.Rb, f.avec, gw, lane,
+        reinterpret_cast<W*>(stage) + warp * WarpAppend<W, A>::kBufCells);
+  });
+}
 
 }  // namespace
 
@@ -970,4 +1258,122 @@ extern "C" int wf_ring_append_eval(
   p.chunk = chunk / kGroup;
   return dispatch<AppendEvalL>(Rb > 0 ? wire : (int)W_INT8, acc, p,
                                static_cast<cudaStream_t>(stream));
+}
+
+// One per-field resident dispatch in one launch on `stream`: appends each
+// of the n_fields (KP, Rb) rectangles blks[f] (wire dtype wires[f]) into
+// its (KP, cap) ring rings[f] (acc dtype accs[f]) at the shared per-row
+// offsets `offs`, as wf_ring_append does; evaluates the n_evals ops
+// (ops[e] over the ring of field srcs[e], identity bits idents[e]) over
+// the B windows (rows, starts, lens) of the rings after the append as
+// wf_ring_append_eval does, writing outs[e] (B values in that field's acc
+// dtype, then room for `chunks` partials); and writes the (B, pad) tile of
+// each field tile_src[t] into tiles[t] (32-bit words, 16-byte aligned):
+// lane j of window w is ring'[rows[w], clip(starts[w] + j, 0, cap - 1)]
+// where j < lens[w], else 0, and the bool (B, pad) `mask` (4-byte aligned)
+// is j < lens[w].  Rb = 0 (blks and offs unused, may be null) evaluates
+// alone.  The long-window arguments are wf_ring_append_eval's.  Returns
+// cudaGetLastError() after the launch (0, and nothing launched, when
+// there is no work).
+extern "C" int wf_ring_append_multi_eval(
+    void* const* rings, const void* const* blks, const int* wires,
+    const int* accs, int n_fields, const void* offs, int KP, long long cap,
+    int Rb, const int* ops, const int* srcs, const unsigned int* idents,
+    void* const* outs, int n_evals, const int* tile_src, void* const* tiles,
+    int n_tiles, void* mask, const void* rows, const void* starts,
+    const void* lens, int B, int pad, const void* long_win,
+    const void* long_first, void* counters, int n_long, int chunks,
+    int split, int chunk, void* stream) {
+  if (n_fields <= 0 || n_fields > kMaxFields || KP < 0 || cap <= 0 ||
+      Rb < 0 || B < 0 || pad < 0 || n_evals < 0 || n_evals > kMaxEvals ||
+      n_tiles < 0 || n_tiles > kMaxFields || n_long < 0 ||
+      chunks < n_long || split < 0 || chunk <= 0 ||
+      chunk % (kGroup * kLanes) != 0 || (B > 0 && KP == 0) ||
+      (long long)B + chunks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AppendEval p{};
+  p.offs = static_cast<const int32_t*>(offs);
+  p.rows = static_cast<const int32_t*>(rows);
+  p.starts = static_cast<const int32_t*>(starts);
+  p.lens = static_cast<const int32_t*>(lens);
+  p.long_win = static_cast<const int32_t*>(long_win);
+  p.long_first = static_cast<const int32_t*>(long_first);
+  p.counters = static_cast<int32_t*>(counters);
+  p.n_fields = n_fields;
+  for (int f = 0; f < n_fields; ++f) {
+    if (wires[f] < W_INT8 || wires[f] > W_FLOAT32 ||
+        (accs[f] != A_INT32 && accs[f] != A_FLOAT32)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    FieldRing& fr = p.field[f];
+    fr.ring = rings[f];
+    fr.blk = Rb > 0 ? blks[f] : nullptr;
+    fr.wire = wires[f];
+    fr.acc = accs[f];
+    fr.vec = aligned16(rings[f]);
+    fr.avec = Rb > 0 && Rb % kChunk == 0 && aligned16(rings[f]) &&
+              aligned16(blks[f]);
+  }
+  for (int e = 0; e < n_evals; ++e) {
+    if (ops[e] < OP_SUM || ops[e] > OP_PROD || srcs[e] < 0 ||
+        srcs[e] >= n_fields) {
+      return (int)cudaErrorInvalidValue;
+    }
+    p.op[e] = ops[e];
+    p.src[e] = srcs[e];
+    p.ident[e] = idents[e];
+    p.out[e] = static_cast<uint32_t*>(outs[e]);
+  }
+  // empty tiles (B = 0 or pad = 0) are not written
+  if (B == 0 || pad == 0) n_tiles = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (tile_src[t] < 0 || tile_src[t] >= n_fields) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (!aligned16(tiles[t])) return (int)cudaErrorMisalignedAddress;
+    p.tile_src[t] = tile_src[t];
+    p.tile[t] = static_cast<uint32_t*>(tiles[t]);
+  }
+  if (n_tiles > 0 && (mask == nullptr ||
+                      reinterpret_cast<uintptr_t>(mask) % 4 != 0)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  p.n_tiles = n_tiles;
+  p.mask = static_cast<bool*>(mask);
+  p.cap = cap;
+  p.n_evals = n_evals;
+  p.KP = KP;
+  p.Rb = Rb;
+  p.B = B;
+  p.pad = pad;
+  p.n_long = n_long;
+  p.chunks = chunks;
+  p.split = split;
+  p.chunk = chunk / kGroup;
+  // pad % 4 == 0 keeps every tile row aligned; else a row may need one
+  // more group (window_gather's count)
+  const long long tgroups = pad % kTileLanes == 0
+      ? pad / kTileLanes : (pad + 2 * kTileLanes - 2) / kTileLanes;
+  p.tile_runs = (int)((tgroups + kThreads - 1) / kThreads);
+  const long long tile_blocks = n_tiles > 0 ? (long long)B * p.tile_runs : 0;
+  const long long append_blocks =
+      ((long long)KP * ((Rb + kWarpCells - 1) / kWarpCells) + kWarps - 1) /
+      kWarps;
+  p.long_blocks = n_evals > 0 ? (chunks + kTeams - 1) / kTeams : 0;
+  const long long items =
+      (long long)n_evals * ((B + 3) & ~3);
+  if ((items + kEvalWindows - 1) / kEvalWindows > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  p.short_blocks = (int)((items + kEvalWindows - 1) / kEvalWindows);
+  const long long blocks = (long long)p.long_blocks + p.short_blocks +
+                           tile_blocks + append_blocks * n_fields;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.tile_blocks = (int)tile_blocks;
+  p.append_blocks = append_blocks > 0 ? (int)append_blocks : 1;
+  multi_eval_kernel<<<(unsigned)blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -12,7 +12,10 @@ window ``b`` and lane ``j < pad`` of an ``(R, ncols)`` buffer::
                  0                                             otherwise
     mask[b, j] = j < lens[b]
 
-``rows=None`` reads row 0 (the restaging buffer is one row).  Values are
+``rows=None`` reads row 0 (the restaging buffer is one row).  The
+resident per-field step cuts the same tiles inside its own kernel
+(``ring.ring_append_multi_eval``), so this kernel serves the restaging
+path.  Values are
 int32 or float32.  :func:`window_gather` takes one buffer or a sequence of
 buffers of one shape (the fields of one window batch) and returns their
 ``(B, pad)`` tiles with the bool mask.

@@ -18,10 +18,12 @@ reads device memory:
   by the ``ring_append_eval`` kernel, every op in that one launch (as
   JAX's ``_append_eval`` is one jitted step);
 * with several fields (:class:`MultiFieldResidentExecutor`) each field has
-  a ring of its own, each ``(op, field)`` stat reads its field's ring (all
-  stats of a launch in one windowed-reduce launch), and
-  a bound user window function reads masked ``(B, pad)`` tiles of its
-  fields that the ``window_gather`` kernel cuts from the rings;
+  a ring of its own, each ``(op, field)`` stat reads its field's ring,
+  and a bound user window function reads masked ``(B, pad)`` tiles of its
+  fields; the ``ring_append_multi_eval`` kernel appends every field,
+  evaluates every stat and cuts the tiles in one launch (as JAX's
+  ``_make_multi_step`` is one jitted step), after one copy of the
+  dispatch's staging buffer;
 * with a device mesh (:class:`MeshResidentExecutor`,
   :class:`MeshMultiFieldResidentExecutor`) every kf shard holds the rows of
   its keys in rings of its own on its own device and stream, and a launch
@@ -62,10 +64,8 @@ import torch
 
 from ..utils import profile
 from .device import _bucket
-from .gather import window_gather
-from .ring import (long_windows, ring_append, ring_append_eval,
+from .ring import (long_windows, ring_append_eval, ring_append_multi_eval,
                    ring_append_regular_sum)
-from .windowed_reduce import windowed_reduce_many
 
 # -- wire diagnostics (always on: one lock round-trip per dispatch) ---------
 # Every resident dispatch feeds these process-wide counters: dispatch count,
@@ -229,6 +229,28 @@ def _upload(host: np.ndarray, device, stream):
     pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     pinned.copy_(t)
     return pinned.to(device, non_blocking=True), pinned
+
+
+def _stage(arrays, device, stream):
+    """One host-to-device copy for a launch: the host arrays laid out in
+    one byte buffer, each in its own 16-byte-aligned segment (pinned when
+    `stream` is a CUDA stream; call on it, the copy is asynchronous).
+    Returns (device views of the arrays, in order and in their dtypes and
+    shapes; the staging buffers, to keep alive until the launch ran)."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    at, size = [], 0
+    for a in arrays:
+        at.append(size)
+        size += -(-a.nbytes // 16) * 16
+    host = torch.empty(size, dtype=torch.uint8,
+                       pin_memory=stream is not None)
+    flat = host.numpy()
+    for a, o in zip(arrays, at):
+        flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host if stream is None else host.to(device, non_blocking=True)
+    views = [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+             .view(a.shape) for a, o in zip(arrays, at)]
+    return views, (host, dev)
 
 
 def _download(outs, stream):
@@ -583,15 +605,18 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
     package's ``MultiFieldResidentExecutor`` and of its jitted step
     ``_make_multi_step`` (windflow_tpu/ops/resident.py:599-781).
 
-    ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod),
-    all by one windowed-reduce launch over the fields' rings;
+    ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod);
     ``fn``: an optional ``TorchWindowFunction`` whose ``fn(keys, gwids,
-    cols, mask)`` runs over ``(B, pad)`` tiles of its fields, cut from the
-    rings by the window_gather kernel; ``acc_dtypes`` maps every field to
-    its ring dtype, int32 or float32 (the ring kernels have no other).
-    One launch appends every field's rectangle (``ring_append`` per ring)
-    and evaluates the windows; its outputs are the stats' in ``stats``
-    order, then the function's."""
+    cols, mask)`` runs over ``(B, pad)`` tiles of its fields;
+    ``acc_dtypes`` maps every field to its ring dtype, int32 or float32
+    (the ring kernels have no other).  A dispatch stages every field's
+    rectangle and its launch vector in one copy and makes one
+    ``ring_append_multi_eval`` launch (a further one for every 8 fields
+    past the first 8 and every 8 stats past a group's first 8): every
+    field's append, every stat
+    and the function's tiles, as JAX's step is one jitted program; then
+    the function runs on the tiles.  Its outputs are the stats' in
+    ``stats`` order, then the function's."""
 
     def __init__(self, fields, stats=(), fn=None, acc_dtypes=None,
                  device=None, depth: int = 8):
@@ -684,45 +709,69 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
         Rb = _bucket(max(R, 1))
         _check_ring_overflow(offs, Rb, self.cap)
         pad = _bucket(int(wlens.max()) if B else 1)
-        KP, fn = self.KP, self.fn
+        KP = self.KP
         with profile.span("device_put"):
             blkps = [self._stage_block(blks[f], Rb) for f in self.fields]
-            # with a function also the windows' keys and gwids (int32: they
-            # wrap as the JAX package's int32 cast does)
-            cols = (wrows, wstarts, wlens)
-            if fn is not None:
-                cols += (wkeys, wgwids)
-            vec = launch_vec(KP, offs, B, cols)
             with self._on_stream():
-                d_blks = [self._to_device(b) for b in blkps]
-                d_vec, p_vec = self._to_device(vec)
+                d_blks, d_vec, long, keep = self._stage_step(
+                    blkps, KP, offs, B, wrows, wstarts, wlens, wkeys,
+                    wgwids, pad, self.device, self._stream)
         for f in self.fields:
             profile.add("bytes_shipped", blks[f].nbytes)
             profile.add("rows_shipped", blks[f].size)
         profile.add("windows", B)
-        tiles = mask = None
         with profile.span("dispatch"), self._on_stream():
-            rings = tuple(ring_append(r, d, d_vec[:KP])
-                          for r, (d, _p) in zip(self._rings_arr(), d_blks))
-            ring_of = dict(zip(self.fields, rings))
-            rows, starts, lens = launch_cols(d_vec, KP, B, 3)
-            outs = (windowed_reduce_many(
-                [(ring_of[f], op) for op, f in self.stats], rows, starts,
-                lens, pad) if self.stats else [])
-            if fn is not None:
-                d_keys, d_gwids = launch_cols(d_vec, KP + 3 * B, B, 2)
-                tiles, mask = window_gather(
-                    [ring_of[f] for f in fn.fields], rows, starts, lens, pad)
-                res = fn.fn(d_keys, d_gwids, dict(zip(fn.fields, tiles)),
-                            mask)
-                outs.extend(res if isinstance(res, tuple) else (res,))
+            outs, tiles, mask = self._step(self._rings_arr(), d_blks, d_vec,
+                                           KP, B, pad, long)
             hosts, event = self._fetch(outs)
         stats_add("dispatches")
         self._inflight.append((meta, B, hosts, event,
-                               (p_vec, d_vec, d_blks, tiles, mask, outs),
+                               (keep, tiles, mask, outs),
                                time.perf_counter()))
         while len(self._inflight) > self.depth:
             self._harvest_one()
+
+    def _stage_step(self, blkps, KP, offs, B, wrows, wstarts, wlens, wkeys,
+                    wgwids, pad, device, stream):
+        """Stages one dispatch of KP ring rows (a shard's, on a mesh) in
+        one copy (_stage; call on `stream`, where the launch that reads
+        it runs): every field's (KP, Rb) rectangle, then the
+        launch vector: the offsets, the windows' (row, start, len)
+        columns, with a function its keys and gwids (int32: they wrap as
+        the JAX package's int32 cast does), and with stats the long
+        windows' list.  Returns (device rectangles, device launch vector,
+        long-window list or None, staging buffers)."""
+        cols = (wrows, wstarts, wlens)
+        if self.fn is not None:
+            cols += (wkeys, wgwids)
+        long = (long_windows(wrows, wstarts, wlens, pad, self.cap)
+                if self.stats and B else None)
+        vec = launch_vec(KP, offs, B, cols)
+        if long is not None:
+            vec = np.concatenate([vec, long.vec])
+        views, keep = _stage([*blkps, vec], device, stream)
+        d_vec = views[-1]
+        if long is not None:
+            long = long.on(d_vec[KP + len(cols) * B:])
+        return views[:-1], d_vec, long, keep
+
+    def _step(self, rings, d_blks, d_vec, KP, B, pad, long, call_fn=True):
+        """The fused launch over `rings` (one a field) and, with
+        `call_fn`, the window function on its tiles: returns (outputs,
+        tiles, mask), the stats' outputs then the function's."""
+        fn, fidx = self.fn, {f: i for i, f in enumerate(self.fields)}
+        rows, starts, lens = launch_cols(d_vec, KP, B, 3)
+        outs, tiles, mask = ring_append_multi_eval(
+            rings, d_blks, d_vec[:KP],
+            [(fidx[f], op) for op, f in self.stats], rows, starts, lens,
+            pad, tile_fields=([fidx[f] for f in fn.fields]
+                              if fn is not None else ()), long=long)
+        outs = list(outs)
+        if fn is not None and call_fn:
+            d_keys, d_gwids = launch_cols(d_vec, KP + 3 * B, B, 2)
+            res = fn.fn(d_keys, d_gwids, dict(zip(fn.fields, tiles)), mask)
+            outs.extend(res if isinstance(res, tuple) else (res,))
+        return outs, tiles, mask
 
 
 class _EventGroup:
@@ -1050,10 +1099,10 @@ class MeshResidentExecutor(_MeshShards, ResidentWindowExecutor):
 class MeshMultiFieldResidentExecutor(_MeshShards, MultiFieldResidentExecutor):
     """Per-field resident rings sharded over a device mesh's key-group
     axis (M3, the port of ``_make_mesh_multi_step``): on every shard, one
-    ``ring_append`` a field, one ``windowed_reduce_many`` for every stat
-    over the shard's windows, and for a ``TorchWindowFunction`` the
-    ``window_gather`` tiles of its fields and the function, over the
-    shard's own window keys and gwids."""
+    staging copy and one ``ring_append_multi_eval`` launch on the shard's
+    stream (every field's append, every stat over the shard's windows,
+    the tiles of a ``TorchWindowFunction``'s fields), then the function
+    over the shard's own window keys and gwids."""
 
     def __init__(self, fields, stats=(), fn=None, acc_dtypes=None,
                  mesh=None, axis: str = "kf", depth: int = 8):
@@ -1081,48 +1130,33 @@ class MeshMultiFieldResidentExecutor(_MeshShards, MultiFieldResidentExecutor):
         Rb = _bucket(max(R, 1))
         _check_ring_overflow(offs, Rb, self.cap)
         pad = _bucket(int(wlens.max()) if B else 1)
-        rps, fn = self.rps, self.fn
+        rps = self.rps
         hosts, events, keep = [], [], []
         rings = self._shard_rings()
         with profile.span("dispatch"):
             for s in range(S):
                 m = masks[s]
                 c = int(m.sum())
-                cols = (local[m], wstarts[m], wlens[m])
-                if fn is not None:
-                    # the caller sends no header columns when no fn is bound
-                    cols += tuple(None if a is None or len(a) != B else a[m]
-                                  for a in (wkeys, wgwids))
-                vec = launch_vec(rps, self._shard_rows(offs, s), c, cols)
-                dev, stream = self.shard_devices[s], self._streams[s]
+                # the caller sends no header columns when no fn is bound
+                hdr = tuple(None if a is None or len(a) != B else a[m]
+                            for a in (wkeys, wgwids))
                 with self._on_shard(s):
-                    d_blks = [_upload(self._shard_rows(blks[f], s, Rb), dev,
-                                      stream) for f in self.fields]
-                    d_vec, p_vec = _upload(vec, dev, stream)
-                    ring_of = {f: ring_append(r, d, d_vec[:rps])
-                               for f, r, (d, _p) in zip(self.fields,
-                                                        rings[s], d_blks)}
-                    outs, tiles, mask = [], None, None
-                    if c:
-                        r, st, ln = launch_cols(d_vec, rps, c, 3)
-                        if self.stats:
-                            outs = windowed_reduce_many(
-                                [(ring_of[f], op) for op, f in self.stats],
-                                r, st, ln, pad)
-                        if fn is not None:
-                            d_keys, d_gwids = launch_cols(d_vec, rps + 3 * c,
-                                                          c, 2)
-                            tiles, mask = window_gather(
-                                [ring_of[f] for f in fn.fields], r, st, ln,
-                                pad)
-                            res = fn.fn(d_keys, d_gwids,
-                                        dict(zip(fn.fields, tiles)), mask)
-                            outs.extend(res if isinstance(res, tuple)
-                                        else (res,))
-                    h, e = _download(outs, stream)
+                    d_blks, d_vec, long, staged = self._stage_step(
+                        [self._shard_rows(blks[f], s, Rb)
+                         for f in self.fields], rps,
+                        self._shard_rows(offs, s), c, local[m], wstarts[m],
+                        wlens[m], *hdr, pad, self.shard_devices[s],
+                        self._streams[s])
+                    # one fused launch a shard: the append, and the
+                    # shard's windows where it has some (the function
+                    # runs only there)
+                    outs, tiles, mask = self._step(rings[s], d_blks, d_vec,
+                                                   rps, c, pad, long,
+                                                   call_fn=bool(c))
+                    h, e = _download(outs if c else (), self._streams[s])
                 hosts.append(h)
                 events.append(e)
-                keep.append((p_vec, d_vec, d_blks, tiles, mask, outs))
+                keep.append((staged, tiles, mask, outs))
         for f in self.fields:
             profile.add("bytes_shipped", blks[f].nbytes)
             profile.add("rows_shipped", blks[f].size)

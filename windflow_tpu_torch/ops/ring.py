@@ -28,6 +28,17 @@ These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
   them; the caller that holds the windows on the host builds it).
   :func:`append_eval_order_twin` reproduces its combine order.
 
+* :func:`ring_append_multi_eval` — the whole of ``_make_multi_step``'s
+  step in one launch: a ring a field (more than
+  :data:`FIELDS_PER_LAUNCH` take a launch a group of them), every field's
+  rectangle appended at the shared offsets, every ``(field, op)`` stat
+  over the windows of the rings after it (as :func:`ring_append_eval`
+  evaluates; more than :data:`EVALS_PER_LAUNCH` take further launches
+  with no append), and the masked ``(B, pad)`` tiles
+  of a window function's fields (``window_gather``'s function) with their
+  mask.  :func:`multi_append_eval_order_twin` reproduces its combine
+  order.
+
 :func:`ring_eval_reference` is a plain transcription of ``_ring_eval``.
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from . import _nvcc
+from .gather import FIELDS_PER_LAUNCH, window_gather_reference
 from .monoid import identity
 from .windowed_reduce import (GROUP, _OPS, _check_op, _ident_bits,
                               chunked_fold, windowed_reduce_many_reference)
@@ -97,6 +109,11 @@ def _load():
                  c_p, c_int, c_p, c_p, c_p, c_int, c_int, c_p, c_p, c_p]
                 + [c_int] * 4 + [c_p])
             lib.wf_ring_append_eval.restype = c_int
+            lib.wf_ring_append_multi_eval.argtypes = (
+                [c_p] * 4 + [c_int, c_p, c_int, c_ll, c_int] + [c_p] * 4
+                + [c_int, c_p, c_p, c_int] + [c_p] * 4 + [c_int, c_int]
+                + [c_p] * 3 + [c_int] * 4 + [c_p])
+            lib.wf_ring_append_multi_eval.restype = c_int
             _lib = lib
         return _lib
 
@@ -361,6 +378,32 @@ def _long_counters(device: torch.device, stream: int, n: int):
         return t
 
 
+def _long_plan(long: LongWindows, device, stream: int, counters):
+    """(the device addresses of `long`'s window list and of its first
+    chunks, the counters, the list's device tensor) for a launch on
+    `stream` (call in `device`'s context): the list is copied to the
+    device where the caller has not, and the stream's own counters are
+    taken where the caller gives none.  Without a long window the kernels
+    read neither: (None, None, counters, None)."""
+    if not long.n:
+        return None, None, counters, None
+    plan = long.dev
+    if plan is None:
+        plan = torch.from_numpy(long.vec).to(device)
+    if (plan.dtype != torch.int32 or plan.numel() != 2 * long.n + 1
+            or plan.device != device or not plan.is_contiguous()):
+        raise TypeError(f"long.dev must be a contiguous ({2 * long.n + 1},) "
+                        f"int32 tensor on {device}")
+    if counters is None:
+        counters = _long_counters(device, stream, long.n)
+    if (counters.dtype != torch.int32 or counters.numel() < long.n
+            or counters.device != device):
+        raise TypeError(f"counters must be an int32 tensor of at least "
+                        f"{long.n} zeros on {device}")
+    at = plan.data_ptr()
+    return at, at + 4 * long.n, counters, plan
+
+
 def ring_append_eval_reference(ring: torch.Tensor, blk: torch.Tensor,
                                offs: torch.Tensor, evals, rows: torch.Tensor,
                                starts: torch.Tensor, lens: torch.Tensor,
@@ -388,6 +431,16 @@ def append_eval_order_twin(ring: torch.Tensor, blk: torch.Tensor,
     folded in chunk order from the identity
     (windowed_reduce.chunked_fold)."""
     ring_append_reference(ring, blk, offs)
+    return [_ordered(ring, op, rows, starts, lens, pad, split, chunk)
+            for op in evals]
+
+
+def _ordered(ring, op, rows, starts, lens, pad, split, chunk):
+    """One op over the windows of `ring` in the kernels' order (see
+    append_eval_order_twin)."""
+    _check_op(op)
+    if op == "count":
+        return lens.to(ring.dtype)
     cap = ring.shape[1]
     r = rows.long()
     s = starts.long().clamp(min=0)
@@ -399,18 +452,11 @@ def append_eval_order_twin(ring: torch.Tensor, blk: torch.Tensor,
         col = (s[win][:, None] + j).clamp(0, cap - 1)
         return ring[r[win][:, None], col].to(work), True
 
-    outs = []
-    for op in evals:
-        _check_op(op)
-        if op == "count":
-            outs.append(lens.to(ring.dtype))
-            continue
-        ident = torch.tensor(identity(op, ring.dtype).item(), dtype=work,
-                             device=ring.device)
-        acc, _ = chunked_fold(op, is_int, ident, (r * cap + s) % GROUP, n,
-                              split, chunk, cells)
-        outs.append(acc.to(ring.dtype))
-    return outs
+    ident = torch.tensor(identity(op, ring.dtype).item(), dtype=work,
+                         device=ring.device)
+    acc, _ = chunked_fold(op, is_int, ident, (r * cap + s) % GROUP, n,
+                          split, chunk, cells)
+    return acc.to(ring.dtype)
 
 
 def _check_eval(ring, evals, rows, starts, lens, pad):
@@ -467,36 +513,22 @@ def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
     outs = [buf[e, :B] for e in range(n)]
     if KP * Rb == 0 and (B == 0 or n == 0):
         return outs
-    plan = long.dev
-    if plan is None:
-        plan = torch.from_numpy(long.vec).to(ring.device)
-    if (plan.dtype != torch.int32 or plan.numel() != 2 * long.n + 1
-            or plan.device != ring.device or not plan.is_contiguous()):
-        raise TypeError(f"long.dev must be a contiguous ({2 * long.n + 1},) "
-                        f"int32 tensor on {ring.device}")
     lib = _load()
     with torch.cuda.device(ring.device):
         stream = _stream_of(ring)
-        if long.n and counters is None:
-            counters = _long_counters(ring.device, stream, long.n)
-        if counters is not None and (
-                counters.dtype != torch.int32 or counters.numel() < long.n
-                or counters.device != ring.device):
-            raise TypeError(f"counters must be an int32 tensor of at least "
-                            f"{long.n} zeros on {ring.device}")
+        win_at, first_at, counters, _plan = _long_plan(
+            long, ring.device, stream, counters)
         ops = (ctypes.c_int * max(n, 1))(*(_OPS[op] for op in evals))
         ids = (ctypes.c_uint * max(n, 1))(*(
             _ident_bits("sum" if op == "count" else op, ring.dtype)
             for op in evals))
         ptrs = (ctypes.c_void_p * max(n, 1))(*(o.data_ptr() for o in outs))
-        at = plan.data_ptr()
         rc = lib.wf_ring_append_eval(
             ring.data_ptr(), blk.data_ptr() if Rb else None,
             offs.data_ptr() if KP else None, KP, cap, Rb, _WIRES[blk.dtype],
             _ACCS[ring.dtype], ops, ids, ptrs, n,
             rows.data_ptr() if B else None, starts.data_ptr() if B else None,
-            lens.data_ptr() if B else None, B, int(pad), at,
-            at + 4 * long.n,
+            lens.data_ptr() if B else None, B, int(pad), win_at, first_at,
             counters.data_ptr() if counters is not None else None, long.n,
             long.chunks, long.split, long.chunk, stream)
     if rc != 0:
@@ -508,3 +540,194 @@ def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
 
 #: kernel launches since the count was last reset
 ring_append_eval.launches = 0
+
+
+# ------------------------------------------------------- per-field dispatch
+
+def ring_append_multi_eval_reference(rings, blks, offs: torch.Tensor, evals,
+                                     rows: torch.Tensor, starts: torch.Tensor,
+                                     lens: torch.Tensor, pad: int,
+                                     tile_fields=()):
+    """Plain version of the kernel: the plain append of every field, the
+    plain windowed reduction of every ``(field, op)`` over the rings after
+    it, then the plain gather of the tile fields.  Returns ``(outs, tiles,
+    mask)`` as :func:`ring_append_multi_eval` does."""
+    for ring, blk in zip(rings, blks):
+        ring_append_reference(ring, blk, offs)
+    outs = (windowed_reduce_many_reference(
+        [(rings[f], op) for f, op in evals], rows, starts, lens, pad)
+        if evals else [])
+    if not tile_fields:
+        return outs, (), None
+    tiles, mask = window_gather_reference([rings[f] for f in tile_fields],
+                                          rows, starts, lens, pad)
+    return outs, tiles, mask
+
+
+def multi_append_eval_order_twin(rings, blks, offs: torch.Tensor, evals,
+                                 rows: torch.Tensor, starts: torch.Tensor,
+                                 lens: torch.Tensor, pad: int,
+                                 tile_fields=(), split: int = LONG_SPLIT,
+                                 chunk: int = LONG_CHUNK):
+    """Plain torch that reproduces the kernel's combine order, so that the
+    kernel can be held to it bit for bit; no path of the port calls it.
+    The plain append of every field, then each ``(field, op)`` in
+    :func:`append_eval_order_twin`'s order over its field's ring (the
+    rings share their shape, so a window's groups and chunks are the same
+    in every field), and the plain tiles (a copy: no order)."""
+    for ring, blk in zip(rings, blks):
+        ring_append_reference(ring, blk, offs)
+    outs = [_ordered(rings[f], op, rows, starts, lens, pad, split, chunk)
+            for f, op in evals]
+    if not tile_fields:
+        return outs, (), None
+    tiles, mask = window_gather_reference([rings[f] for f in tile_fields],
+                                          rows, starts, lens, pad)
+    return outs, tiles, mask
+
+
+def _check_multi(rings, blks, offs, evals, tile_fields):
+    rings, blks = tuple(rings), tuple(blks)
+    if not rings:
+        raise ValueError("ring_append_multi_eval takes at least one field")
+    if len(blks) != len(rings):
+        raise ValueError(f"{len(rings)} rings and {len(blks)} rectangles")
+    shape, device = rings[0].shape, rings[0].device
+    Rb = blks[0].shape[1] if blks[0].dim() == 2 else -1
+    for ring, blk in zip(rings, blks):
+        _check_append(ring, blk, offs)
+        if ring.shape != shape or ring.device != device:
+            raise TypeError(f"the rings must share one shape and device, "
+                            f"got {tuple(ring.shape)} on {ring.device} and "
+                            f"{tuple(shape)} on {device}")
+        if blk.shape[1] != Rb:
+            raise TypeError(f"the rectangles must share their width, got "
+                            f"{blk.shape[1]} and {Rb}")
+    evals = [(int(f), op) for f, op in evals]
+    tile_fields = tuple(int(f) for f in tile_fields)
+    for f in [f for f, _op in evals] + list(tile_fields):
+        if not 0 <= f < len(rings):
+            raise ValueError(f"field {f} of a launch of {len(rings)} fields")
+    return rings, blks, evals, tile_fields
+
+
+def ring_append_multi_eval(rings, blks, offs: torch.Tensor, evals,
+                           rows: torch.Tensor, starts: torch.Tensor,
+                           lens: torch.Tensor, pad: int, tile_fields=(),
+                           long: LongWindows | None = None,
+                           counters: torch.Tensor | None = None):
+    """The per-field resident step: :func:`ring_append` of ``blks[f]``
+    into ``rings[f]`` for every field (the rings share one ``(KP, cap)``
+    shape, each int32 or float32, and the
+    rectangles one ``(KP, Rb)`` shape, each in its own wire dtype) at the
+    shared `offs`; then every ``(field, op)`` of `evals` over the B windows
+    ``(rows[w], starts[w], min(lens[w], pad))`` of the field's ring after
+    it, as :func:`ring_append_eval` evaluates; and for each field of
+    `tile_fields` the ``(B, pad)`` tile whose lane j of window w is
+    ``ring[rows[w], clip(starts[w] + j, 0, cap - 1)]`` where ``j <
+    lens[w]``, else 0, with the ``(B, pad)`` bool mask ``j < lens[w]``.
+
+    Returns ``(outs, tiles, mask)``: one (B,) tensor a stat in its ring's
+    dtype, one tile a tile field in its ring's dtype, the mask (None
+    without a tile field); the rings are updated in place.  On CUDA rings
+    one kernel launch for every :data:`FIELDS_PER_LAUNCH` fields, which
+    appends them and evaluates their first :data:`EVALS_PER_LAUNCH` stats
+    and their tiles, and one more for every further EVALS_PER_LAUNCH of
+    their stats (none when there is nothing to do); on CPU rings the
+    plain version.  `long` and `counters` are
+    :func:`ring_append_eval`'s, for these windows (shared by every stat).
+    The outputs are views of buffers that also hold the long windows'
+    chunk partials: keep them alive while the launch runs."""
+    rings, blks, evals, tile_fields = _check_multi(rings, blks, offs, evals,
+                                                   tile_fields)
+    for _f, op in evals:
+        _check_op(op)
+    _check_eval(rings[0], [], rows, starts, lens, pad)
+    if not _on_card("ring_append_multi_eval", *rings, *blks, offs, rows,
+                    starts, lens):
+        return ring_append_multi_eval_reference(rings, blks, offs, evals,
+                                                rows, starts, lens, pad,
+                                                tile_fields)
+    device = rings[0].device
+    KP, cap = rings[0].shape
+    Rb, B, n, pad = blks[0].shape[1], starts.numel(), len(evals), int(pad)
+    if not B or all(op == "count" for _f, op in evals):
+        long = _NO_LONG
+    elif long is None:
+        long = long_windows(rows.cpu().numpy(), starts.cpu().numpy(),
+                            lens.cpu().numpy(), pad, cap)
+    # the stats' outputs as rows of one 32-bit buffer, each viewed in its
+    # field's dtype
+    buf = torch.empty((n, B + long.chunks), dtype=torch.int32, device=device)
+    outs = [buf[e, :B].view(rings[f].dtype) for e, (f, _op) in
+            enumerate(evals)]
+    tiles = tuple(torch.empty((B, pad), dtype=rings[f].dtype, device=device)
+                  for f in tile_fields)
+    mask = (torch.empty((B, pad), dtype=torch.bool, device=device)
+            if tile_fields else None)
+    if KP * Rb == 0 and (B == 0 or (n == 0 and (not tile_fields
+                                                or pad == 0))):
+        return outs, tiles, mask
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = _stream_of(rings[0])
+        win_at, first_at, counters, _plan = _long_plan(long, device,
+                                                       stream, counters)
+        desc = [t.data_ptr() if B else None for t in (rows, starts, lens)]
+        tail = (B, pad, win_at, first_at,
+                counters.data_ptr() if counters is not None else None,
+                long.n, long.chunks, long.split, long.chunk, stream)
+        # a launch takes FIELDS_PER_LAUNCH fields: each group of them has
+        # its own launches, the first appending the group's rectangles and
+        # writing its tiles (and the mask), then one for every
+        # EVALS_PER_LAUNCH of its stats past the first over the rings
+        # after it (Rb = 0), in stream order
+        for g0 in range(0, len(rings), FIELDS_PER_LAUNCH):
+            nf = min(FIELDS_PER_LAUNCH, len(rings) - g0)
+            grp = range(g0, g0 + nf)
+            ring_ps = (ctypes.c_void_p * nf)(*(rings[f].data_ptr()
+                                               for f in grp))
+            blk_ps = (ctypes.c_void_p * nf)(*(blks[f].data_ptr() if Rb
+                                              else None for f in grp))
+            wires = (ctypes.c_int * nf)(*(_WIRES[blks[f].dtype]
+                                          for f in grp))
+            accs = (ctypes.c_int * nf)(*(_ACCS[rings[f].dtype]
+                                         for f in grp))
+            es = [e for e, (f, _op) in enumerate(evals) if f in grp]
+            ts = ([t for t, f in enumerate(tile_fields) if f in grp]
+                  if B and pad else [])
+            tsrc = (ctypes.c_int * max(len(ts), 1))(*(tile_fields[t] - g0
+                                                      for t in ts))
+            tptr = (ctypes.c_void_p * max(len(ts), 1))(*(tiles[t].data_ptr()
+                                                         for t in ts))
+            for i in range(0, max(len(es), 1) if B else 1,
+                           EVALS_PER_LAUNCH):
+                group = es[i:i + EVALS_PER_LAUNCH]
+                m, first = len(group), i == 0
+                nt = len(ts) if first else 0
+                e_ops = (ctypes.c_int * max(m, 1))(*(_OPS[evals[e][1]]
+                                                     for e in group))
+                e_src = (ctypes.c_int * max(m, 1))(*(evals[e][0] - g0
+                                                     for e in group))
+                e_ids = (ctypes.c_uint * max(m, 1))(*(
+                    _ident_bits("sum" if evals[e][1] == "count"
+                                else evals[e][1], rings[evals[e][0]].dtype)
+                    for e in group))
+                e_out = (ctypes.c_void_p * max(m, 1))(*(outs[e].data_ptr()
+                                                        for e in group))
+                rb = Rb if first else 0
+                rc = lib.wf_ring_append_multi_eval(
+                    ring_ps, blk_ps, wires, accs, nf,
+                    offs.data_ptr() if KP and rb else None, KP, cap, rb,
+                    e_ops, e_src, e_ids, e_out, m, tsrc, tptr, nt,
+                    mask.data_ptr() if nt else None, *desc, *tail)
+                if rc != 0:
+                    raise RuntimeError(f"ring_append_multi_eval kernel "
+                                       f"launch failed: CUDA error {rc}")
+                if (KP and rb) or (B and (m or nt)):
+                    ring_append_multi_eval.launches += 1
+    return outs, tiles, mask
+
+
+#: kernel launches since the count was last reset
+ring_append_multi_eval.launches = 0
