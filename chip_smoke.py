@@ -262,11 +262,29 @@ catches its own failure):
    the uncrashed single-process run, the total against the oracle, the
    fused kernel launched by each restarted process; the wall time, each
    roll's restart gap and fused launches before and after; then the
-   script's host differential (run_roll, 8 epochs).
+   script's host differential (run_roll, 8 epochs);
+25. ring_dtypes: rings of the dtypes beyond int32 and float32 through the
+   three fused ring kernels: (a) sum_test's 16M tuples through the
+   resident route with compute_dtype=int64 and values from 2**26 (window
+   sums past 2**31), every window and the total against a numpy int64
+   oracle, one fused ring_append_regular_sum a regular flush; (b) the 1M
+   Reducer("max") prefix (irregular: ring_append_eval) on an int64 ring
+   and on an int8 ring fed an int16 wire that wraps, against a numpy
+   oracle (of the wrapped values); (c) a
+   MultiFieldResidentExecutor over int16, int64 and float64 rings, 7
+   stats over 3 fields in one ring_append_multi_eval launch a dispatch,
+   every window against a numpy oracle; every recorded call of the three
+   kernels against its plain version and its order twin (ints bit for
+   bit, float64 sums within FLOAT64_RTOL of Σ|x|); each kernel timed at
+   its largest call beside the same inputs over int32 (and float32)
+   rings, with the bytes bounds (ring_dtypes_rows, which also carries the
+   cold build's seconds of the ring kernels' library).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append_eval and ring_append_regular_sum must have been
-launched on one of them; the mesh runs' launches follow (mesh_launches).
+launched on one of them; the mesh runs' launches follow (mesh_launches),
+then ring_dtypes' (ring_dtypes_launches), where each of the three fused
+ring kernels must have been launched.
 Then it prints the kernels' JSON line (nine kernels, each with the
 empty-launch floor beside its times), the nvidia-smi line,
 and last
@@ -314,8 +332,25 @@ KP, CAP, RB, C_WINDOWS = 64, 262144, 8192, 128
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 FLOAT_RTOL = 1e-5
+# float64 sums: within 1e-12 of the sum of |x| (XLA's cumsum difference and
+# the plain version's round at the row prefix's magnitude, the kernels at
+# the window's)
+FLOAT64_RTOL = 1e-12
 WIRES = (torch.int8, torch.int16, torch.int32, torch.float32)
 ACCS = (torch.int32, torch.float32)
+_SAME_SIZE_INT = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                  8: torch.int64}
+
+
+def bits(t):
+    """`t` viewed as integers of its element size: equal bits, equal
+    values (NaN included)."""
+    return t.view(_SAME_SIZE_INT[t.element_size()])
+
+
+def rtol_of(t):
+    """The stated sum tolerance of a float dtype (of |x| summed)."""
+    return FLOAT64_RTOL if t.dtype == torch.float64 else FLOAT_RTOL
 
 
 def emit(phase, **fields):
@@ -740,8 +775,9 @@ def run_fused(rk, case, plain):
     return ring, out
 
 
-def window_abs_sums(ring, rstart0, rlen, C, slide):
-    """Σ|x| over each clipped regular window (float64, on the card)."""
+def window_abs_sums(ring, rstart0, rlen, C, slide, prefix=False):
+    """Σ|x| over each clipped regular window (float64, on the card); with
+    `prefix`, over the row up to each window's end."""
     cap = ring.shape[1]
     cs = torch.zeros((ring.shape[0], cap + 1), dtype=torch.float64,
                      device=ring.device)
@@ -749,40 +785,41 @@ def window_abs_sums(ring, rstart0, rlen, C, slide):
     i = torch.arange(C, device=ring.device)
     s = (rstart0.long()[:, None] + i[None, :] * slide).clamp(0, cap)
     e = (s + rlen.long()[:, None]).clamp(0, cap)
-    return cs.gather(1, e) - cs.gather(1, s)
+    return cs.gather(1, e) - (0 if prefix else cs.gather(1, s))
 
 
 def check_ring(rk, case, name):
     """The fused kernel (launched twice) and the two-launch sequence
-    against the plain version on one case.  Rings must be identical; int32
-    sums exact, float32
-    sums within FLOAT_RTOL of Σ|x| over the window; the two fused launches
-    bitwise equal.  Returns the window sums' largest error (the rings
-    are identical or it raises)."""
+    against the plain version on one case.  Rings must be identical;
+    integer sums exact, float32 sums within FLOAT_RTOL of Σ|x| over the
+    window, float64 within FLOAT64_RTOL of Σ|x| over the row up to the
+    window's end (the plain version's cumsum difference rounds there); the
+    two fused launches bitwise equal.  Returns the window sums' largest
+    error (the rings are identical or it raises)."""
     fused = [run_fused(rk, case, plain=False) for _ in range(2)]
     two = run_two_launches(rk, case)
     ring_p, out_p = run_fused(rk, case, plain=True)
     torch.cuda.synchronize()
-    if not torch.equal(fused[0][1].view(torch.int32),
-                       fused[1][1].view(torch.int32)):
+    if not torch.equal(bits(fused[0][1]), bits(fused[1][1])):
         raise AssertionError(f"ring_append_regular_sum {name}: two launches "
                              "differ")
     scale = window_abs_sums(ring_p, case["rstart0"], case["rlen"],
-                            case["C"], case["slide"])
+                            case["C"], case["slide"],
+                            prefix=ring_p.dtype == torch.float64)
     err = 0.0
     for label, (ring_k, out_k) in (("ring_append_regular_sum", fused[0]),
                                    ("ring_append + window sums alone",
                                     two)):
         if not torch.equal(ring_k, ring_p):
             raise AssertionError(f"{label} {name}: rings differ")
-        if out_k.dtype == torch.int32:
+        if not out_k.is_floating_point():
             if not torch.equal(out_k, out_p):
                 raise AssertionError(f"{label} {name}: sums differ")
             continue
         e = (out_k.double() - out_p.double()).abs()
-        if not bool((e <= FLOAT_RTOL * scale).all()):
+        if not bool((e <= rtol_of(out_k) * scale).all()):
             raise AssertionError(f"{label} {name}: error {float(e.max())} "
-                                 f"beyond rtol {FLOAT_RTOL}")
+                                 f"beyond rtol {rtol_of(out_k)}")
         err = max(err, float(e.max()))
     return err
 
@@ -806,8 +843,9 @@ def fused_bound(case):
     cov = edges.cumsum(dim=1)[:, :cap] > 0
     col = torch.arange(cap, device=dev)[None, :]
     rect = (col >= offs.long()[:, None]) & (col < offs.long()[:, None] + Rb)
-    nbytes = (blk.numel() * blk.element_size() + 4 * int(rect.sum())
-              + 4 * int((cov & ~rect).sum()) + 12 * KP + 4 * KP * C)
+    size = ring.element_size()
+    nbytes = (blk.numel() * blk.element_size() + size * int(rect.sum())
+              + size * int((cov & ~rect).sum()) + 12 * KP + size * KP * C)
     return (*bytes_bound(nbytes, int((e - s).sum())), nbytes)
 
 
@@ -1090,7 +1128,8 @@ def ae_compare(got, want, scale, n, op, name):
     (want); raises beyond the tolerance: ints, counts, min and max exact
     (NaN equal to NaN), float32 sums within FLOAT_RTOL of the window's sum
     of |x| (`scale`), float32 products within max(FLOAT_RTOL, 2 (n - 1)
-    2^-24) of |want| for a window of n cells."""
+    2^-24) of |want| for a window of n cells; float64 alike with
+    FLOAT64_RTOL and 2 (n - 1) 2^-53."""
     same = got == want
     if got.is_floating_point():
         same |= torch.isnan(got) & torch.isnan(want)
@@ -1101,10 +1140,12 @@ def ae_compare(got, want, scale, n, op, name):
                                  f"{got[bad].item()} != {want[bad].item()}")
         return 0.0
     err = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    wide = got.dtype == torch.float64
     if op == "sum":
-        tol = FLOAT_RTOL * scale.double()
+        tol = rtol_of(got) * scale.double()
     else:
-        rel = torch.clamp(AE_FLOAT_PROD_BOUND * (n.double() - 1), min=FLOAT_RTOL)
+        rel = torch.clamp((2.0 ** -52 if wide else AE_FLOAT_PROD_BOUND)
+                          * (n.double() - 1), min=rtol_of(got))
         tol = rel * want.double().abs()
     if not bool((same | (err <= tol)).all()):
         raise AssertionError(f"{name} {op}: max error {err.max()} beyond "
@@ -1143,7 +1184,6 @@ def check_append_eval(case, name, counters=None):
     if c["long"].n and bool(counters.any()):
         raise AssertionError(f"ring_append_eval {name}: counters left at "
                              f"{counters.nonzero().flatten().tolist()}")
-    bits = lambda t: t.view(torch.int32)                     # noqa: E731
     n = c["lens"].long().clamp(0, c["pad"])
     scale = wr.windowed_reduce_many_reference(
         [(rings[1].abs(), "sum")], c["rows"], c["starts"], c["lens"],
@@ -1433,7 +1473,6 @@ def check_multi_append_eval(case, name):
     if c["long"].n and bool(counters.any()):
         raise AssertionError(f"ring_append_multi_eval {name}: counters left "
                              f"at {counters.nonzero().flatten().tolist()}")
-    bits = lambda t: t.view(torch.int32)                     # noqa: E731
     for what, other in (("the plain gather", plain), ("a second launch",
                                                         again)):
         for t, (g, o) in enumerate(zip(got[1], other[1])):
@@ -1478,10 +1517,12 @@ def multi_append_eval_bound(case):
                             c["lens"].cpu().numpy(), pad, cap,
                             c["offs"].cpu().numpy(), Rb)
     read = {f for f, _op in c["evals"]} | set(c["tile_fields"])
+    size = [r.element_size() for r in c["rings"]]
     nbytes = (sum(b.numel() * (b.element_size() + r.element_size())
                   for r, b in zip(c["rings"], c["blks"])) + 4 * KP
-              + 4 * cells * len(read) + 12 * B + 4 * B * len(c["evals"])
-              + (B * pad * (4 * len(c["tile_fields"]) + 1)
+              + cells * sum(size[f] for f in read) + 12 * B
+              + B * sum(size[f] for f, _op in c["evals"])
+              + (B * pad * (sum(size[f] for f in c["tile_fields"]) + 1)
                  if c["tile_fields"] else 0))
     n_ops = (sum(op != "count" for _f, op in c["evals"])
              * int(c["lens"].long().clamp(0, pad).sum()))
@@ -4599,6 +4640,368 @@ def roll_phase(device=DEVICE, n_tuples=ADOPT_TUPLES):
     return out["launches"]
 
 
+# ------------------------------------------------------------ ring dtypes
+
+RD_BASE = 1 << 26          # sum_test values from 2**26: a window of 256 of
+#                            them sums past 2**31
+RD_INT16_LO, RD_INT16_HI = 200, 30_000   # an int16 wire that wraps in int8
+RD_MULTI_TUPLES = 2_000_000
+RD_MULTI_FLUSH = FLUSH_ROWS // N_KEYS     # rows a key a dispatch
+
+
+def rd_stream(schema, n_tuples, lo, hi, seed):
+    """sum_test's stream (make_stream's keys and ids) with values in
+    [lo, hi)."""
+    from windflow_tpu_torch import batch_from_columns
+    per_key = n_tuples // N_KEYS
+    rng = np.random.default_rng(seed)
+    batches = []
+    for at in range(0, per_key, CHUNK // N_KEYS):
+        m = min(CHUNK // N_KEYS, per_key - at)
+        ids = np.repeat(np.arange(at, at + m), N_KEYS)
+        batches.append(batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
+            value=rng.integers(lo, hi, size=m * N_KEYS)))
+    return batches
+
+
+def rd_windows(vals, op):
+    """Every CB WIN/SLIDE window of one key's values (`op` "sum" or
+    "max"), the partial ones at the end included (the pipeline's EOS
+    flush), in int64."""
+    n = len(vals)
+    s = np.arange(0, n, SLIDE)
+    e = np.minimum(s + WIN, n)
+    if op == "sum":
+        c = np.concatenate([[0], np.cumsum(vals, dtype=np.int64)])
+        return c[e] - c[s]
+    return np.array([vals[a:b].max() for a, b in zip(s, e)], np.int64)
+
+
+def rd_oracle_rows(batches, op, cast=None):
+    """{key: windows' values in id order} (rd_windows), the values first
+    cast through the dtypes of `cast` (a wire and ring that wrap)."""
+    vals = np.concatenate([b["value"] for b in batches])
+    keys = np.concatenate([b["key"] for b in batches])
+    order = np.argsort(keys, kind="stable")
+    vals, keys = vals[order], keys[order]
+    for dt in cast or ():
+        vals = vals.astype(dt)
+    bounds = np.searchsorted(keys, np.arange(N_KEYS + 1))
+    return {k: rd_windows(vals[bounds[k]:bounds[k + 1]], op)
+            for k in range(N_KEYS)}
+
+
+def rd_check_rows(rows, want, name):
+    """The pipeline's rows per key, in id order, against the oracle."""
+    rows = np.concatenate(rows)
+    for k, w in want.items():
+        mine = rows[rows["key"] == k]
+        if not (np.array_equal(mine["id"], np.arange(len(w)))
+                and np.array_equal(mine["value"], w)):
+            raise AssertionError(f"ring_dtypes {name}: key {k}'s windows "
+                                 "differ from the numpy int64 oracle")
+    return len(rows)
+
+
+def rd_cold(dev, fn, tensors):
+    """fn's cold time (cycling through copies of `tensors` three times the
+    L2, a CUDA-graph replay)."""
+    copies = cold_copies(dev, tensors)
+    ms = kernel_ms(cycled(copies, fn), reps=10 * len(copies))
+    del copies
+    return ms
+
+
+def rd_fused_row(call):
+    """The fused kernel, and ring_append, at a recorded call's inputs over
+    a seeded ring of its dtype and over an int32 ring (the same rectangle;
+    hot: the kernels line's fused row is hot), each beside its bytes
+    bound."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    row = {}
+    for label, dtype in (("new", call["dtype"]), ("int32", torch.int32)):
+        case = dict(ring=seeded_ring(gen, call["shape"], dtype),
+                    **{k: call[k] for k in ("blk", "offs", "rstart0", "rlen",
+                                            "C", "slide")})
+        ring = case["ring"]
+        args = (case["blk"], case["offs"], case["rstart0"], case["rlen"],
+                case["C"], case["slide"])
+        b = fused_bound(case)
+        blk, offs = case["blk"], case["offs"]
+        row[label] = dict(
+            acc=str(dtype), ms=kernel_ms(
+                lambda ring=ring, args=args: rk.ring_append_regular_sum(
+                    ring, *args)),
+            bound_ms=b[0], bound_by=b[1], bound_bytes=b[2],
+            # ring_append (no main-path launch) at the same rectangle
+            append_ms=kernel_ms(lambda ring=ring: rk.ring_append(
+                ring, blk, offs)),
+            append_bound_ms=bytes_bound(
+                blk.numel() * (blk.element_size() + ring.element_size())
+                + 4 * offs.numel(), blk.numel())[0])
+        del case, ring
+    return row
+
+
+def rd_eval_row(call):
+    """ring_append_eval at a recorded call's inputs over a seeded ring of
+    its dtype and over an int32 ring (cold), each beside its bound."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = np.random.default_rng(8)
+    row = {}
+    for label, dtype in (("new", call["dtype"]), ("int32", torch.int32)):
+        case = append_eval_call_case(dict(call, dtype=dtype), gen)
+        dev = case["ring"].device
+        long = case["long"].on(torch.from_numpy(case["long"].vec).to(dev))
+        counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
+        args = (case["blk"], case["offs"], case["ops"], case["rows"],
+                case["starts"], case["lens"], case["pad"])
+        b = append_eval_bound(case)
+        row[label] = dict(
+            acc=str(dtype), ms=rd_cold(dev, lambda r: rk.ring_append_eval(
+                r, *args, long=long, counters=counters),
+                [case["ring"].clone()]),
+            bound_ms=b[0], bound_by=b[1], bound_bytes=b[2])
+        del case
+    return row
+
+
+def rd_multi_row(case, int32_case):
+    """ring_append_multi_eval (cold) at a case and at the same shape over
+    int32 and float32 rings, each beside its bound."""
+    from windflow_tpu_torch.ops import ring as rk
+    row = {}
+    for label, c in (("new", case), ("int32", int32_case)):
+        dev = c["offs"].device
+        long = c["long"].on(torch.from_numpy(c["long"].vec).to(dev))
+        counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
+        d = (c["rows"], c["starts"], c["lens"], c["pad"])
+
+        def kernel(*rings, c=c, d=d, long=long, counters=counters):
+            rk.ring_append_multi_eval(rings, c["blks"], c["offs"],
+                                      c["evals"], *d, c["tile_fields"],
+                                      long=long, counters=counters)
+        b = multi_append_eval_bound(c)
+        row[label] = dict(
+            accs=[str(r.dtype) for r in c["rings"]],
+            ms=rd_cold(dev, kernel, [r.clone() for r in c["rings"]]),
+            bound_ms=b[0], bound_by=b[1], bound_bytes=b[2])
+    return row
+
+
+def rd_sum_test(wr, rk, wt):
+    """(a) sum_test's 16M tuples through the resident route on an int64
+    ring: every window and the total against the numpy int64 oracle, one
+    fused launch a regular flush, every fused call checked."""
+    from windflow_tpu_torch.ops import resident
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    schema = wt.Schema(value=np.int64)
+    t0 = time.perf_counter()
+    batches = rd_stream(schema, N_TUPLES, RD_BASE, RD_BASE + 100, seed=9)
+    want = rd_oracle_rows(batches, "sum")
+    cores = []
+    stage = stage_with_core(lambda: resident_stage(
+        wt, wt.Reducer("sum"), device=DEVICE, compute_dtype=np.int64), cores)
+    resident.stats_snapshot(reset=True)
+    counters = (rk.ring_append_regular_sum, rk.ring_append_eval,
+                rk.ring_append, wr.windowed_reduce)
+    for c in counters:
+        c.launches = 0
+    with recorded_fused() as calls:
+        dt, n_windows, total, rows = run_pipeline(stage, batches, schema,
+                                                  keep=True)
+    launches = {c.__name__: c.launches for c in counters}
+    stats = resident.stats_snapshot(reset=True)
+    core = cores[0] if len(cores) == 1 else None
+    if not (isinstance(core, NativeResidentCore) and core._delegate is None
+            and core.executor.acc_dtype == np.int64):
+        raise AssertionError(f"ring_dtypes sum_test: the core is {cores}")
+    windows = rd_check_rows(rows, want, "sum_test int64")
+    oracle = int(sum(int(w.sum()) for w in want.values()))
+    peak = max(int(w.max()) for w in want.values())
+    if total != oracle or peak <= 2 ** 31:
+        raise AssertionError(f"ring_dtypes sum_test: total {total}, oracle "
+                             f"{oracle}, largest window {peak}")
+    if not (launches["ring_append_regular_sum"] > 0
+            and launches["ring_append"] == launches["windowed_reduce"] == 0
+            and stats["dispatches"] == launches["ring_append_regular_sum"]
+            + launches["ring_append_eval"]):
+        raise AssertionError(f"ring_dtypes sum_test: launches {launches}, "
+                             f"dispatches {stats['dispatches']}")
+    n, err = check_fused(calls, "ring_dtypes sum_test int64")
+    big = max(calls, key=lambda c: c["blk"].numel() * c["C"])
+    row = dict(calls_checked=n, max_abs_err=err,
+               wire=str(big["blk"].dtype), **rd_fused_row(big))
+    emit("ring_dtypes", case="sum_test_int64",
+         workload="sum_test CB win=256 slide=64 keys=64 resident, "
+                  "compute_dtype=int64, values 2**26..2**26+99",
+         tuples=N_TUPLES, seconds=dt, tuples_per_s=N_TUPLES / dt,
+         windows=windows, total=total, oracle=oracle, largest_window=peak,
+         launches=launches, dispatches=stats["dispatches"],
+         ring_append_regular_sum=row,
+         phase_seconds=time.perf_counter() - t0)
+    return launches, row
+
+
+def rd_max_prefixes(wr, rk, wt):
+    """(b) the 1M-tuple Reducer("max") prefix (irregular launches) on an
+    int64 ring and on an int8 ring fed an int16 wire that wraps, each
+    against a numpy oracle (of the wrapped values), every
+    ring_append_eval call checked."""
+    schema = wt.Schema(value=np.int64)
+    out, rows_out = {}, {}
+    runs = (("int64", np.int64, RD_BASE, RD_BASE + 100),
+            ("int8", np.int8, RD_INT16_LO, RD_INT16_HI))
+    for label, acc, lo, hi in runs:
+        t0 = time.perf_counter()
+        batches = rd_stream(schema, PREFIX_TUPLES, lo, hi, seed=10)
+        counters = (rk.ring_append_eval, rk.ring_append_regular_sum,
+                    rk.ring_append, wr.windowed_reduce)
+        for c in counters:
+            c.launches = 0
+        with recorded_append_evals() as calls:
+            _, n_dev, _, rows = run_pipeline(resident_stage(
+                wt, wt.Reducer("max"), device=DEVICE, compute_dtype=acc),
+                batches, schema, keep=True)
+        launches = {c.__name__: c.launches for c in counters}
+        if not (launches["ring_append_eval"] > 0
+                and launches["ring_append"] == launches["windowed_reduce"]
+                == 0):
+            raise AssertionError(f"ring_dtypes max {label}: launches "
+                                 f"{launches}")
+        rd_check_rows(rows, rd_oracle_rows(
+            batches, "max", (np.int16, np.int8) if acc == np.int8 else ()),
+            f"max {label}")
+        wires = {c["blk"].dtype for c in calls}
+        if (torch.int16 if acc == np.int8 else torch.int32) not in wires:
+            raise AssertionError(f"ring_dtypes max {label}: wires {wires}")
+        n, err = check_append_evals(calls, f"ring_dtypes max {label}")
+        big = max(calls, key=lambda c: (c["blk"].numel(),
+                                        c["starts"].numel()))
+        out[label] = dict(calls_checked=n, max_abs_err=err,
+                          wire=str(big["blk"].dtype), **rd_eval_row(big))
+        rows_out[label] = launches
+        emit("ring_dtypes", case=f"max_prefix_{label}",
+             workload=f"Reducer('max') CB win=256 slide=64 keys=64, "
+                      f"compute_dtype={label}, values {lo}..{hi - 1}",
+             tuples=PREFIX_TUPLES, windows=n_dev, launches=launches,
+             ring_append_eval=out[label],
+             phase_seconds=time.perf_counter() - t0)
+    return rows_out, out
+
+
+def rd_multi_fields(rk):
+    """(c) sum(a) + max(a), sum(b) + min(b) + prod(b), sum(c) + max(c)
+    (the MultiReducer's stats over three fields) on a
+    MultiFieldResidentExecutor whose rings are int16, int64 and float64,
+    over RD_MULTI_TUPLES tuples of 64 keys: a dispatch appends
+    RD_MULTI_FLUSH rows a key and evaluates the CB 256/64 windows they
+    complete, one ring_append_multi_eval launch each; every window against
+    a numpy oracle (int16 sums wrap), every call checked."""
+    from windflow_tpu_torch.ops.resident import MultiFieldResidentExecutor
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    per_key = RD_MULTI_TUPLES // N_KEYS
+    cols = {"a": rng.integers(-100, 100, size=(N_KEYS, per_key)),
+            "b": rng.integers(1, 98, size=(N_KEYS, per_key)) * (1 << 30),
+            "c": rng.uniform(0.999, 1.001, size=(N_KEYS, per_key))}
+    accs = {"a": np.int16, "b": np.int64, "c": np.float64}
+    stats = (("sum", "a"), ("max", "a"), ("sum", "b"), ("min", "b"),
+             ("prod", "b"), ("sum", "c"), ("max", "c"))
+    ex = MultiFieldResidentExecutor(("a", "b", "c"), stats,
+                                    acc_dtypes=accs, device=DEVICE)
+    cap = 1 << (per_key - 1).bit_length()
+    ex.reset(N_KEYS, cap)
+    rk.ring_append_multi_eval.launches = 0
+    done, first, dispatches, metas = 0, 0, 0, []
+    with recorded_multi_evals() as calls:
+        for end in range(RD_MULTI_FLUSH, per_key + 1, RD_MULTI_FLUSH):
+            last = (end - WIN) // SLIDE          # windows ending by `end`
+            idx = np.arange(first, last + 1)
+            first = last + 1
+            rows = np.repeat(np.arange(N_KEYS), len(idx))
+            starts = np.tile(idx * SLIDE, N_KEYS)
+            blks = {f: cols[f][:, done:end] for f in cols}
+            for f in ("a", "b"):                 # the narrowest wire
+                blks[f] = blks[f].astype(ex.narrow_for(f, blks[f].ravel()))
+            ex.launch((rows, starts), blks, np.full(N_KEYS, done), rows,
+                      starts, np.full(len(rows), WIN))
+            metas.append(len(rows))
+            dispatches += 1
+            done = end
+        ready = ex.drain()
+    launches = rk.ring_append_multi_eval.launches
+    if launches != dispatches:
+        raise AssertionError(f"ring_dtypes multi: {launches} launches for "
+                             f"{dispatches} dispatches")
+    ops = {"sum": np.sum, "max": np.max, "min": np.min, "prod": np.prod}
+    err = 0.0
+    for (rows, starts), outs in ready:
+        for (op, f), got in zip(stats, outs):
+            cells = cols[f][rows[:, None], starts[:, None]
+                            + np.arange(WIN)[None, :]]
+            if f == "a":
+                cells = cells.astype(np.int16)
+            want = ops[op](cells, axis=1).astype(got.dtype)
+            if f != "c" or op == "max":
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"ring_dtypes multi {op}({f}) "
+                                         "differs from the numpy oracle")
+                continue
+            tol = (FLOAT64_RTOL * np.abs(cells).sum(axis=1) if op == "sum"
+                   else 2 * WIN * 2.0 ** -53 * np.abs(want))
+            e = np.abs(got - want)
+            if not bool((e <= tol).all()):
+                raise AssertionError(f"ring_dtypes multi {op}({f}): error "
+                                     f"{e.max()} beyond the bound")
+            err = max(err, float(e.max()))
+    n, cerr = check_multi_evals(calls, "ring_dtypes multi")
+    big = max(calls, key=lambda c: c["starts"].numel())
+    case = multi_eval_call_case(big, np.random.default_rng(8))
+    as32 = dict(case, rings=[r.to(torch.float32 if r.is_floating_point()
+                                  else torch.int32) for r in case["rings"]],
+                blks=[b.to(torch.float32) if b.is_floating_point()
+                      else b.to(torch.int32) if b.dtype == torch.int64
+                      else b for b in case["blks"]])
+    row = dict(calls_checked=n, max_abs_err=max(err, cerr),
+               wires=[str(b.dtype) for b in big["blks"]],
+               **rd_multi_row(case, as32))
+    emit("ring_dtypes", case="multi_fields",
+         workload="sum/max(a int16), sum/min/prod(b int64), sum/max(c "
+                  "float64) CB win=256 slide=64 keys=64, one "
+                  "MultiFieldResidentExecutor",
+         tuples=RD_MULTI_TUPLES, dispatches=dispatches,
+         windows=int(sum(metas)), launches=launches,
+         ring_append_multi_eval=row,
+         phase_seconds=time.perf_counter() - t0)
+    del case, as32
+    return launches, row
+
+
+def ring_dtypes_phase(wr, rk, builds):
+    """Phase 25: int8, int16, int64 and float64 rings through the three
+    fused ring kernels on their main paths ((a) sum_test on an int64 ring,
+    (b) the max prefix on int64 and int8 rings, (c) three fields of int16,
+    int64 and float64 rings in one launch), every recorded call against
+    its plain version and twin, each kernel timed at the new dtype beside
+    the same shape over int32 rings; and the cold build of the ring
+    kernels' library.  Returns the launches of each run."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.ops import _nvcc
+    sum_launches, fused = rd_sum_test(wr, rk, wt)
+    max_launches, evals = rd_max_prefixes(wr, rk, wt)
+    multi_launches, multi = rd_multi_fields(rk)
+    emit("ring_dtypes_rows", build_s=builds["resident.cu"][1],
+         build_units_s=_nvcc.UNIT_SECONDS.get("resident"),
+         ring_append_regular_sum=fused, ring_append_eval=evals,
+         ring_append_multi_eval=multi)
+    return {"sum_test_int64": sum_launches, **{
+        f"max_{k}": v for k, v in max_launches.items()},
+        "multi_fields": {"ring_append_multi_eval": multi_launches}}
+
+
 def child_main(argv) -> int:
     """Entry of the plane phase's child processes."""
     role, args = argv[0], argv[1:]
@@ -4617,9 +5020,13 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    for name, (out, sec) in build_all().items():
+    from windflow_tpu_torch.ops import _nvcc
+    builds = build_all()
+    for name, (out, sec) in builds.items():
         emit("build", source=name, seconds=sec,
-             library=out if isinstance(out, str) else out._name)
+             library=out if isinstance(out, str) else out._name,
+             units=_nvcc.UNIT_SECONDS.get("resident")
+             if name == "resident.cu" else None)
 
     dev = torch.device(DEVICE)
     row = kernel_phase(wr, dev)
@@ -4653,6 +5060,14 @@ def main() -> int:
     lint_phase()
     new_paths["roll"] = roll_phase()
     emit("new_path_launches", **new_paths)
+    dtype_launches = ring_dtypes_phase(wr, rk, builds)
+    emit("ring_dtypes_launches", **dtype_launches)
+    for name, run in (("ring_append_regular_sum", "sum_test_int64"),
+                      ("ring_append_eval", "max_int64"),
+                      ("ring_append_eval", "max_int8"),
+                      ("ring_append_multi_eval", "multi_fields")):
+        if not dtype_launches[run][name]:
+            raise AssertionError(f"ring_dtypes {run} launched no {name}")
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]
     for name in ("ring_append_eval", "ring_append_regular_sum"):
@@ -4678,14 +5093,14 @@ def main() -> int:
              resident_launches["ring_append_regular_sum"])):
         kernels.append(dict(
             name=name, route="cuda",
-            source="windflow_tpu_torch/ops/csrc/resident.cu",
+            source="windflow_tpu_torch/ops/csrc/resident.cuh",
             replaces=replaces, launches=launches, **rows[name]))
     # ring_append_eval's row: YSB kf-gpu's 10 s run (its launches; its
     # largest call checked and timed at its own inputs, cold, beside the
     # old ring_append + windowed_reduce pair as pair_ms)
     kernels.append(dict(
         name="ring_append_eval", route="cuda",
-        source="windflow_tpu_torch/ops/csrc/resident.cu",
+        source="windflow_tpu_torch/ops/csrc/resident.cuh",
         replaces="windflow_tpu/ops/resident.py:260",
         launches=new_paths["ysb_timed"]["kf-gpu"]["ring_append_eval"],
         **{k: ysb_rows["kf-gpu"][k] for k in (
@@ -4698,7 +5113,7 @@ def main() -> int:
     # and mesh (c) beside
     kernels.append(dict(
         name="ring_append_multi_eval", route="cuda",
-        source="windflow_tpu_torch/ops/csrc/resident.cu",
+        source="windflow_tpu_torch/ops/csrc/resident.cuh",
         replaces="windflow_tpu/ops/resident.py:599, :784",
         launches=spatial_launches["ring_append_multi_eval"],
         launches_multi_field_native=multi_launches,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's ring_append_eval kernel (ops/csrc/resident.cu) timed on one
+"""The port's ring_append_eval kernel (ops/csrc/resident.cuh) timed on one
 GPU at chip_smoke.py's append_eval shapes, its long-window split and chunk
 swept.
 
@@ -22,11 +22,11 @@ CUDA-graph replay with the rings cycled through three times the L2
   launch at every shape, in the same process.
 
 With ``--variants`` it times variants of the kernel instead (``variant``
-lines): copies of csrc/resident.cu with another minimum of resident
-blocks an SM in the kernel's launch bounds (kEvalMinBlocks), other
-groups in flight a lane (kGroupUnroll) and the rectangle's whole groups
-read cell by cell (kBlkGroups = 0; VARIANTS), each built with nvcc into
-windflow_tpu_torch/_build/variants/, held against the twin at every
+lines): copies of the csrc/resident* sources with another minimum of
+resident blocks an SM in the kernel's launch bounds (kEvalMinBlocks),
+other groups in flight a lane (kGroupUnroll) and the rectangle's whole
+groups read cell by cell (kBlkGroups = 0; VARIANTS), each built with nvcc
+into windflow_tpu_torch/_build/variants/, held against the twin at every
 shape and timed cold there, in turns A, B, B, A with the first.
 
 With ``--one-field`` it times ring_append_eval (A) against
@@ -55,29 +55,31 @@ VARIANTS = ((1, 4, 1), (1, 4, 0), (4, 4, 1), (4, 4, 0), (2, 8, 1))
 
 
 def build_variant(rk, blocks, unroll, blk_groups):
-    """Make rk launch a copy of csrc/resident.cu with other constants
-    (built with nvcc on first use); returns the library's path."""
+    """Make rk launch a copy of the csrc/resident* library with other
+    constants in resident.cuh (built with nvcc on first use); returns the
+    library's path."""
     import re
-    import subprocess
+    import shutil
 
     from windflow_tpu_torch.ops import _nvcc
-    src = open(os.path.join(_nvcc.CSRC, "resident.cu")).read()
+    out = os.path.join(_nvcc.BUILD_DIR, "variants",
+                       f"resident_b{blocks}_u{unroll}_g{blk_groups}")
+    os.makedirs(out, exist_ok=True)
+    for name in {u[0] for u in rk.UNITS} | {"resident.cuh"}:
+        shutil.copy(os.path.join(_nvcc.CSRC, name), out)
+    header = os.path.join(out, "resident.cuh")
+    src = open(header).read()
     for name, value in (("kEvalMinBlocks", blocks),
                         ("kGroupUnroll", unroll),
                         ("kBlkGroups", blk_groups)):
         src, n = re.subn(rf"constexpr int {name} = \d+;",
                          f"constexpr int {name} = {value};", src)
         if n != 1:
-            raise RuntimeError(f"{name} not found in resident.cu")
-    out = os.path.join(_nvcc.BUILD_DIR, "variants")
-    os.makedirs(out, exist_ok=True)
-    cu = os.path.join(out, f"resident_b{blocks}_u{unroll}_g{blk_groups}.cu")
-    so = cu[:-3] + ".so"
-    if not os.path.exists(so):
-        with open(cu, "w") as f:
-            f.write(src)
-        subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-o", so, cu],
-                       check=True, capture_output=True)
+            raise RuntimeError(f"{name} not found in resident.cuh")
+    with open(header, "w") as f:
+        f.write(src)
+    so = _nvcc.build_units("resident", rk.UNITS, headers=("resident.cuh",),
+                           csrc=out, out_dir=out)
     rk._lib = None
     rk.build = lambda: so
     return so

@@ -403,8 +403,8 @@ def test_refuses_bad_inputs():
     f = rk.ring_append_multi_eval
     with pytest.raises(ValueError, match="at least one field"):
         f([], [], offs, [], v, v, v, 4)
-    with pytest.raises(TypeError, match="int32 or float32"):
-        f([rings[0].long(), rings[1]], blks, offs, [], v, v, v, 4)
+    with pytest.raises(TypeError, match="the ring must be"):
+        f([rings[0].half(), rings[1]], blks, offs, [], v, v, v, 4)
     with pytest.raises(TypeError, match="blk"):
         f(rings, [blks[0].double(), blks[1]], offs, [], v, v, v, 4)
     with pytest.raises(TypeError, match="one shape"):
@@ -444,12 +444,12 @@ def card_path(monkeypatch, rc=0):
 
     class Lib:
         def wf_ring_append_multi_eval(self, *args):
-            calls.append(dict(nf=args[4], Rb=args[8], n_evals=args[13],
-                              srcs=list(args[10][:args[13]]),
-                              tile_src=list(args[14][:args[16]]),
-                              n_tiles=args[16], mask=args[17],
-                              long_win=args[23], long_first=args[24],
-                              n_long=args[26], chunks=args[27]))
+            calls.append(dict(nf=args[4], Rb=args[8], n_evals=args[14],
+                              srcs=list(args[10][:args[14]]),
+                              tile_src=list(args[15][:args[17]]),
+                              n_tiles=args[17], mask=args[18],
+                              long_win=args[24], long_first=args[25],
+                              n_long=args[27], chunks=args[28]))
             return rc
 
     monkeypatch.setattr(rk, "_on_card", lambda name, *tensors: True)

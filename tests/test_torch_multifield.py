@@ -230,21 +230,32 @@ def test_fn_multi_output_and_header_columns(use_resident):
 
 
 def test_fn_rejects_64bit_ring():
-    """The ring kernels accumulate in 32 bits: a 64-bit field dtype raises
-    ValueError, as the JAX package does without x64."""
+    """A 64-bit field dtype builds an int64 ring and runs the window
+    function over int64 tiles, equal to the JAX package's run under x64
+    byte for byte, values past 2**32 included (the JAX package without
+    x64 still raises ValueError)."""
     import jax
     pspec, jspec = spec(4, 2)
     pf = wt.TorchWindowFunction(lambda k, g, c, m: c["a"].sum(dim=1),
                                 fields=("a",), result_fields={"v": np.int64},
                                 field_dtypes={"a": np.int64})
-    with pytest.raises(ValueError, match="32"):
-        pw.make_core_for(pspec, pf, use_resident=True, device="cpu")
+    jf = jw.JaxWindowFunction(lambda k, g, c, m: c["a"].sum(axis=1),
+                              fields=("a",), result_fields={"v": np.int64},
+                              field_dtypes={"a": np.int64})
     if not jax.config.jax_enable_x64:
-        jf = jw.JaxWindowFunction(lambda k, g, c, m: c["a"].sum(axis=1),
-                                  fields=("a",), result_fields={"v": np.int64},
-                                  field_dtypes={"a": np.int64})
         with pytest.raises(ValueError, match="x64"):
             jw.make_core_for(jspec, jf, use_resident=True)
+    batches = two_field_stream(n_keys=3, per_key=120)
+    for b in batches:
+        b["a"] += 2 ** 34
+    kw = dict(use_resident=True, batch_len=16, flush_rows=48)
+    pcore = pw.make_core_for(pspec, pf, device="cpu", **kw)
+    assert pcore.executor.acc_dtypes["a"] == np.int64
+    got = run_core(pcore, batches)
+    with jax.enable_x64(True):
+        want = run_core(jw.make_core_for(jspec, jf, **kw), batches)
+    assert_identical(got, want)
+    assert int(got["v"].min()) > 2 ** 35
 
 
 def test_float_column_into_int_ring_rejected():

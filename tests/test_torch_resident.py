@@ -221,18 +221,30 @@ def test_resident_float_sum_opt_in_within_tolerance():
 
 
 def test_resident_64bit_compute_dtype():
-    """The ring kernels accumulate in 32 bits: a 64-bit compute_dtype
-    raises ValueError, as the JAX package does without x64."""
+    """A 64-bit compute_dtype runs on an int64 ring and gives the JAX
+    package's results under x64, byte for byte, sums past 2**32 included
+    (the JAX package without x64 still raises ValueError; a ring dtype the
+    kernels lack, float16, raises in the port)."""
     import jax
-    with pytest.raises(ValueError, match="32"):
-        pw.ResidentWinSeqCore(port_spec(4, 2, "CB"), wt.Reducer("sum"),
-                              compute_dtype=np.int64, device="cpu")
     if not jax.config.jax_enable_x64:
         with pytest.raises(ValueError, match="x64"):
             jw.ResidentWinSeqCore(jax_spec(4, 2, "CB"), JReducer("sum"),
                                   compute_dtype=np.int64)
-    with pytest.raises(ValueError, match="int32 or float32"):
-        ResidentWindowExecutor("sum", device="cpu", acc_dtype=np.int64)
+    batches = cb_stream(3, 200, seed=5, lo_val=2 ** 33 - 50,
+                        hi_val=2 ** 33 + 50)
+    pcore = pw.ResidentWinSeqCore(port_spec(8, 4, "CB"), wt.Reducer("sum"),
+                                  compute_dtype=np.int64, device="cpu",
+                                  batch_len=32, flush_rows=100)
+    assert pcore.executor.acc_dtype == np.int64
+    got = run_core(pcore, batches)
+    with jax.enable_x64(True):
+        want = run_core(jw.ResidentWinSeqCore(
+            jax_spec(8, 4, "CB"), JReducer("sum"), compute_dtype=np.int64,
+            batch_len=32, flush_rows=100), batches)
+    assert_identical(got, want)
+    assert int(got["value"].max()) > 2 ** 35
+    with pytest.raises(ValueError, match="float16"):
+        ResidentWindowExecutor("sum", device="cpu", acc_dtype=np.float16)
 
 
 def test_resident_count_skips_device_entirely():

@@ -3,7 +3,7 @@
 The port runs the window patterns' device paths on an NVIDIA GPU: the
 resident path (rows copied once into per-key rings on the card, one ring
 per field, the C++ bookkeeping of native/wf_native.cpp, the ring kernels
-of ops/csrc/resident.cu) and the restaging path (fired window batches
+of ops/csrc/resident.cuh) and the restaging path (fired window batches
 evaluated by ops/csrc/windowed_reduce.cu), for builtin reducers and for
 user window functions (``TorchWindowFunction``, fed masked tiles by
 ops/csrc/gather.cu), in a sequential pattern (``WinSeqGPU``), a farm

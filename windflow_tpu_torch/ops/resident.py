@@ -9,8 +9,9 @@ reads device memory:
   whose row ``r`` holds the live tuples of dense key ``r`` in arrival order
   (the device twin of ``core/archive.py``'s ``KeyArchive``);
 * each launch appends the new rows as ONE rectangle in the narrowest wire
-  dtype that holds them (int8/int16/int32/float32), widened to the
-  accumulate dtype on the card;
+  dtype that holds them (int8/int16/int32, int64 into an 8-byte ring;
+  floats in the ring's precision), widened to the accumulate dtype on the
+  card;
 * the fired windows are then evaluated over the ring in the same launch
   as the append: regular windows by the ``ring_append_regular_sum``
   kernel (one launch a flush, as the JAX step ``_regular_body`` is one
@@ -64,8 +65,8 @@ import torch
 
 from ..utils import profile
 from .device import _bucket
-from .ring import (long_windows, ring_append_eval, ring_append_multi_eval,
-                   ring_append_regular_sum)
+from .ring import (long_windows, out_dtype, ring_append_eval,
+                   ring_append_multi_eval, ring_append_regular_sum)
 
 # -- wire diagnostics (always on: one lock round-trip per dispatch) ---------
 # Every resident dispatch feeds these process-wide counters: dispatch count,
@@ -139,9 +140,43 @@ def wire_service_floor_ms():
     return _WEATHER["floor_ms"]
 
 
-#: ring accumulate dtypes the kernels take
-_TORCH_ACC = {np.dtype(np.int32): torch.int32,
-              np.dtype(np.float32): torch.float32}
+#: ring accumulate dtypes the kernels take (ring.RING_DTYPES)
+_TORCH_ACC = {np.dtype(d): t for d, t in (
+    (np.int8, torch.int8), (np.int16, torch.int16), (np.int32, torch.int32),
+    (np.int64, torch.int64), (np.float32, torch.float32),
+    (np.float64, torch.float64))}
+_NP_OF = {t: d for d, t in _TORCH_ACC.items()}
+
+
+def _torch_acc(dt: np.dtype, what: str) -> torch.dtype:
+    """The torch dtype of ring dtype `dt`; raises ValueError on one the
+    kernels do not take (float16 and bfloat16 rings are not ported)."""
+    if dt not in _TORCH_ACC:
+        raise ValueError(f"{what}: the ring kernels accumulate in "
+                         f"{', '.join(str(d) for d in _TORCH_ACC)}, got "
+                         f"{dt}")
+    return _TORCH_ACC[dt]
+
+
+def _narrow(vals: np.ndarray, acc: np.dtype) -> np.dtype:
+    """The JAX executors' ladder: the narrowest wire dtype holding `vals`
+    exactly into a ring of `acc`: ints narrow to int8/int16/int32 (and
+    int64 into an 8-byte ring), floats ship in the ring's precision
+    (float64 into an 8-byte ring, else float32)."""
+    wide = acc.itemsize >= 8
+    if vals.dtype.kind == "f":
+        return np.dtype(np.float64 if wide else np.float32)
+    if not len(vals):
+        return np.dtype(np.int8)
+    lo, hi = int(vals.min()), int(vals.max())
+    ladder = ((np.int8, np.int16, np.int32, np.int64) if wide
+              else (np.int8, np.int16, np.int32))
+    for dt in ladder:
+        info = np.iinfo(dt)
+        if info.min <= lo and hi <= info.max:
+            return np.dtype(dt)
+    return np.dtype(ladder[-1])  # wraps; the core warned at construction
+    # when the result dtype exceeds the accumulate dtype
 
 
 class RingSnapshot:
@@ -287,8 +322,9 @@ class ResidentWindowExecutor:
     harvest.  ``op`` is one of sum/min/max/prod, or a tuple of them
     evaluated over the same ring in one dispatch ("count" needs no device
     work — the host core answers it from window lengths).  The ring
-    accumulates in int32 or float32 (``acc_dtype``): the kernels have no
-    64-bit form.  A CUDA ``device`` launches the hand-written kernels; a
+    accumulates in ``acc_dtype``: int8, int16, int32, int64, float32 or
+    float64 (a 64-bit ring follows the JAX package under x64; the port has
+    no x64 switch).  A CUDA ``device`` launches the hand-written kernels; a
     CPU device runs their plain versions, synchronously.
     """
 
@@ -303,10 +339,7 @@ class ResidentWindowExecutor:
             raise ValueError("need at least one resident op")
         self.op = self.ops[0]
         self.acc_dtype = np.dtype(acc_dtype)
-        if self.acc_dtype not in _TORCH_ACC:
-            raise ValueError(f"the ring kernels accumulate in int32 or "
-                             f"float32, got {self.acc_dtype}")
-        self._acc = _TORCH_ACC[self.acc_dtype]
+        self._acc = _torch_acc(self.acc_dtype, "acc_dtype")
         self.device = _resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -418,19 +451,12 @@ class ResidentWindowExecutor:
     # ------------------------------------------------------------- dispatch
 
     def narrow(self, vals: np.ndarray) -> np.dtype:
-        """Narrowest wire dtype holding `vals` exactly: ints narrow to
-        int8/int16/int32, floats ship as float32."""
-        if vals.dtype.kind == "f":
-            return np.dtype(np.float32)
-        if not len(vals):
-            return np.dtype(np.int8)
-        lo, hi = int(vals.min()), int(vals.max())
-        for dt in (np.int8, np.int16, np.int32):
-            info = np.iinfo(dt)
-            if info.min <= lo and hi <= info.max:
-                return np.dtype(dt)
-        return np.dtype(np.int32)  # wraps; the core warned at
-        # construction when the result dtype exceeds the accumulate dtype
+        """Narrowest wire dtype holding `vals` exactly, capped by the
+        accumulate dtype: ints narrow to int8/int16/int32 (int64 into an
+        8-byte ring), floats ship in the ring's precision (float64 into an
+        8-byte ring, else float32).  A wire wider than the ring wraps on
+        the append, as the JAX package's astype does."""
+        return _narrow(vals, self.acc_dtype)
 
     def _to_device(self, host: np.ndarray):
         """(device tensor, pinned staging tensor or None) for one array;
@@ -608,8 +634,8 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
     ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod);
     ``fn``: an optional ``TorchWindowFunction`` whose ``fn(keys, gwids,
     cols, mask)`` runs over ``(B, pad)`` tiles of its fields;
-    ``acc_dtypes`` maps every field to its ring dtype, int32 or float32
-    (the ring kernels have no other).  A dispatch stages every field's
+    ``acc_dtypes`` maps every field to its ring dtype (int8, int16, int32,
+    int64, float32 or float64).  A dispatch stages every field's
     rectangle and its launch vector in one copy and makes one
     ``ring_append_multi_eval`` launch (a further one for every 8 fields
     past the first 8 and every 8 stats past a group's first 8): every
@@ -638,10 +664,7 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
             raise ValueError("nothing to evaluate")
         self.acc_dtypes = {f: np.dtype(acc_dtypes[f]) for f in self.fields}
         for f, dt in self.acc_dtypes.items():
-            if dt not in _TORCH_ACC:
-                raise ValueError(
-                    f"ring dtype {dt} for field {f!r}: the ring kernels "
-                    "accumulate in int32 or float32 only (no 64-bit ring)")
+            _torch_acc(dt, f"ring dtype of field {f!r}")
         self.device = _resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -692,8 +715,8 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
                 f"(TorchWindowFunction(field_dtypes={{{field!r}: "
                 "np.float32}}))")
         if acc.kind == "f":
-            return np.dtype(np.float32)
-        return self.narrow(vals)
+            return np.dtype(np.float64 if acc.itemsize >= 8 else np.float32)
+        return _narrow(vals, acc)
 
     def launch(self, meta, blks: dict, offs: np.ndarray,
                wrows: np.ndarray, wstarts: np.ndarray, wlens: np.ndarray,
@@ -996,7 +1019,7 @@ class MeshResidentExecutor(_MeshShards, ResidentWindowExecutor):
         self._init_mesh(mesh, axis)
 
     def _out_dtypes(self):
-        return [self.acc_dtype] * len(self.ops)
+        return [_NP_OF[out_dtype(op, self._acc)] for op in self.ops]
 
     def launch(self, meta, blk: np.ndarray, offs: np.ndarray,
                wrows: np.ndarray, wstarts: np.ndarray, wlens: np.ndarray):
@@ -1113,7 +1136,8 @@ class MeshMultiFieldResidentExecutor(_MeshShards, MultiFieldResidentExecutor):
         self._init_mesh(mesh, axis)
 
     def _out_dtypes(self):
-        dts = [self.acc_dtypes[f] for _op, f in self.stats]
+        dts = [_NP_OF[out_dtype(op, _TORCH_ACC[self.acc_dtypes[f]])]
+               for op, f in self.stats]
         if self.fn is not None:
             dts += [np.dtype(d) for d in self.fn.result_fields.values()]
         return dts

@@ -1,22 +1,22 @@
 """Kernels of the device-resident ring archive: the hand-written CUDA
-kernels of csrc/resident.cu, their plain PyTorch versions, and the loader
-that builds them on first use.
+kernels of csrc/resident.cuh (their entry points in csrc/resident.cu),
+their plain PyTorch versions, and the loader that builds them on first
+use.
 
 These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
 
 * :func:`ring_append` — the vmapped ``dynamic_update_slice`` + ``astype``
   of ``_ring_append``: row ``r`` of a (KP, Rb) rectangle, widened from its
-  wire dtype (int8/int16/int32/float32) to the ring's accumulate dtype
-  (int32/float32), is written at column ``offs[r]`` of a (KP, cap) ring.
-  The ring is updated in place.  On the card it is the kernel below with
-  no window.
+  wire dtype to the ring's accumulate dtype, is written at column
+  ``offs[r]`` of a (KP, cap) ring.  The ring is updated in place.  On the
+  card it is the kernel below with no window.
 * :func:`ring_append_regular_sum` — the whole of ``_regular_body`` in one
   launch: the same append, then the (KP, C) regular window sums of the
   ring after it, window ``i`` of row ``r`` covering ``ring[r, s:e]`` with
   ``s = clip(rstart0[r] + i*slide, 0, cap)`` and
-  ``e = clip(s + rlen[r], 0, cap)``.  int32 sums wrap modulo 2**32, as
-  XLA's int32 cumsum difference does.  With an empty ``(KP, 0)``
-  rectangle it computes those window sums alone.
+  ``e = clip(s + rlen[r], 0, cap)``.  Integer sums wrap modulo 2**bits
+  of the ring dtype, as XLA's cumsum difference does.  With an empty
+  ``(KP, 0)`` rectangle it computes those window sums alone.
 
 * :func:`ring_append_eval` — the whole of ``_append_eval`` in one launch:
   the same append, then every op of the dispatch (sum, count, min, max,
@@ -41,6 +41,17 @@ These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
 
 :func:`ring_eval_reference` is a plain transcription of ``_ring_eval``.
 
+Dtypes: a ring holds int8, int16, int32, int64, float32 or float64 cells
+(:data:`RING_DTYPES`) and takes the wires the JAX package's narrowing
+ladder gives it (:func:`wires_of`): int8/int16/int32/float32 into a ring
+of 1-4 byte cells, int8/int16/int32/int64/float64 into an 8-byte one.  A
+wire wider than the ring wraps, a float wire into an integer ring
+truncates toward zero, saturating, NaN to 0 (XLA's conversions).  An op's
+result is in the ring dtype except a product over int8 or int16 cells,
+which is int32 (:func:`out_dtype`; ``jnp.prod`` promotes them to the
+default int, int32 without x64).  Any other ring dtype or pair raises,
+on the card and off it.
+
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``); a CPU tensor runs the plain version.
 There is no fallback from one to the other.
@@ -58,15 +69,22 @@ import torch
 from . import _nvcc
 from .gather import FIELDS_PER_LAUNCH, window_gather_reference
 from .monoid import identity
-from .windowed_reduce import (GROUP, _OPS, _check_op, _ident_bits,
-                              chunked_fold, windowed_reduce_many_reference)
+from .windowed_reduce import (GROUP, _OPS, _check_op, chunked_fold,
+                              out_dtype, windowed_reduce_many_reference)
 
-#: wire dtypes of the rectangle (enum Wire in the .cu source)
-_WIRES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
+#: wire dtypes of the rectangle (enum Wire in csrc/resident.cuh)
+_WIRES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3,
+          torch.int64: 4, torch.float64: 5}
 #: accumulate dtypes of the ring (enum Acc)
-_ACCS = {torch.int32: 0, torch.float32: 1}
+_ACCS = {torch.int32: 0, torch.float32: 1, torch.int8: 2, torch.int16: 3,
+         torch.int64: 4, torch.float64: 5}
+#: the ring dtypes the kernels take
+RING_DTYPES = tuple(_ACCS)
+_NARROW_WIRES = (torch.int8, torch.int16, torch.int32, torch.float32)
+_WIDE_WIRES = (torch.int8, torch.int16, torch.int32, torch.int64,
+               torch.float64)
 
-# the kernels' geometry (constants of csrc/resident.cu; the tests' CPU twin
+# the kernels' geometry (constants of csrc/resident.cuh; the tests' CPU twin
 # of their index arithmetic reads them here)
 #: cells a thread appends (a warp: 32 * CHUNK)
 CHUNK = 16
@@ -85,10 +103,67 @@ _lock = threading.Lock()
 _lib = None
 
 
+#: the library's translation units, built in parallel (one unit of all 26
+#: wire/ring pairs would build them in turn): the entry points and the
+#: per-field kernel of int32 and float32 rings; the per-field kernel of any
+#: ring dtype; the single-ring kernels and that kernel's evaluations once
+#: for each ring dtype, the evaluations in its register budget
+UNITS = (("resident.cu", ()), ("resident_multi.cu", ()),
+         *(("resident_ring.cu", (f"-DWF_RING_ACC={code}",))
+           for code in sorted(_ACCS.values())),
+         *(("resident_field.cu", (f"-DWF_RING_ACC={code}",
+                                  "-maxrregcount=64"))
+           for code in sorted(_ACCS.values())))
+
+
 def build() -> str:
-    """Compile csrc/resident.cu if this source has not been built yet;
-    returns the path of the shared library (ops/_nvcc.py)."""
-    return _nvcc.build("resident.cu")
+    """Compile the csrc/resident*.cu units if these sources have not been
+    built yet; returns the path of the shared library (ops/_nvcc.py)."""
+    return _nvcc.build_units("resident", UNITS, headers=("resident.cuh",))
+
+
+def wires_of(ring_dtype: torch.dtype) -> tuple:
+    """The wire dtypes a ring of `ring_dtype` takes: the JAX package's
+    narrowing ladder (``ResidentWindowExecutor.narrow``) with floats in
+    the ring's precision."""
+    return _WIDE_WIRES if ring_dtype.itemsize == 8 else _NARROW_WIRES
+
+
+def _work_np(op: str, ring_dtype: torch.dtype):
+    """numpy dtype of the kernels' working type for `op` (its identity's
+    bits, a long window's partials): integer sums and products in uint32
+    or uint64, min and max in int32 or int64, floats in the ring's."""
+    wide = ring_dtype.itemsize == 8
+    if ring_dtype.is_floating_point:
+        return np.float64 if wide else np.float32
+    if op in ("min", "max"):
+        return np.int64 if wide else np.int32
+    return np.uint64 if wide else np.uint32
+
+
+def _ident_word(op: str, ring_dtype: torch.dtype) -> int:
+    """The identity of `op` over a ring of `ring_dtype` as the bits of the
+    working type (kernel argument, zero-extended to 64 bits)."""
+    work = np.dtype(_work_np(op, ring_dtype))
+    value = np.array(identity(op, ring_dtype)).astype(work)
+    bits = np.uint64 if work.itemsize == 8 else np.uint32
+    return int(value.view(bits))
+
+
+def _widen(blk: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`blk` in the ring's dtype as XLA's ``astype`` gives it: integers
+    wrap, floats into an integer dtype truncate toward zero, saturating,
+    NaN to 0 (a plain ``to`` leaves those out of range undefined)."""
+    if not blk.is_floating_point() or dtype.is_floating_point:
+        return blk.to(dtype)
+    info = torch.iinfo(dtype)
+    x = torch.nan_to_num(blk.double(), nan=0.0, posinf=np.inf,
+                         neginf=-np.inf)
+    high, low = x >= 2.0 ** (info.bits - 1), x < -2.0 ** (info.bits - 1)
+    out = torch.where(high | low, 0.0, x).to(dtype)
+    out[high] = info.max
+    out[low] = info.min
+    return out
 
 
 def _load():
@@ -106,11 +181,11 @@ def _load():
             lib.wf_ring_append_regular_sum.restype = c_int
             lib.wf_ring_append_eval.argtypes = (
                 [c_p, c_p, c_p, c_int, c_ll, c_int, c_int, c_int, c_p, c_p,
-                 c_p, c_int, c_p, c_p, c_p, c_int, c_int, c_p, c_p, c_p]
-                + [c_int] * 4 + [c_p])
+                 c_p, c_p, c_int, c_p, c_p, c_p, c_int, c_int, c_p, c_p,
+                 c_p] + [c_int] * 4 + [c_p])
             lib.wf_ring_append_eval.restype = c_int
             lib.wf_ring_append_multi_eval.argtypes = (
-                [c_p] * 4 + [c_int, c_p, c_int, c_ll, c_int] + [c_p] * 4
+                [c_p] * 4 + [c_int, c_p, c_int, c_ll, c_int] + [c_p] * 5
                 + [c_int, c_p, c_p, c_int] + [c_p] * 4 + [c_int, c_int]
                 + [c_p] * 3 + [c_int] * 4 + [c_p])
             lib.wf_ring_append_multi_eval.restype = c_int
@@ -120,8 +195,9 @@ def _load():
 
 def _check_ring(ring: torch.Tensor):
     if ring.dtype not in _ACCS or ring.dim() != 2:
-        raise TypeError(f"the ring must be a 2-D int32 or float32 tensor, "
-                        f"got {ring.dtype} {tuple(ring.shape)}")
+        raise TypeError(f"the ring must be a 2-D tensor of one of "
+                        f"{[str(d) for d in RING_DTYPES]}, got {ring.dtype} "
+                        f"{tuple(ring.shape)}")
 
 
 def _check_vec(name, t, rows, device):
@@ -135,9 +211,11 @@ def _check_vec(name, t, rows, device):
 def _check_append(ring, blk, offs):
     _check_ring(ring)
     KP = ring.shape[0]
-    if blk.dtype not in _WIRES or blk.dim() != 2 or blk.shape[0] != KP:
-        raise TypeError(f"blk must be a ({KP}, Rb) int8/int16/int32/float32 "
-                        f"tensor, got {blk.dtype} {tuple(blk.shape)}")
+    wires = wires_of(ring.dtype)
+    if blk.dtype not in wires or blk.dim() != 2 or blk.shape[0] != KP:
+        raise TypeError(f"blk must be a ({KP}, Rb) tensor of one of "
+                        f"{[str(d) for d in wires]} (a {ring.dtype} ring's "
+                        f"wires), got {blk.dtype} {tuple(blk.shape)}")
     _check_vec("offs", offs, KP, ring.device)
     if blk.device != ring.device:
         raise TypeError(f"blk lies on {blk.device}, the ring on "
@@ -176,7 +254,7 @@ def ring_append_reference(ring: torch.Tensor, blk: torch.Tensor,
     (``scatter_`` checks its indices; the JAX body would clamp)."""
     Rb = blk.shape[1]
     idx = offs.long()[:, None] + torch.arange(Rb, device=ring.device)[None, :]
-    ring.scatter_(1, idx, blk.to(ring.dtype))
+    ring.scatter_(1, idx, _widen(blk, ring.dtype))
     return ring
 
 
@@ -215,11 +293,11 @@ def regular_window_sum_reference(ring: torch.Tensor, rstart0: torch.Tensor,
                                  rlen: torch.Tensor, C: int,
                                  slide: int) -> torch.Tensor:
     """Plain version: an exclusive prefix sum of every ring row, in int64
-    (int32 rings) or float64 (float32 rings), and a two-point difference at
-    the clipped window bounds, cast back to the ring's dtype — the low 32
-    bits of the int64 difference are the wrapped int32 sum."""
+    (integer rings) or float64 (float rings), and a two-point difference
+    at the clipped window bounds, cast back to the ring's dtype — the low
+    bits of the int64 difference are the wrapped integer sum."""
     KP, cap = ring.shape
-    wide = torch.int64 if ring.dtype == torch.int32 else torch.float64
+    wide = torch.float64 if ring.is_floating_point() else torch.int64
     cs = torch.zeros((KP, cap + 1), dtype=wide, device=ring.device)
     torch.cumsum(ring, dim=1, dtype=wide, out=cs[:, 1:])
     i = torch.arange(C, dtype=torch.int64, device=ring.device)
@@ -290,11 +368,12 @@ def ring_eval_reference(op: str, ring: torch.Tensor, rows: torch.Tensor,
     gather for sum (in int64/float64, cast back), a masked (B, pad) gather
     with the column clamped to ``cap - 1`` and the monoid identity in the
     masked lanes for min/max/prod.  Windows lie in their row
-    (``starts + lens <= cap``)."""
+    (``starts + lens <= cap``).  A product over int8 or int16 cells is
+    int32 (:func:`out_dtype`)."""
     KP, cap = ring.shape
     rows, starts, lens = rows.long(), starts.long(), lens.long()
     if op == "sum":
-        wide = torch.int64 if ring.dtype == torch.int32 else torch.float64
+        wide = torch.float64 if ring.is_floating_point() else torch.int64
         cs = torch.zeros((KP, cap + 1), dtype=wide, device=ring.device)
         torch.cumsum(ring, dim=1, dtype=wide, out=cs[:, 1:])
         return (cs[rows, starts + lens] - cs[rows, starts]).to(ring.dtype)
@@ -305,8 +384,8 @@ def ring_eval_reference(op: str, ring: torch.Tensor, rows: torch.Tensor,
                          device=ring.device)
     vals = torch.where(lane[None, :] < lens[:, None], vals, ident)
     if op == "prod":
-        if ring.dtype == torch.int32:
-            return vals.long().prod(dim=1).to(torch.int32)
+        if not ring.is_floating_point():
+            return vals.long().prod(dim=1).to(out_dtype(op, ring.dtype))
         return vals.prod(dim=1)
     return vals.amin(dim=1) if op == "min" else vals.amax(dim=1)
 
@@ -319,7 +398,7 @@ class LongWindows:
     `split` cells, in the layout the kernel reads: ``vec`` (int32) holds
     the ``n`` long windows' indices, ascending, then each one's first
     chunk and, last, the number of chunks (``n + 1`` entries).  A window's
-    chunks hold `chunk` cells each from its first 16-byte group of the
+    chunks hold `chunk` cells each from its first 4-cell group of the
     ring.  ``dev`` is the same vector where the caller has put it on the
     ring's device (None: the wrapper copies ``vec`` there)."""
 
@@ -404,6 +483,27 @@ def _long_plan(long: LongWindows, device, stream: int, counters):
     return at, at + 4 * long.n, counters, plan
 
 
+def _eval_buffers(specs, B: int, chunks: int, device):
+    """Outputs and partials of a launch's evaluations, in one byte buffer
+    (each segment 16-byte aligned): for every ``(op, ring dtype)`` of
+    `specs` a (B,) output in :func:`out_dtype` and room for `chunks`
+    partials in the working type.  Returns (outputs, partials' byte
+    views)."""
+    sizes = []
+    for op, dt in specs:
+        wide = 8 if dt.itemsize == 8 else 4
+        sizes.append((B * out_dtype(op, dt).itemsize, chunks * wide))
+    total = sum(-(-a // 16) * 16 + -(-b // 16) * 16 for a, b in sizes)
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=device)
+    outs, parts, at = [], [], 0
+    for (op, dt), (a, b) in zip(specs, sizes):
+        outs.append(buf[at:at + a].view(out_dtype(op, dt)))
+        at += -(-a // 16) * 16
+        parts.append(buf[at:at + b])
+        at += -(-b // 16) * 16
+    return outs, parts
+
+
 def ring_append_eval_reference(ring: torch.Tensor, blk: torch.Tensor,
                                offs: torch.Tensor, evals, rows: torch.Tensor,
                                starts: torch.Tensor, lens: torch.Tensor,
@@ -421,7 +521,7 @@ def append_eval_order_twin(ring: torch.Tensor, blk: torch.Tensor,
                            pad: int, split: int = LONG_SPLIT,
                            chunk: int = LONG_CHUNK) -> list:
     """Plain torch that reproduces the kernel's combine order
-    (csrc/resident.cu, "Order"), so that the kernel can be held to it bit
+    (csrc/resident.cuh, "Order"), so that the kernel can be held to it bit
     for bit; no path of the port calls it.  The plain append, then for
     each op: with n = min(lens, pad) cells from s = max(starts, 0) and a =
     (rows * cap + s) mod 4, cell j lies in group (a + j) // 4; a window of
@@ -445,7 +545,9 @@ def _ordered(ring, op, rows, starts, lens, pad, split, chunk):
     r = rows.long()
     s = starts.long().clamp(min=0)
     n = lens.long().clamp(0, int(pad))
-    is_int = ring.dtype == torch.int32
+    # integers in int64: reduced modulo 2**32 after every step for cells
+    # of 1-4 bytes (the kernels' uint32), int64's own wrap for 8
+    is_int = not ring.is_floating_point()
     work = torch.int64 if is_int else ring.dtype
 
     def cells(win, j):
@@ -454,9 +556,9 @@ def _ordered(ring, op, rows, starts, lens, pad, split, chunk):
 
     ident = torch.tensor(identity(op, ring.dtype).item(), dtype=work,
                          device=ring.device)
-    acc, _ = chunked_fold(op, is_int, ident, (r * cap + s) % GROUP, n,
-                          split, chunk, cells)
-    return acc.to(ring.dtype)
+    acc, _ = chunked_fold(op, is_int and ring.dtype.itemsize < 8, ident,
+                          (r * cap + s) % GROUP, n, split, chunk, cells)
+    return acc.to(out_dtype(op, ring.dtype))
 
 
 def _check_eval(ring, evals, rows, starts, lens, pad):
@@ -484,7 +586,7 @@ def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
     (sum, count, min, max, prod; at most :data:`EVALS_PER_LAUNCH`) over the
     B windows ``(rows[w], starts[w], min(lens[w], pad))`` of the ring after
     it, a column past the row's end reading its last cell; returns one (B,)
-    tensor an op in the ring's dtype (count: ``lens``), and `ring` is
+    tensor an op in :func:`out_dtype` (count: ``lens``), and `ring` is
     updated in place.  One kernel launch on a CUDA ring (none when there
     is no cell to write and no window); the plain version on a CPU one.
 
@@ -508,9 +610,8 @@ def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
     elif long is None:
         long = long_windows(rows.cpu().numpy(), starts.cpu().numpy(),
                             lens.cpu().numpy(), pad, cap)
-    buf = torch.empty((n, B + long.chunks), dtype=ring.dtype,
-                      device=ring.device)
-    outs = [buf[e, :B] for e in range(n)]
+    outs, parts = _eval_buffers([(op, ring.dtype) for op in evals], B,
+                                long.chunks, ring.device)
     if KP * Rb == 0 and (B == 0 or n == 0):
         return outs
     lib = _load()
@@ -519,14 +620,16 @@ def ring_append_eval(ring: torch.Tensor, blk: torch.Tensor,
         win_at, first_at, counters, _plan = _long_plan(
             long, ring.device, stream, counters)
         ops = (ctypes.c_int * max(n, 1))(*(_OPS[op] for op in evals))
-        ids = (ctypes.c_uint * max(n, 1))(*(
-            _ident_bits("sum" if op == "count" else op, ring.dtype)
+        ids = (ctypes.c_ulonglong * max(n, 1))(*(
+            _ident_word("sum" if op == "count" else op, ring.dtype)
             for op in evals))
         ptrs = (ctypes.c_void_p * max(n, 1))(*(o.data_ptr() for o in outs))
+        pparts = (ctypes.c_void_p * max(n, 1))(*(t.data_ptr()
+                                                 for t in parts))
         rc = lib.wf_ring_append_eval(
             ring.data_ptr(), blk.data_ptr() if Rb else None,
             offs.data_ptr() if KP else None, KP, cap, Rb, _WIRES[blk.dtype],
-            _ACCS[ring.dtype], ops, ids, ptrs, n,
+            _ACCS[ring.dtype], ops, ids, ptrs, pparts, n,
             rows.data_ptr() if B else None, starts.data_ptr() if B else None,
             lens.data_ptr() if B else None, B, int(pad), win_at, first_at,
             counters.data_ptr() if counters is not None else None, long.n,
@@ -618,8 +721,9 @@ def ring_append_multi_eval(rings, blks, offs: torch.Tensor, evals,
                            counters: torch.Tensor | None = None):
     """The per-field resident step: :func:`ring_append` of ``blks[f]``
     into ``rings[f]`` for every field (the rings share one ``(KP, cap)``
-    shape, each int32 or float32, and the
-    rectangles one ``(KP, Rb)`` shape, each in its own wire dtype) at the
+    shape, each of its own ring dtype, and the
+    rectangles one ``(KP, Rb)`` shape, each in a wire dtype of its ring) at
+    the
     shared `offs`; then every ``(field, op)`` of `evals` over the B windows
     ``(rows[w], starts[w], min(lens[w], pad))`` of the field's ring after
     it, as :func:`ring_append_eval` evaluates; and for each field of
@@ -627,8 +731,9 @@ def ring_append_multi_eval(rings, blks, offs: torch.Tensor, evals,
     ``ring[rows[w], clip(starts[w] + j, 0, cap - 1)]`` where ``j <
     lens[w]``, else 0, with the ``(B, pad)`` bool mask ``j < lens[w]``.
 
-    Returns ``(outs, tiles, mask)``: one (B,) tensor a stat in its ring's
-    dtype, one tile a tile field in its ring's dtype, the mask (None
+    Returns ``(outs, tiles, mask)``: one (B,) tensor a stat in
+    :func:`out_dtype` of its op and ring, one tile a tile field in its
+    ring's dtype, the mask (None
     without a tile field); the rings are updated in place.  On CUDA rings
     one kernel launch for every :data:`FIELDS_PER_LAUNCH` fields, which
     appends them and evaluates their first :data:`EVALS_PER_LAUNCH` stats
@@ -656,11 +761,8 @@ def ring_append_multi_eval(rings, blks, offs: torch.Tensor, evals,
     elif long is None:
         long = long_windows(rows.cpu().numpy(), starts.cpu().numpy(),
                             lens.cpu().numpy(), pad, cap)
-    # the stats' outputs as rows of one 32-bit buffer, each viewed in its
-    # field's dtype
-    buf = torch.empty((n, B + long.chunks), dtype=torch.int32, device=device)
-    outs = [buf[e, :B].view(rings[f].dtype) for e, (f, _op) in
-            enumerate(evals)]
+    outs, parts = _eval_buffers([(op, rings[f].dtype) for f, op in evals],
+                                B, long.chunks, device)
     tiles = tuple(torch.empty((B, pad), dtype=rings[f].dtype, device=device)
                   for f in tile_fields)
     mask = (torch.empty((B, pad), dtype=torch.bool, device=device)
@@ -709,17 +811,19 @@ def ring_append_multi_eval(rings, blks, offs: torch.Tensor, evals,
                                                      for e in group))
                 e_src = (ctypes.c_int * max(m, 1))(*(evals[e][0] - g0
                                                      for e in group))
-                e_ids = (ctypes.c_uint * max(m, 1))(*(
-                    _ident_bits("sum" if evals[e][1] == "count"
+                e_ids = (ctypes.c_ulonglong * max(m, 1))(*(
+                    _ident_word("sum" if evals[e][1] == "count"
                                 else evals[e][1], rings[evals[e][0]].dtype)
                     for e in group))
                 e_out = (ctypes.c_void_p * max(m, 1))(*(outs[e].data_ptr()
                                                         for e in group))
+                e_part = (ctypes.c_void_p * max(m, 1))(*(
+                    parts[e].data_ptr() for e in group))
                 rb = Rb if first else 0
                 rc = lib.wf_ring_append_multi_eval(
                     ring_ps, blk_ps, wires, accs, nf,
                     offs.data_ptr() if KP and rb else None, KP, cap, rb,
-                    e_ops, e_src, e_ids, e_out, m, tsrc, tptr, nt,
+                    e_ops, e_src, e_ids, e_out, e_part, m, tsrc, tptr, nt,
                     mask.data_ptr() if nt else None, *desc, *tail)
                 if rc != 0:
                     raise RuntimeError(f"ring_append_multi_eval kernel "

@@ -100,6 +100,16 @@ def _as_rows(buf: torch.Tensor) -> torch.Tensor:
     return buf.reshape(1, -1) if buf.dim() == 1 else buf
 
 
+def out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+    """Dtype of `op`'s result over values of `dtype` (what ``_ring_eval``
+    returns without x64 for cells of 1-4 bytes, with x64 for 8): the
+    values', except int32 for a product of int8 or int16 values
+    (``jnp.prod`` promotes them to the default int)."""
+    if op == "prod" and dtype in (torch.int8, torch.int16):
+        return torch.int32
+    return dtype
+
+
 def _reference_one(buf, rows, starts, lens, pad, op):
     if op == "count":
         return lens.to(buf.dtype)
@@ -115,12 +125,12 @@ def _reference_one(buf, rows, starts, lens, pad, op):
     idx = (starts.long()[:, None] + lane[None, :]).clamp(0, ncols - 1)
     vals = buf[rows.long()[:, None], idx] if rows is not None else buf[0][idx]
     vals = torch.where(mask, vals, ident)
-    if op in ("sum", "prod") and buf.dtype == torch.int32:
-        # accumulate in int64 and truncate: the low 32 bits are the wrapped
-        # int32 result (torch.sum of int32 would otherwise widen)
+    if op in ("sum", "prod") and not buf.is_floating_point():
+        # accumulate in int64 and truncate: the low bits are the wrapped
+        # result (torch.sum of int32 would otherwise widen)
         wide = vals.long()
         red = wide.sum(dim=1) if op == "sum" else wide.prod(dim=1)
-        return red.to(torch.int32)
+        return red.to(out_dtype(op, buf.dtype))
     if op == "sum":
         return vals.sum(dim=1)
     if op == "prod":
@@ -133,7 +143,8 @@ def windowed_reduce_many_reference(evals, rows, starts, lens,
     """Plain PyTorch version of the kernel: per evaluation a gather
     ``buf[rows, clamp(starts + lane, 0, ncols - 1)]`` into a (B, pad) tile,
     the lanes past each length set to the identity, a reduction over axis
-    1.  int32 sums and products wrap modulo 2**32 like the kernel's."""
+    1.  Integer sums and products wrap like the kernels' (int32 modulo
+    2**32; the ring kernels' other dtypes as :func:`out_dtype` says)."""
     out = []
     for buf, op in evals:
         _check_op(op)
@@ -207,10 +218,10 @@ def team_fold(op, is_int, ident, gb, ge, a, n, cells):
 
 def chunked_fold(op, is_int, ident, a, n, split, chunk, cells):
     """The order of the kernels that cut long windows into chunks
-    (csrc/mesh_reduce.cu sp_window_partial, csrc/resident.cu
+    (csrc/mesh_reduce.cu sp_window_partial, csrc/resident.cuh
     ring_append_eval), shared by their CPU twins.
 
-    For B windows of n cells whose cell j lies in 16-byte group (a + j) //
+    For B windows of n cells whose cell j lies in 4-cell group (a + j) //
     GROUP: a window of at most `split` cells is one team's
     (:func:`team_fold` over all its groups); a longer one is cut into
     chunks of ``chunk // GROUP`` groups from its first group, each reduced

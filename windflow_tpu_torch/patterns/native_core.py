@@ -38,7 +38,7 @@ from .win_seq_gpu import (ResidentWinSeqCore, finalize_window_values,
 _ROLE_CODE = {Role.SEQ: 0, Role.PLQ: 1, Role.WLQ: 2, Role.MAP: 3,
               Role.REDUCE: 4}
 #: wire dtypes by the C++ core's code (its int64 code 3 is only produced
-#: for a 64-bit accumulate dtype, which the port's ring kernels refuse)
+#: for a 64-bit accumulate dtype)
 _WIRE_DTYPES = (np.int8, np.int16, np.int32, np.int64)
 
 #: per-natural-flush launch service (ms) below which dispatching at the
@@ -255,9 +255,9 @@ class NativeResidentCore:
                 for t in range(self.shards)]
         self.executor = self.executors[0]
         self._batch_len = int(batch_len)
-        # widest wire dtype code the C++ flush may narrow to: int32 (the
-        # ring accumulates in 32 bits)
-        self._acc_wire = 2
+        # widest wire dtype code the C++ flush may narrow to: int64 into a
+        # 64-bit ring, else int32
+        self._acc_wire = 3 if acc.itemsize >= 8 else 2
         self._flush_base = int(flush_rows)
         self._flush_mult = 1
         self._new_handles()
@@ -348,10 +348,11 @@ class NativeResidentCore:
                 self._lib.wf_core_set_flush_rows(
                     h, self._flush_base * self._flush_mult)
         if self._multi:
-            # per-field widest wire dtype (ship_fields order), int32: the
-            # C++ flush narrows each column independently against its ring
+            # per-field widest wire dtype (ship_fields order): the C++
+            # flush narrows each column independently against its ring
             mw = (ctypes.c_int * len(self._ship_fields))(
-                *[2] * len(self._ship_fields))
+                *[3 if self._acc_by_field[f].itemsize >= 8 else 2
+                  for f in self._ship_fields])
             for h in self._hs:
                 got = self._lib.wf_core_set_fields(
                     h, len(self._ship_fields), mw)

@@ -108,12 +108,14 @@ class TorchWindowFunction:
     The function runs on the executor's device, inside its CUDA stream.
     ``keys`` and ``gwids`` are ``(B,)`` int32 tensors (the JAX package's
     width without x64); ``cols[f]`` is a ``(B, pad)`` tensor of field
-    ``f`` in its device dtype (float32 or int32) with zeros past each
-    window's length; ``mask`` is the ``(B, pad)`` bool mask of real lanes.
+    ``f`` in its device dtype (its ring dtype on the resident path, float32
+    or int32 on the restaging one) with zeros past each window's length;
+    ``mask`` is the ``(B, pad)`` bool mask of real lanes.
     It returns one ``(B,)`` tensor or a tuple of them, in
     ``result_fields`` order; harvest casts each to its declared dtype.
     ``field_dtypes`` types each field's ring on the resident path (default
-    int32; float columns need an explicit float32 there)."""
+    int32; float columns need an explicit float32 or float64 there; int8,
+    int16 and int64 rings are taken too)."""
 
     def __init__(self, fn, fields=("value",), result_fields=None,
                  field_dtypes=None):
@@ -352,22 +354,18 @@ def _acc_range_safe(reducer: Reducer, acc: np.dtype, spec) -> bool:
 def select_acc_dtype(reducer: Reducer, compute_dtype,
                      spec: WindowSpec = None) -> np.dtype:
     """Accumulate dtype for the resident device path: int32/float32 by
-    default, overridable via ``compute_dtype``.  Warns when the reducer's
-    result dtype exceeds the accumulate range — unless the reducer's
-    declared ``value_range`` plus the window shape prove the results fit.
-    A 64-bit ``compute_dtype`` raises ``ValueError``: the ring kernels
-    accumulate in 32 bits (the JAX package raises too under its default
-    config, x64 off)."""
+    default, overridable via ``compute_dtype`` (int8, int16, int32, int64,
+    float32 or float64: the ring kernels' dtypes).  Warns when the
+    reducer's result dtype exceeds the accumulate range — unless the
+    reducer's declared ``value_range`` plus the window shape prove the
+    results fit.  A 64-bit ``compute_dtype`` runs as the JAX package runs
+    it with x64 on (the port has no x64 switch; JAX without x64 raises)."""
     if compute_dtype is not None:
         acc = np.dtype(compute_dtype)
     elif np.issubdtype(reducer.dtype, np.floating):
         acc = np.dtype(np.float32)
     else:
         acc = np.dtype(np.int32)
-    if acc.itemsize >= 8:
-        raise ValueError(
-            f"compute_dtype={acc}: the resident ring kernels accumulate in "
-            "int32 or float32 only (no 64-bit ring)")
     if (reducer.dtype.itemsize > acc.itemsize
             and not _acc_range_safe(reducer, acc, spec)):
         key = (reducer.op, reducer.dtype.str, acc.str)
