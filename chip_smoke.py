@@ -3621,10 +3621,15 @@ def checked_mesh_kernels():
                 long_partial=None, big_merge=None,
                 partial_launches_per_call=collections.Counter(),
                 merge_launches_per_call=collections.Counter(),
-                long_windows=collections.Counter())
+                long_windows=collections.Counter(),
+                # the largest call (and the partial with the longest
+                # windows) of each dtype other than int32 and float32
+                # (phase 26's rows)
+                partial_by_dtype={}, partial_long_by_dtype={},
+                merge_by_dtype={})
 
     def same(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return a.dtype == b.dtype and torch.equal(bits(a), bits(b))
 
     def partial(vals, keep, starts, lens, base, op, long_windows=None):
         before = mr.sp_window_partial.launches
@@ -3640,7 +3645,7 @@ def checked_mesh_kernels():
         if (got[1] is None) != (want[1] is None) or (
                 got[1] is not None and not torch.equal(got[1], want[1])):
             raise AssertionError(f"sp_window_partial {op}: counts differ")
-        if vals.dtype == torch.int32 or op in ("count", "min", "max"):
+        if not vals.is_floating_point() or op in ("count", "min", "max"):
             if not same(got[0], want[0]):
                 raise AssertionError(f"sp_window_partial {op}/{vals.dtype}:"
                                      " the kernel differs from the plain "
@@ -3654,7 +3659,10 @@ def checked_mesh_kernels():
             scale = mr.sp_window_partial_reference(
                 vals.abs(), keep, starts, lens, base, "sum")[0].double()
             e = (got[0].double() - want[0].double()).abs()
-            if not bool((e <= FLOAT_RTOL * scale).all()):
+            if op == "prod":      # the fold orders differ: relative
+                scale = want[0].double().abs() * lens.double()
+                e = torch.where(got[0] == want[0], 0.0, e)
+            if not bool((e <= rtol_of(vals) * scale).all()):
                 raise AssertionError(f"sp_window_partial {op}: error "
                                      f"{float(e.max())} beyond rtol")
             seen["partial_err"] = max(seen["partial_err"], float(e.max()))
@@ -3667,6 +3675,15 @@ def checked_mesh_kernels():
         if (seen["long_partial"] is None or int(lens.max())
                 > int(seen["long_partial"][3].max())):
             seen["long_partial"] = call
+        if vals.dtype not in (torch.int32, torch.float32):
+            by = seen["partial_by_dtype"]
+            if (vals.dtype not in by
+                    or starts.numel() > by[vals.dtype][2].numel()):
+                by[vals.dtype] = call
+            by = seen["partial_long_by_dtype"]
+            if (vals.dtype not in by
+                    or int(lens.max()) > int(by[vals.dtype][3].max())):
+                by[vals.dtype] = call
         return got
 
     def merge(partials, counts, op, ring=False, device=None):
@@ -3674,7 +3691,10 @@ def checked_mesh_kernels():
         got = orig_m(partials, counts, op, ring=ring, device=device)
         seen["merge_launches_per_call"][mr.sp_merge.launches - before] += 1
         seen["merges"] += 1
-        parts = torch.stack([p.to(got.device) for p in partials])
+        # stacked as integers of their width: the same words (torch has
+        # few ops for uint32 and uint64)
+        parts = torch.stack([bits(p.to(got.device))
+                             for p in partials]).view(partials[0].dtype)
         cnts = (torch.stack([c.to(got.device) for c in counts])
                 if counts is not None else None)
         twin = mr.merge_order_twin(parts, cnts, op, ring)
@@ -3682,21 +3702,33 @@ def checked_mesh_kernels():
         if not same(got, twin):
             raise AssertionError(f"sp_merge {op}/{parts.dtype} ring={ring}: "
                                  "the kernel differs from its twin")
-        e = (got.double() - want.double()).abs()
-        scale = (parts.double().abs().sum(dim=0) if op != "mean" else
-                 parts.double().abs().sum(dim=0)
-                 / cnts.long().sum(dim=0).clamp(min=1))
-        exact = parts.dtype == torch.int32 or op in ("count", "min", "max")
-        if not bool((e <= (0 if exact else FLOAT_RTOL) * scale).all()):
-            raise AssertionError(f"sp_merge {op}/{parts.dtype}: error "
-                                 f"{float(e.max())} against the plain "
-                                 "version")
-        seen["merge_err"] = max(seen["merge_err"], float(e.max()))
+        if not parts.is_floating_point() or op in ("count", "min", "max"):
+            if not same(got, want):
+                raise AssertionError(f"sp_merge {op}/{parts.dtype}: the "
+                                     "kernel differs from the plain version")
+        else:
+            e = (got.double() - want.double()).abs()
+            scale = (parts.double().abs().sum(dim=0) if op != "mean" else
+                     parts.double().abs().sum(dim=0)
+                     / cnts.long().sum(dim=0).clamp(min=1))
+            if op == "prod":      # the fold orders differ: relative
+                scale = want.double().abs() * parts.shape[0]
+                e = torch.where(got == want, 0.0, e)
+            if not bool((e <= rtol_of(parts) * scale).all()):
+                raise AssertionError(f"sp_merge {op}/{parts.dtype}: error "
+                                     f"{float(e.max())} against the plain "
+                                     "version")
+            seen["merge_err"] = max(seen["merge_err"], float(e.max()))
+        call = (list(partials), parts, list(counts) if counts is not None
+                else None, cnts, op, ring)
         if (seen["big_merge"] is None
                 or parts.shape[1] > seen["big_merge"][1].shape[1]):
-            seen["big_merge"] = (list(partials), parts,
-                                 list(counts) if counts is not None
-                                 else None, cnts, op, ring)
+            seen["big_merge"] = call
+        if parts.dtype not in (torch.int32, torch.float32):
+            by = seen["merge_by_dtype"]
+            if (parts.dtype not in by
+                    or parts.shape[1] > by[parts.dtype][1].shape[1]):
+                by[parts.dtype] = call
         return got
 
     pm.sp_window_partial, pm.sp_merge = partial, merge
@@ -5002,6 +5034,620 @@ def ring_dtypes_phase(wr, rk, builds):
         "multi_fields": {"ring_append_multi_eval": multi_launches}}
 
 
+# ---------------------------------------------------------- column dtypes
+
+CD_U32_BASE = 2 ** 31 - 50       # (a): uint32 values 2**31 - 50 + i % 100
+CD_F64_BASE = 1e9                # (b): 1e9 + u, u in [0, 1)
+CD_F16_HI = 200                  # (c): float16 values in [0, 200)
+CD_U64_HIGH = 5 << 32            # (c): uint64 values 5 * 2**32 + uint32's
+CD_FN_BASE = 1 << 33             # (d): int64 values from 2**33
+CD_MESH_ROWS = 1 << 20           # (e): a group's rows (phase 19: 2**24)
+CD_MESH_LONG = 64                # (e): windows of N/64..N/8 rows
+CD_MESH_DTYPES = (torch.uint32, torch.int64, torch.uint64, torch.float64)
+CD_MESH_OPS = ("sum", "count", "min", "max", "prod", "mean")
+#: the dtypes phase 26 adds to the four kernels
+CD_NEW = (torch.uint32, torch.int64, torch.uint64, torch.float16,
+          torch.float64)
+
+
+def cd_stream(schema, n_tuples, values):
+    """sum_test's keys and ids (make_stream's layout) with value
+    ``values(i)`` for the i-th tuple of the stream (i = id * N_KEYS +
+    key)."""
+    from windflow_tpu_torch import batch_from_columns
+    per_key = n_tuples // N_KEYS
+    batches = []
+    for at in range(0, per_key, CHUNK // N_KEYS):
+        m = min(CHUNK // N_KEYS, per_key - at)
+        ids = np.repeat(np.arange(at, at + m), N_KEYS)
+        batches.append(batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
+            value=values(np.arange(at * N_KEYS, (at + m) * N_KEYS))))
+    return batches
+
+
+def cd_windows(v, ufunc, ident):
+    """Every CB WIN/SLIDE window of one key's values `v` (the partial
+    ones at the end included), folded by `ufunc` in v's dtype over blocks
+    of SLIDE rows (a float sum: a block's pairwise sum, then WIN / SLIDE
+    blocks)."""
+    nb = -(-len(v) // SLIDE)
+    padded = np.full(nb * SLIDE, ident, dtype=v.dtype)
+    padded[:len(v)] = v
+    blocks = ufunc.reduce(padded.reshape(nb, SLIDE), axis=1, dtype=v.dtype)
+    ext = np.concatenate([blocks, np.full(WIN // SLIDE - 1, ident,
+                                          dtype=v.dtype)])
+    out = ext[:nb].copy()
+    for k in range(1, WIN // SLIDE):
+        out = ufunc(out, ext[k:k + nb])
+    return out
+
+
+def cd_oracle(batches, op, dtype):
+    """{key: its windows' values}: the stream's values cast to `dtype`
+    (as the device stages them), folded per key by cd_windows; with the
+    windows' sums of |x| for a float sum."""
+    vals = np.concatenate([b["value"] for b in batches]).astype(dtype)
+    per_key = vals.reshape(-1, N_KEYS)
+    ufunc = {"sum": np.add, "max": np.maximum}[op]
+    dt = np.dtype(dtype)
+    ident = (0 if op == "sum" else -np.inf if dt.kind == "f"
+             else np.iinfo(dt).min)
+    want = {k: cd_windows(per_key[:, k], ufunc, ident)
+            for k in range(N_KEYS)}
+    scale = ({k: cd_windows(np.abs(per_key[:, k].astype(np.float64)),
+                            np.add, 0.0) for k in range(N_KEYS)}
+             if dt.kind == "f" and op == "sum" else None)
+    return want, scale
+
+
+def cd_by_key(rows):
+    """{key: its rows in id order} of a pipeline's row chunks."""
+    rows = np.concatenate(rows)
+    return {int(k): (lambda m: m[np.argsort(m["id"], kind="stable")])(
+        rows[rows["key"] == k]) for k in np.unique(rows["key"])}
+
+
+def cd_check_rows(rows, want, name, scale=None, rtol=0.0, f16=False):
+    """The pipeline's rows per key in id order against the oracle: equal,
+    or within rtol of the window's sum of |x| (`scale`), or (f16) within
+    one float16 ulp of the oracle.  Returns the windows and the largest
+    error."""
+    keyed = cd_by_key(rows)
+    err = 0.0
+    for k, w in want.items():
+        mine = keyed.get(k, np.zeros(0, rows[0].dtype))
+        if not np.array_equal(mine["id"], np.arange(len(w))):
+            raise AssertionError(f"column_dtypes {name}: key {k}'s ids")
+        got = mine["value"]
+        if scale is None and not f16:
+            if not np.array_equal(got, w.astype(got.dtype)):
+                bad = int(np.nonzero(got != w.astype(got.dtype))[0][0])
+                raise AssertionError(
+                    f"column_dtypes {name}: key {k} window {bad} gives "
+                    f"{got[bad]}, the oracle {w[bad]}")
+            continue
+        e = np.abs(got.astype(np.float64) - w.astype(np.float64))
+        tol = (np.spacing(np.abs(w).astype(np.float16)).astype(np.float64)
+               if f16 else rtol * scale[k])
+        if not bool((e <= tol).all()):
+            raise AssertionError(f"column_dtypes {name}: key {k} error "
+                                 f"{e.max()} beyond the bound")
+        err = max(err, float(e.max()))
+    return sum(len(m) for m in keyed.values()), err
+
+
+@contextlib.contextmanager
+def cd_recorded():
+    """While active, every windowed_reduce and window_gather call of the
+    restaging executor is kept (its device inputs), with the launches
+    each made; the yielded dict holds them."""
+    from windflow_tpu_torch.ops import device as dv
+    seen = {"reduce": [], "gather": []}
+    orig_r, orig_g = dv.windowed_reduce, dv.window_gather
+
+    def reduce(flat, starts, lens, pad, op):
+        out = orig_r(flat, starts, lens, pad, op)
+        seen["reduce"].append(dict(flat=flat, starts=starts, lens=lens,
+                                   pad=int(pad), op=op))
+        return out
+
+    def gather(bufs, rows, starts, lens, pad):
+        out = orig_g(bufs, rows, starts, lens, pad)
+        seen["gather"].append(dict(bufs=list(bufs), starts=starts,
+                                   lens=lens, pad=int(pad)))
+        return out
+
+    dv.windowed_reduce, dv.window_gather = reduce, gather
+    try:
+        yield seen
+    finally:
+        dv.windowed_reduce, dv.window_gather = orig_r, orig_g
+
+
+def cd_check_reduce(wr, c):
+    """One recorded windowed_reduce call: the kernel again, bit for bit
+    against its lane-order twin, and against the plain version (integers,
+    count, min and max bit for bit; float16 within one float16 ulp;
+    float64 sums within FLOAT64_RTOL of the window's sum of |x|).
+    Returns the largest error against the plain version."""
+    ev = [(c["flat"], c["op"])]
+    d = (None, c["starts"], c["lens"], c["pad"])
+    got = wr.windowed_reduce_many(ev, *d)[0]
+    plain = wr.windowed_reduce_many_reference(ev, *d)[0]
+    twin = wr.lane_order_twin(ev, *d)[0]
+    torch.cuda.synchronize()
+    name = f"windowed_reduce {c['op']}/{c['flat'].dtype}"
+    if not torch.equal(bits(got), bits(twin)):
+        raise AssertionError(f"{name}: the kernel differs from its twin")
+    if not got.is_floating_point() or c["op"] in ("count", "min", "max"):
+        if not torch.equal(bits(got), bits(plain)):
+            raise AssertionError(f"{name}: the kernel differs from the "
+                                 "plain version")
+        return 0.0
+    e = (got.double() - plain.double()).abs()
+    if got.dtype == torch.float16:
+        tol = torch.from_numpy(np.spacing(np.abs(
+            plain.cpu().numpy()))).double().to(e.device)
+    else:
+        tol = FLOAT64_RTOL * wr.windowed_reduce_many_reference(
+            [(c["flat"].double().abs(), "sum")], *d)[0]
+    if not bool((e <= tol).all()):
+        raise AssertionError(f"{name}: error {float(e.max())} beyond the "
+                             "bound")
+    return float(e.max())
+
+
+def cd_as32(t):
+    """`t` as the 4-byte dtype of its kind (the int32/float32
+    instantiations the new ones are timed beside): uint32 as its int32
+    words, other integers converted to int32, floats to float32."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64).to(torch.int32)
+    return t.to(torch.float32 if t.is_floating_point() else torch.int32)
+
+
+def cd_timed(dev, fn, tensors):
+    """(hot, cold) device ms of fn(*tensors): hot a graph replay on the
+    same inputs, cold cycling through copies three times the L2."""
+    hot = kernel_ms(lambda: fn(*tensors))
+    copies = cold_copies(dev, tensors)
+    cold = kernel_ms(cycled(copies, fn), reps=2 * len(copies))
+    del copies
+    return hot, cold
+
+
+def cd_reduce_row(wr, c):
+    """windowed_reduce at a recorded call (hot and cold) beside the same
+    windows over the buffer as int32/float32 (cd_as32), each with its
+    bytes bound."""
+    dev = c["flat"].device
+    st, ln, pad, op = c["starts"], c["lens"], c["pad"], c["op"]
+    s, n = st.cpu().numpy().astype(np.int64), ln.cpu().numpy()
+    cells = covered(s, np.minimum(n, pad))
+    row = {}
+    for label, flat in (("new", c["flat"]), ("as32", cd_as32(c["flat"]))):
+        size = flat.element_size()
+        nbytes = ((0 if op == "count" else cells * size) + 8 * len(s)
+                  + size * len(s))
+        b = bytes_bound(nbytes, 0 if op == "count" else int(n.sum()))
+        hot, cold = cd_timed(dev, lambda f: wr.windowed_reduce(
+            f, st, ln, pad, op), [flat])
+        row[label] = dict(dtype=str(flat.dtype), ms=cold, hot_ms=hot,
+                          bound_ms=b[0], bound_by=b[1], bound_bytes=nbytes)
+    row["plain_ms"] = call_ms(lambda: wr.windowed_reduce_reference(
+        c["flat"], st, ln, pad, op), reps=2)
+    row.update(op=op, windows=len(s), pad=pad, cells=cells)
+    return row
+
+
+def cd_restaging(wr, wt):
+    """(a)-(d): the restaging route at the new column dtypes, every
+    window against a numpy oracle, every recorded kernel call against its
+    plain version and twin.  Returns (launches by run, the largest
+    windowed_reduce call of each new dtype, the largest gather call)."""
+    from windflow_tpu_torch.ops import gather
+    runs, big, gathers = {}, {}, []
+    u32 = wt.Schema(value=np.uint32)
+
+    def run(name, schema, batches, stage, tuples):
+        t0 = time.perf_counter()
+        wr.windowed_reduce.launches = 0
+        gather.window_gather.launches = 0
+        with cd_recorded() as seen:
+            dt, n, _, rows = run_pipeline(stage, batches, schema, keep=True)
+        runs[name] = {"windowed_reduce": wr.windowed_reduce.launches,
+                      "window_gather": gather.window_gather.launches}
+        new = [c for c in seen["reduce"] if c["flat"].dtype in CD_NEW]
+        if len(new) != len(seen["reduce"]):
+            raise AssertionError(f"column_dtypes {name}: a launch at "
+                                 f"{[c['flat'].dtype for c in seen['reduce']]}")
+        err = max([cd_check_reduce(wr, c) for c in new], default=0.0)
+        for c in new:
+            key = str(c["flat"].dtype)
+            if key not in big or (c["flat"].numel() * c["starts"].numel()
+                                  > big[key]["flat"].numel()
+                                  * big[key]["starts"].numel()):
+                big[key] = c
+        gathers.extend(seen["gather"])
+        runs[name].update(seconds=dt, tuples=tuples, calls_checked=len(new),
+                          max_abs_err=err, wall_s=time.perf_counter() - t0)
+        return rows
+
+    def stage(reducer, **kw):
+        return wt.WinSeqGPU(reducer, WIN, SLIDE, wt.WinType.CB,
+                            batch_len=BATCH_LEN, device=DEVICE, **kw)
+
+    # (a) uint32 at 2**31 +- 50: max (the Queue 3 fault) and the wrapping sum
+    batches = cd_stream(u32, N_TUPLES,
+                        lambda i: (CD_U32_BASE + i % 100).astype(np.uint32))
+    for op in ("max", "sum"):
+        rows = run(f"a_uint32_{op}", u32, batches, stage(
+            wt.Reducer(op, dtype=np.int64), use_reduce_kernel=True),
+            N_TUPLES)
+        want, _ = cd_oracle(batches, op, np.uint32)
+        runs[f"a_uint32_{op}"]["windows"], _ = cd_check_rows(
+            rows, want, f"a uint32 {op}")
+        if op == "max" and max(int(w.max()) for w in want.values()) < 2 ** 31:
+            raise AssertionError("column_dtypes (a): no value past 2**31")
+    del batches, rows
+    # (b) a float sum's default route at float64: 1e9 + u
+    f64 = wt.Schema(value=np.float64)
+    rng = np.random.default_rng(26)
+    u = rng.uniform(0, 1, N_TUPLES)
+    batches = cd_stream(f64, N_TUPLES, lambda i: CD_F64_BASE + u[i])
+    rows = run("b_float64_sum", f64, batches, stage(
+        wt.Reducer("sum", dtype=np.float64), compute_dtype=np.float64),
+        N_TUPLES)
+    want, scale = cd_oracle(batches, "sum", np.float64)
+    n, err = cd_check_rows(rows, want, "b float64 sum", scale, FLOAT64_RTOL)
+    # the same stream staged in float32 lands far outside the bound
+    narrow, _ = cd_oracle(batches, "sum", np.float32)
+    off = max(float(np.abs(m["value"] - narrow[k]).max())
+              for k, m in cd_by_key(rows).items())
+    if off <= FLOAT64_RTOL * max(float(s.max()) for s in scale.values()):
+        raise AssertionError("column_dtypes (b): the results equal a "
+                             "float32 staging")
+    runs["b_float64_sum"].update(windows=n, oracle_max_abs_err=err,
+                                 float32_staging_max_abs_diff=off)
+    del batches, rows, u
+    # (c) 1M-tuple prefixes: int64 compute_dtype sums past 2**31, a
+    # float16 column's sum and max, a uint64 column (narrowed to uint32)
+    i64 = wt.Schema(value=np.int64)
+    batches = cd_stream(i64, PREFIX_TUPLES,
+                        lambda i: RD_BASE + (i * 7919) % 1000)
+    rows = run("c_int64_sum", i64, batches, stage(
+        wt.Reducer("sum"), use_reduce_kernel=True, compute_dtype=np.int64),
+        PREFIX_TUPLES)
+    want, _ = cd_oracle(batches, "sum", np.int64)
+    runs["c_int64_sum"]["windows"], _ = cd_check_rows(rows, want,
+                                                     "c int64 sum")
+    if max(int(w.max()) for w in want.values()) <= 2 ** 31:
+        raise AssertionError("column_dtypes (c): no int64 sum past 2**31")
+    f16 = wt.Schema(value=np.float16)
+    vals16 = rng.uniform(0, CD_F16_HI, PREFIX_TUPLES).astype(np.float16)
+    batches = cd_stream(f16, PREFIX_TUPLES, lambda i: vals16[i])
+    for op in ("sum", "max"):
+        rows = run(f"c_float16_{op}", f16, batches, stage(
+            wt.Reducer(op, dtype=np.float32), use_reduce_kernel=True),
+            PREFIX_TUPLES)
+        # the oracle: float32 window values, rounded to float16 once
+        want, _ = cd_oracle(batches, op, np.float32)
+        want = {k: w.astype(np.float16) for k, w in want.items()}
+        runs[f"c_float16_{op}"]["windows"], e = cd_check_rows(
+            rows, want, f"c float16 {op}", f16=op == "sum")
+        runs[f"c_float16_{op}"]["oracle_max_abs_err"] = e
+    u64 = wt.Schema(value=np.uint64)
+    batches = cd_stream(u64, PREFIX_TUPLES, lambda i: (
+        CD_U64_HIGH + CD_U32_BASE + i % 100).astype(np.uint64))
+    rows = run("c_uint64_max", u64, batches, stage(
+        wt.Reducer("max", dtype=np.int64), use_reduce_kernel=True),
+        PREFIX_TUPLES)
+    want, _ = cd_oracle(batches, "max", np.uint32)
+    runs["c_uint64_max"]["windows"], _ = cd_check_rows(rows, want,
+                                                      "c uint64 max")
+    # (d) a user window function over an int64 compute_dtype column:
+    # 8-byte tiles through window_gather
+    tiles = []
+
+    def fn(keys, gwids, cols, mask):
+        tiles.append(cols["value"].dtype)
+        return cols["value"].sum(dim=1)
+
+    batches = cd_stream(i64, PREFIX_TUPLES,
+                        lambda i: CD_FN_BASE + (i * 7919) % 1000)
+    rows = run("d_fn_int64", i64, batches, stage(
+        wt.TorchWindowFunction(fn, result_fields={"value": np.int64}),
+        compute_dtype=np.int64), PREFIX_TUPLES)
+    want, _ = cd_oracle(batches, "sum", np.int64)
+    runs["d_fn_int64"]["windows"], _ = cd_check_rows(rows, want,
+                                                    "d fn int64")
+    if set(tiles) != {torch.int64} or not gathers:
+        raise AssertionError(f"column_dtypes (d): tiles {set(tiles)}, "
+                             f"{len(gathers)} gathers")
+    for c in gathers:      # every gather call against its plain version
+        got, mask = gather.window_gather(c["bufs"], None, c["starts"],
+                                         c["lens"], c["pad"])
+        want, wmask = gather.window_gather_reference(
+            c["bufs"], None, c["starts"], c["lens"], c["pad"])
+        if not (torch.equal(mask, wmask) and all(
+                torch.equal(bits(a), bits(b)) for a, b in zip(got, want))):
+            raise AssertionError("column_dtypes (d): window_gather differs "
+                                 "from the plain version")
+    runs["d_fn_int64"]["gather_calls_checked"] = len(gathers)
+    return runs, big, max(gathers, key=lambda c: c["starts"].numel()
+                          * c["pad"])
+
+
+def cd_gather_row(c):
+    """window_gather at the largest (d) call (hot and cold) beside the
+    same windows over the buffer as int32, each with its bytes bound."""
+    from windflow_tpu_torch.ops import gather
+    st, ln, pad = c["starts"], c["lens"], c["pad"]
+    B = st.numel()
+    s, n = st.cpu().numpy().astype(np.int64), ln.cpu().numpy()
+    cells = covered(s, np.minimum(n, pad))
+    row = {}
+    for label, buf in (("new", c["bufs"][0]), ("as32", cd_as32(
+            c["bufs"][0]))):
+        size = buf.element_size()
+        nbytes = B * pad * (size + 1) + cells * size + 12 * B
+        b = bytes_bound(nbytes, 0)
+        hot, cold = cd_timed(buf.device, lambda x: gather.window_gather(
+            [x], None, st, ln, pad), [buf])
+        row[label] = dict(dtype=str(buf.dtype), ms=cold, hot_ms=hot,
+                          bound_ms=b[0], bound_by=b[1], bound_bytes=nbytes)
+    row["plain_ms"] = call_ms(lambda: gather.window_gather_reference(
+        c["bufs"], None, st, ln, pad), reps=2)
+    row.update(windows=B, pad=pad, cells=cells)
+    return row
+
+
+def cd_mesh_inputs(dtype, seed=27):
+    """(flat, starts, lens) of (e): per group CD_MESH_ROWS rows (int32 in
+    [-1000, 1000) for uint32, whose mapped negatives pass 2**31; int64 in
+    [-2**40, 2**40) for the 64-bit dtypes, whose mapped negatives pass
+    2**63 as uint64), pipe_test's CB windows, CD_MESH_LONG long windows
+    across the sp boundary and MESH_PAST_N past N."""
+    rng = np.random.default_rng(seed)
+    kf, N = MESH_STEP_SHAPE[0], CD_MESH_ROWS
+    half = N // MESH_STEP_SHAPE[2]
+    if dtype == torch.uint32:
+        flat = rng.integers(-1000, 1000, size=(kf, N)).astype(np.int32)
+    else:
+        flat = rng.integers(-2 ** 40, 2 ** 40, size=(kf, N))
+    starts, lens = [], []
+    for _ in range(kf):
+        cb = np.arange(N // SLIDE) * SLIDE
+        long_lens = rng.integers(N >> 6, N >> 3, CD_MESH_LONG)
+        long_starts = half - rng.integers(1, long_lens)
+        past = N - rng.integers(1, 200, MESH_PAST_N)
+        starts.append(np.concatenate([cb, long_starts, past]))
+        lens.append(np.concatenate([np.full(len(cb), WIN), long_lens,
+                                    rng.integers(300, 5000, MESH_PAST_N)]))
+    return (flat, np.stack(starts).astype(np.int32),
+            np.stack(lens).astype(np.int32))
+
+
+def cd_mesh_oracle(flat, starts, lens, rows, op, dtype):
+    """numpy: per group the rows padded with zeros to `rows`, mapped
+    (3v+1), filtered (v % 5 != 0) and cast to `dtype` (integers keep
+    their low bits), each window's kept rows folded in that dtype (sums
+    and products wrap); a CB window by its WIN / SLIDE blocks of SLIDE
+    rows, any other alone; mean is the sum over max(count, 1) in float32
+    (uint32) or float64.  Returns (values, the float tolerance's scale:
+    the window's sum of |x| over its kept rows)."""
+    np_dt = torch.empty(0, dtype=dtype).numpy().dtype
+    with np.errstate(over="ignore", invalid="ignore"):
+        return _cd_mesh_oracle(flat, starts, lens, rows, op, np_dt)
+
+
+def _cd_mesh_oracle(flat, starts, lens, rows, op, np_dt):
+    outs, scales = [], []
+    for g in range(starts.shape[0]):
+        v = np.zeros(rows, dtype=np.int64)
+        v[:flat.shape[1]] = flat[g]
+        v = 3 * v + 1
+        kept = v % 5 != 0
+        x = v.astype(np.float64) if np_dt.kind == "f" else v.astype(np_dt)
+        s = np.clip(starts[g].astype(np.int64), 0, rows)
+        e = np.clip(starts[g].astype(np.int64) + lens[g], 0, rows)
+        csc = np.concatenate([[0], np.cumsum(kept)])
+        cnt = csc[e] - csc[s]
+        csa = np.concatenate([[0], np.cumsum(np.where(kept, np.abs(
+            v.astype(np.float64)), 0))])
+        scales.append(csa[e] - csa[s])
+        if op == "count":
+            outs.append(cnt.astype(np_dt))
+            continue
+        red = "sum" if op == "mean" else op
+        ufunc = {"sum": np.add, "min": np.minimum, "max": np.maximum,
+                 "prod": np.multiply}[red]
+        ident = {"sum": 0, "prod": 1}.get(red)
+        if ident is None:
+            lim = (np.inf if np_dt.kind == "f" else
+                   np.iinfo(np_dt).max if red == "min"
+                   else np.iinfo(np_dt).min)
+            ident = lim if red == "min" or np_dt.kind != "f" else -np.inf
+        masked = np.where(kept, x, np.array(ident, dtype=x.dtype))
+        pad = -len(masked) % SLIDE
+        blocks = ufunc.reduce(np.concatenate(
+            [masked, np.full(pad, ident, dtype=x.dtype)]).reshape(
+                -1, SLIDE), axis=1, dtype=x.dtype)
+        res = np.full(len(s), ident, dtype=x.dtype)
+        full = (e - s == WIN) & (s % SLIDE == 0)
+        first = s[full] // SLIDE
+        acc = blocks[first]
+        for k in range(1, WIN // SLIDE):
+            acc = ufunc(acc, blocks[first + k])
+        res[full] = acc
+        for i in np.nonzero(~full & (e > s))[0]:
+            res[i] = ufunc.reduce(masked[s[i]:e[i]], dtype=x.dtype)
+        if op == "mean":
+            f = np.float32 if np_dt.itemsize == 4 else np.float64
+            res = res.astype(f) / np.maximum(cnt, 1).astype(f)
+        outs.append(res)
+    return np.stack(outs), np.stack(scales)
+
+
+def cd_mesh():
+    """(e) MeshStreamStep at pipe_test's chain over a (2, 2, 2) mesh of
+    one card, at uint32, int64, uint64 and float64: every op, psum and
+    ring, windows past mr.SPLIT, against the numpy oracle (integers,
+    count, min and max bit for bit; float64 sums and means within
+    FLOAT64_RTOL of the sum of |x|), every partial and merge call against
+    its plain version and twin (checked_mesh_kernels).  Returns
+    (launches, errors, the largest call of each dtype)."""
+    from windflow_tpu_torch.parallel import MeshStreamStep, make_mesh
+    kf, wf, sp = MESH_STEP_SHAPE
+    mesh = make_mesh(kf, sp, devices=[DEVICE] * (kf * wf * sp), n_wf=wf)
+    Ns = CD_MESH_ROWS // sp
+    errs = {}
+    with kernel_launches() as counts, checked_mesh_kernels() as seen:
+        for dtype in CD_MESH_DTYPES:
+            flat, starts, lens = cd_mesh_inputs(dtype)
+            for op in CD_MESH_OPS:
+                want, scale = cd_mesh_oracle(flat, starts, lens, Ns * sp,
+                                             op, dtype)
+                for collective in ("psum", "ring"):
+                    got = MeshStreamStep(
+                        mesh, op=op, dtype=dtype,
+                        map_fn=lambda v: 3 * v + 1,
+                        filter_fn=lambda v: v % 5 != 0,
+                        collective=collective)(flat, starts, lens)
+                    name = f"{op}/{str(dtype)[6:]}/{collective}"
+                    if got.dtype != want.dtype:
+                        raise AssertionError(f"column_dtypes mesh {name}: "
+                                             f"dtype {got.dtype}")
+                    if got.dtype.kind != "f" or op in ("count", "min",
+                                                       "max"):
+                        if not np.array_equal(got, want):
+                            raise AssertionError(f"column_dtypes mesh "
+                                                 f"{name}: differs from "
+                                                 "the oracle")
+                        errs[name] = 0.0
+                        continue
+                    with np.errstate(invalid="ignore"):
+                        e = np.abs(got.astype(np.float64)
+                                   - want.astype(np.float64))
+                    e[got == want] = 0.0
+                    tol = (FLOAT_RTOL if got.dtype == np.float32
+                           else FLOAT64_RTOL) * (
+                        scale / np.maximum(lens, 1) if op == "mean"
+                        else np.abs(want) * lens if op == "prod"
+                        else scale)
+                    if not bool((e <= tol).all()):
+                        raise AssertionError(f"column_dtypes mesh {name}: "
+                                             f"error {e.max()}")
+                    errs[name] = float(e.max())
+    require_launches("column_dtypes mesh", counts,
+                     ("sp_window_partial", "sp_merge"))
+    if not any(k > 0 for k in seen["long_windows"]):
+        raise AssertionError("column_dtypes mesh: no long-window call")
+    return counts, errs, seen
+
+
+def cd_mesh_rows(seen):
+    """sp_window_partial and sp_merge at the largest call of each new
+    dtype (the partial cold and hot, the merge hot, as phase 19 times
+    them) beside the same inputs as int32/float32 (cd_as32), each with
+    its bytes bound."""
+    from windflow_tpu_torch.ops import mesh_reduce as mr
+    rows = {"sp_window_partial": {}, "sp_merge": {}}
+    for case, dtype, call in [
+            (case, d, c) for case in ("partial_by_dtype",
+                                      "partial_long_by_dtype")
+            for d, c in seen[case].items()]:
+        vals, keep, starts, lens, base, op, longw = call
+        Ns, B = vals.numel(), starts.numel()
+        s = np.clip(starts.cpu().numpy().astype(np.int64) - base, 0, Ns)
+        e = np.clip(starts.cpu().numpy().astype(np.int64)
+                    + lens.cpu().numpy() - base, 0, Ns)
+        cells = covered(s, np.maximum(e - s, 0))
+        row = {}
+        for label, v in (("new", vals), ("as32", cd_as32(vals))):
+            nbytes = (cells * (v.element_size() + 1) + 8 * B
+                      + (v.element_size() + 4 * mr.needs_count(op)) * B)
+            b = bytes_bound(nbytes, int(np.maximum(e - s, 0).sum()))
+            hot, cold = cd_timed(v.device, lambda x, k: mr.sp_window_partial(
+                x, k, starts, lens, base, op, long_windows=longw),
+                [v, keep])
+            row[label] = dict(dtype=str(v.dtype), ms=cold, hot_ms=hot,
+                              bound_ms=b[0], bound_by=b[1],
+                              bound_bytes=nbytes)
+        row["plain_ms"] = call_ms(lambda: mr.sp_window_partial_reference(
+            vals, keep, starts, lens, base, op), reps=2)
+        row.update(op=op, Ns=Ns, windows=B, cells=cells,
+                   long_windows=longw.numel())
+        rows["sp_window_partial"][str(dtype) + (
+            " long" if case == "partial_long_by_dtype" else "")] = row
+    for dtype, call in seen["merge_by_dtype"].items():
+        plist, parts, clist, cnts, op, ring = call
+        n, B = parts.shape
+        row = {}
+        for label, p in (("new", parts), ("as32", cd_as32(parts))):
+            size = p.element_size()
+            nbytes = (size * n * B + (8 if op == "mean" and size == 8
+                                      else size) * B
+                      + (4 * n * B if op == "mean" else 0))
+            b = bytes_bound(nbytes, (n - 1) * B)
+            ps = list(p)
+            row[label] = dict(dtype=str(p.dtype), ms=kernel_ms(
+                lambda ps=ps: mr.sp_merge(ps, clist, op, ring=ring)),
+                bound_ms=b[0], bound_by=b[1], bound_bytes=nbytes)
+        row["plain_ms"] = call_ms(lambda: mr.sp_merge_reference(
+            parts, cnts, op, ring))
+        row.update(op=op, ring=ring, n_sp=n, windows=B)
+        rows["sp_merge"][str(dtype)] = row
+    return rows
+
+
+def column_dtypes_phase(wr, builds):
+    """Phase 26: the JAX package's column dtypes on the restaging route
+    ((a) sum_test's 16M tuples as uint32 around 2**31 through max and
+    sum, (b) 16M float64 1e9 + u through a float sum's default route,
+    (c) 1M-tuple prefixes at int64, float16 and uint64, (d) a user
+    function's 8-byte tiles) and in the mesh reduction ((e) the stream
+    step at uint32, int64, uint64 and float64): every window against a
+    numpy oracle, every recorded call of the four kernels against its
+    plain version and twin, each kernel timed at its largest new-dtype
+    call beside the same inputs at 4 bytes.  Returns the launches of each
+    kernel at a new dtype."""
+    import windflow_tpu_torch as wt
+    t0 = time.perf_counter()
+    runs, big, gather_call = cd_restaging(wr, wt)
+    for name, run in runs.items():
+        emit("column_dtypes", case=name, **run)
+    mesh_counts, mesh_errs, seen = cd_mesh()
+    emit("column_dtypes", case="e_mesh_step",
+         workload="MeshStreamStep map 3v+1, filter v%5!=0, (kf, wf, sp) "
+                  f"= {MESH_STEP_SHAPE} x {DEVICE}, {CD_MESH_ROWS} rows a "
+                  "group", dtypes=[str(d) for d in CD_MESH_DTYPES],
+         ops=list(CD_MESH_OPS), launches=mesh_counts,
+         oracle_max_abs_err=mesh_errs,
+         partial_calls_checked=seen["partials"],
+         merge_calls_checked=seen["merges"],
+         partial_twin_checks=seen["twins"],
+         long_windows_per_call=dict(seen["long_windows"]))
+    launches = {
+        "windowed_reduce": sum(r["windowed_reduce"] for r in runs.values()),
+        "window_gather": sum(r["window_gather"] for r in runs.values()),
+        "sp_window_partial": mesh_counts["sp_window_partial"],
+        "sp_merge": mesh_counts["sp_merge"]}
+    rows = {"windowed_reduce": {k: cd_reduce_row(wr, c)
+                                for k, c in big.items()},
+            "window_gather": cd_gather_row(gather_call),
+            **cd_mesh_rows(seen)}
+    del big, gather_call, seen
+    emit("column_dtypes_rows",
+         build_s={k: builds[k][1] for k in ("windowed_reduce.cu",
+                                             "gather.cu", "mesh_reduce.cu")},
+         phase_seconds=time.perf_counter() - t0, **rows)
+    return launches
+
+
 def child_main(argv) -> int:
     """Entry of the plane phase's child processes."""
     role, args = argv[0], argv[1:]
@@ -5068,6 +5714,12 @@ def main() -> int:
                       ("ring_append_multi_eval", "multi_fields")):
         if not dtype_launches[run][name]:
             raise AssertionError(f"ring_dtypes {run} launched no {name}")
+    column_launches = column_dtypes_phase(wr, builds)
+    emit("column_dtypes_launches", **column_launches)
+    for name, n in column_launches.items():
+        if not n:
+            raise AssertionError(f"column_dtypes launched no {name} at a "
+                                 "new dtype")
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]
     for name in ("ring_append_eval", "ring_append_regular_sum"):

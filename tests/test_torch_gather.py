@@ -175,7 +175,7 @@ def test_refuses_fields_of_unequal_shape_past_one_launch():
     s = as32([0, 1])
     with pytest.raises(TypeError):
         g.window_gather(bufs, None, s, s, 4)
-    bufs[8] = torch.zeros((2, 8), dtype=torch.float64)
+    bufs[8] = torch.zeros((2, 8), dtype=torch.float16)
     with pytest.raises(TypeError):
         g.window_gather(bufs, None, s, s, 4)
 
@@ -184,7 +184,7 @@ def test_wrapper_refuses_bad_inputs():
     buf = torch.zeros((2, 8), dtype=torch.int32)
     s = as32([0, 1])
     with pytest.raises(TypeError):
-        g.window_gather(buf.to(torch.int64), None, s, s, 4)
+        g.window_gather(buf.to(torch.int16), None, s, s, 4)
     with pytest.raises(TypeError):
         g.window_gather((buf, torch.zeros((2, 9), dtype=torch.int32)),
                         None, s, s, 4)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,11 +43,16 @@ def nvcc() -> str:
 
 
 def build(source: str) -> str:
-    """Compile ``ops/csrc/<source>`` unless this exact source has been
-    built already; returns the path of the shared library."""
+    """Compile ``ops/csrc/<source>`` unless this exact source (and the
+    local headers it includes) has been built already; returns the path of
+    the shared library."""
     src = os.path.join(CSRC, source)
     with open(src, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        text = f.read()
+    tag = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode())
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            tag.update(header + f.read())
     stem = os.path.splitext(source)[0]
     so = os.path.join(BUILD_DIR, f"lib{stem}-{tag.hexdigest()[:12]}.so")
     if os.path.exists(so):

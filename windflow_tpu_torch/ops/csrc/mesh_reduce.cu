@@ -9,7 +9,8 @@
 //
 // wf_sp_window_partial.  For window w < B of one shard whose row slice
 // `vals` holds rows [base, base + Ns) of its group (values after the
-// user's map_fn, in the reduction's dtype), with keep == null or a (Ns,)
+// user's map_fn, in the reduction's dtype: int32, float32, uint32, int64,
+// uint64 or float64), with keep == null or a (Ns,)
 // byte mask (the user's filter_fn):
 //     lo = clip(starts[w] - base, 0, Ns), hi = clip(starts[w] + lens[w] -
 //     base, 0, Ns)
@@ -25,17 +26,20 @@
 // pointer, in the order the pointers come: the caller passes shards 0, 1,
 // ..., n - 1 (psum, pmin, pmax, prod's gather fold) or 0, n - 1, n - 2,
 // ..., 1 (the order in which sp shard 0 accumulates its ppermute hops, the
-// shard whose value JAX returns).  mean writes float32 sum / max(count,
-// 1), the integer sum converted to float32 first (JAX's true division of
-// int32).
+// shard whose value JAX returns).  mean writes sum / max(count, 1) in
+// float32 for a 4-byte dtype and in float64 for an 8-byte one, the integer
+// sum converted to that float first (JAX's true division of an integer
+// dtype; float64 under x64).
 //
-// Semantics kept identical to the reference: int32 sums and products wrap
-// modulo 2^32 (they run in uint32); float min/max propagate NaN as jnp.min
-// and jnp.max do; the identity comes from the caller as its 32-bit
-// pattern (ops/monoid.py:identity).
+// Semantics kept identical to the reference: integer sums and products
+// wrap modulo 2^32 or 2^64 (they run in the unsigned type of their width);
+// uint32 and uint64 compare unsigned; float min/max propagate NaN as
+// jnp.min and jnp.max do; the identity comes from the caller as its 64-bit
+// pattern (ops/monoid.py:identity).  The dtypes' storage and work types
+// are cells.cuh's.
 //
 // Order of the partial.  With a = lo mod 4, cell j of a window (0 <= j <
-// n = hi - lo) lies in its 16-byte group g = (a + j) / 4, groups counted
+// n = hi - lo) lies in its 4-cell group g = (a + j) / 4, groups counted
 // from the window's first aligned group lo - a (aligned in the slice).
 //  * A window of n <= split cells is reduced by a team of kLanes = 8 lanes
 //    (a warp takes 4 windows): lane g mod 8 takes group g and combines its
@@ -56,7 +60,8 @@
 // find_long_windows); the other blocks take kShortWindows = 32
 // consecutive windows each (their descriptors read once, one a thread,
 // into shared memory), kPasses = 1 a team, and skip the long ones.  A
-// lane loads a whole group as one 16-byte value load and its 4 keep bytes
+// lane loads a whole group as one 16-byte value load (two for 8-byte
+// cells: 4-cell groups at every width) and its 4 keep bytes
 // as one word (the bool mask's bytes line up with the cells), kUnroll
 // groups before its first combine, and computes its addresses once a
 // group; a group that is cut by the window's ends, or a buffer that is
@@ -66,9 +71,10 @@
 // one __syncthreads a round), and thread 0 folds the round's partials in
 // chunk order while the teams load the next round.  The launch bounds ask
 // for kMinBlocks = 6 resident blocks an SM (at most 42 registers a
-// thread; a few bytes spill).  Measured on an H100
-// (scripts/torch_mesh_kernels.py, PERF.md): the block path wins from
-// 2,048 cells at 1,032 windows and from 4,096 at 2^24 window cells, so
+// thread; a few bytes spill), 4 for 8-byte values (kMinBlocks8).
+// Measured on an H100 (scripts/torch_mesh_kernels.py, PERF.md): the
+// block path wins from 2,048 cells at 1,032 windows and from 4,096 at
+// 2^24 window cells, so
 // the wrapper's split is 2,048; chunks of 512 cells; 8 groups in flight,
 // 8 blocks an SM, 2, 4 or 8 windows a team (fewer blocks: slower where B
 // is small), or a team's windows consecutive (so that the windows in
@@ -79,33 +85,31 @@
 // at 5.4x its bound on those windows, and a window of 37k cells kept one
 // warp busy for the whole launch.)
 // Bound on an H100 SXM (3.35 TB/s), by bytes: the cells the windows cover
-// (4 bytes + 1 keep byte each) read once, the descriptors (8 B a window)
-// and the outputs written once; one 32-bit combine per window cell sets
+// (4 or 8 bytes + 1 keep byte each) read once, the descriptors (8 B a
+// window) and the outputs written once; one combine per window cell sets
 // the bound by operations where windows overlap many times.
 //
 // Design of the merge.  A thread takes kMergeWindows = 4 consecutive
-// windows: one 16-byte load a partial (and a count), all of them (up to
-// NB = 2, 4, 8 or 16, the instantiation the shard count picks) issued
-// before its first combine; a thread at the ragged end of B, or any
-// pointer that is not 16-byte aligned, loads cell by cell.  The pointers
-// of up to kInline = 16 shards travel in the kernel's parameters; more
-// come from a device array the caller fills.  No partial is copied: an
+// windows: one 16-byte load a partial (two for 8-byte partials) and a
+// count, all of them (up to NB = 2, 4, 8 or 16, the instantiation the
+// shard count picks; at most 8 for 8-byte partials) issued before its
+// first combine; a thread at the ragged end of B, or any pointer that is
+// not 16-byte aligned, loads cell by cell.  The pointers of up to kInline
+// = 16 shards (8 for 8-byte partials) travel in the kernel's parameters;
+// more come from a device array the caller fills.  No partial is copied: an
 // (n, B) tensor's rows or n separate tensors are read where they lie.
 // Bound by bytes: n * B partials (and counts) read, B values written.
+// int32 and float32 keep their measured instantiations; each new dtype
+// is an instantiation of its own.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "cells.cuh"
 
 namespace {
 
-enum Op { OP_SUM = 0, OP_COUNT = 1, OP_MIN = 2, OP_MAX = 3, OP_PROD = 4,
-          OP_MEAN = 5 };
-enum Dtype { DT_INT32 = 0, DT_FLOAT32 = 1 };
+using namespace wf;
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 4;                    // cells of a 16-byte group
+constexpr int kGroup = 4;                    // cells of a group
 constexpr int kLanes = 8;                    // lanes that reduce a window
 constexpr int kTeams = kThreads / kLanes;    // windows (chunks) a block
 constexpr int kUnroll = 4;                   // groups in flight a lane
@@ -113,73 +117,43 @@ constexpr int kPasses = 1;                   // windows a team takes
 constexpr int kShortWindows = kTeams * kPasses;  // a short block's windows
 static_assert(kShortWindows <= kThreads, "one descriptor a thread");
 constexpr int kMinBlocks = 6;                // resident partial blocks an SM
+// 8-byte values: 4 (64 registers a thread; at 6 the 8-byte partials
+// spilled 536-864 bytes a thread, -Xptxas -v on the H100's toolkit)
+constexpr int kMinBlocks8 = 4;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeWindows = 4;             // windows a merge thread
 constexpr int kInline = 16;                  // merge pointers by value
 
-template <int OP, typename T> struct Work { using type = T; };
-template <> struct Work<OP_SUM, int32_t> { using type = uint32_t; };
-template <> struct Work<OP_MEAN, int32_t> { using type = uint32_t; };
-template <> struct Work<OP_PROD, int32_t> { using type = uint32_t; };
-
-__device__ __forceinline__ bool is_nan(float x) { return x != x; }
-__device__ __forceinline__ bool is_nan(int32_t) { return false; }
-
-template <int OP, typename W>
-__device__ __forceinline__ W combine(W a, W b) {
-  if constexpr (OP == OP_SUM || OP == OP_MEAN) {
-    return a + b;
-  } else if constexpr (OP == OP_PROD) {
-    return a * b;
-  } else if constexpr (OP == OP_MIN) {
-    return (is_nan(a) || a < b) ? a : b;
-  } else {
-    return (is_nan(a) || a > b) ? a : b;
-  }
-}
-
-template <typename W>
-__device__ __forceinline__ W from_bits(uint32_t bits) {
-  static_assert(sizeof(W) == sizeof(uint32_t), "32-bit types only");
-  W v;
-  memcpy(&v, &bits, sizeof(v));
-  return v;
-}
-
-template <typename W>
-__device__ __forceinline__ uint32_t to_bits(W v) {
-  uint32_t bits;
-  memcpy(&bits, &v, sizeof(bits));
-  return bits;
+// merge pointers by value for values of T (8-byte partials: 8, so that
+// the shards in flight stay in registers)
+template <typename T> constexpr int inline_of() {
+  return sizeof(T) == 8 ? 8 : kInline;
 }
 
 __device__ __forceinline__ long long clip(long long x, long long hi) {
   return x < 0 ? 0 : (x > hi ? hi : x);
 }
 
-__device__ __forceinline__ uint32_t lane_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // ------------------------------------------------------------------ partial
 
 struct Partial {
-  const uint32_t* vals;
+  const void* vals;
   const uint8_t* keep;        // null: every row kept
   long long Ns, base;
   const int32_t* starts;
   const int32_t* lens;
   const int32_t* long_windows;  // the windows of the first n_long blocks
-  uint32_t* part;
+  void* part;
   int32_t* cnt;               // null: no counts
   int B, n_long, split, chunk;  // chunk in groups, a multiple of kLanes
-  uint32_t ident;
+  unsigned long long ident;
   bool vec;                   // vals 16-byte and keep 4-byte aligned
 };
 
 // one window's cells: `vals` and `keep` point at its first aligned group
+template <typename T>
 struct Window {
-  const uint32_t* vals;
+  const WordOf<T>* vals;
   const uint8_t* keep;
   int a, n;                   // lo mod 4; hi - lo
   __device__ __forceinline__ int groups() const {
@@ -196,26 +170,30 @@ __device__ __forceinline__ void clipped(const Partial& p, long long w,
   n = (int)(hi > lo ? hi - lo : 0);
 }
 
-__device__ __forceinline__ Window window_at(const Partial& p, long long lo,
-                                            int n) {
+template <typename T>
+__device__ __forceinline__ Window<T> window_at(const Partial& p,
+                                               long long lo, int n) {
   const int a = (int)(lo & 3);
   const long long g0 = lo - a;
-  return Window{p.vals + g0, p.keep != nullptr ? p.keep + g0 : nullptr, a,
-                n};
+  return Window<T>{static_cast<const WordOf<T>*>(p.vals) + g0,
+                   p.keep != nullptr ? p.keep + g0 : nullptr, a, n};
 }
 
 // Group g of a window: its 4 values into v and its liveness into k, one
 // byte a cell (1: a kept cell of the window, 0: not).  A whole group
-// inside the window takes one 16-byte load (and one 4-byte keep word);
+// inside the window takes one vector load (and one 4-byte keep word);
 // a cut group loads only the window's own cells.
-template <bool VALUES>
-__device__ __forceinline__ void load_group(const Window& c, bool vec, int g,
-                                           uint4& v, uint32_t& k) {
+template <typename T, bool VALUES>
+__device__ __forceinline__ void load_group(const Window<T>& c, bool vec,
+                                           int g,
+                                           typename CellsOf<T>::Group& v,
+                                           uint32_t& k) {
+  using C = CellsOf<T>;
   const long long c0 = (long long)kGroup * g;   // cell of the aligned group
   const long long j0 = c0 - c.a;                // its window cell
   if (vec && j0 >= 0 && j0 + kGroup <= c.n) {
     if constexpr (VALUES) {
-      v = __ldg(reinterpret_cast<const uint4*>(c.vals) + g);
+      v = C::load(reinterpret_cast<const typename C::Group*>(c.vals) + g);
     }
     k = c.keep != nullptr
             ? __vcmpne4(__ldg(reinterpret_cast<const uint32_t*>(c.keep) + g),
@@ -223,7 +201,7 @@ __device__ __forceinline__ void load_group(const Window& c, bool vec, int g,
             : 0x01010101u;
     return;
   }
-  uint32_t x[kGroup] = {0u, 0u, 0u, 0u};
+  typename C::Word x[kGroup] = {0u, 0u, 0u, 0u};
   k = 0u;
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) {
@@ -235,23 +213,25 @@ __device__ __forceinline__ void load_group(const Window& c, bool vec, int g,
       }
     }
   }
-  v = make_uint4(x[0], x[1], x[2], x[3]);
+  v = C::make(x);
 }
 
 // Lane q's part of groups [gb, ge) (gb a multiple of kLanes): the groups
 // g = q (mod kLanes), ascending, their live cells combined into acc and
 // counted into cnt.
-template <int OP, typename W, bool VALUES>
-__device__ __forceinline__ void fold_groups(const Window& c, bool vec, int gb,
-                                            int ge, int q, W& acc, int& cnt) {
+template <int OP, typename T, typename W, bool VALUES>
+__device__ __forceinline__ void fold_groups(const Window<T>& c, bool vec,
+                                            int gb, int ge, int q, W& acc,
+                                            int& cnt) {
+  using C = CellsOf<T>;
   for (int g1 = gb + q; g1 < ge; g1 += kLanes * kUnroll) {
-    uint4 v[kUnroll];
+    typename C::Group v[kUnroll];
     uint32_t k[kUnroll];
 #pragma unroll
     for (int i = 0; i < kUnroll; ++i) {
       const int g = g1 + kLanes * i;
       k[i] = 0u;
-      if (g < ge) load_group<VALUES>(c, vec, g, v[i], k[i]);
+      if (g < ge) load_group<T, VALUES>(c, vec, g, v[i], k[i]);
     }
 #pragma unroll
     for (int i = 0; i < kUnroll; ++i) {
@@ -260,7 +240,7 @@ __device__ __forceinline__ void fold_groups(const Window& c, bool vec, int gb,
 #pragma unroll
         for (int e = 0; e < kGroup; ++e) {
           if (k[i] & (0xffu << (8 * e))) {
-            acc = combine<OP, W>(acc, from_bits<W>(lane_of(v[i], e)));
+            acc = combine<OP, W>(acc, value<T, W>(C::at(v[i], e)));
           }
         }
       }
@@ -283,12 +263,11 @@ __device__ __forceinline__ void team_reduce(W& acc, int& cnt) {
 template <typename T, typename W, bool VALUES>
 __device__ __forceinline__ void write_window(const Partial& p, long long w,
                                              W acc, int cnt) {
+  WordOf<T>* part = static_cast<WordOf<T>*>(p.part);
   if constexpr (VALUES) {
-    p.part[w] = to_bits<W>(acc);
-  } else if constexpr (std::is_same<T, float>::value) {
-    p.part[w] = to_bits<float>((float)cnt);   // count: the kept rows, as float
+    part[w] = stored<T, W>(acc);
   } else {
-    p.part[w] = (uint32_t)cnt;
+    part[w] = count_as<T>(cnt);   // count: the kept rows, in the dtype
   }
   if (p.cnt != nullptr) p.cnt[w] = cnt;
 }
@@ -309,12 +288,12 @@ __device__ __forceinline__ void short_windows(const Partial& p,
   const int team = threadIdx.x / kLanes, q = threadIdx.x % kLanes;
   for (int i = 0; i < kPasses; ++i) {
     const int k = i * kTeams + team;
-    W acc = from_bits<W>(p.ident);
+    W acc = ident_of<W>(p.ident);
     int cnt = 0;
     const bool mine = w0 + k < p.B && s_n[k] <= p.split;
     if (mine) {
-      const Window c = window_at(p, s_lo[k], s_n[k]);
-      fold_groups<OP, W, VALUES>(c, p.vec, 0, c.groups(), q, acc, cnt);
+      const Window<T> c = window_at<T>(p, s_lo[k], s_n[k]);
+      fold_groups<OP, T, W, VALUES>(c, p.vec, 0, c.groups(), q, acc, cnt);
     }
     team_reduce<OP, W, VALUES>(acc, cnt);
     if (mine && q == 0) write_window<T, W, VALUES>(p, w0 + k, acc, cnt);
@@ -325,32 +304,32 @@ __device__ __forceinline__ void short_windows(const Partial& p,
 template <int OP, typename T, bool VALUES>
 __device__ __forceinline__ void long_window(const Partial& p, long long w) {
   using W = typename Work<OP, T>::type;
-  __shared__ uint32_t s_part[2][kTeams];
+  __shared__ W s_part[2][kTeams];
   __shared__ int s_cnt[2][kTeams];
   if (w < 0 || w >= p.B) return;              // the whole block leaves
   long long lo;
   int n;
   clipped(p, w, lo, n);
   if (n <= p.split) return;                   // the short path's window
-  const Window c = window_at(p, lo, n);
+  const Window<T> c = window_at<T>(p, lo, n);
   const int team = threadIdx.x / kLanes, q = threadIdx.x % kLanes;
   const int G = c.groups();
   const int chunks = (G + p.chunk - 1) / p.chunk;
-  W total = from_bits<W>(p.ident);
+  W total = ident_of<W>(p.ident);
   int total_cnt = 0;
   for (int r = 0; r * kTeams < chunks; ++r) {
     const int ch = r * kTeams + team;
-    W acc = from_bits<W>(p.ident);
+    W acc = ident_of<W>(p.ident);
     int cnt = 0;
     if (ch < chunks) {
       const int gb = ch * p.chunk;
-      fold_groups<OP, W, VALUES>(c, p.vec, gb, min(gb + p.chunk, G), q, acc,
-                                 cnt);
+      fold_groups<OP, T, W, VALUES>(c, p.vec, gb, min(gb + p.chunk, G), q,
+                                    acc, cnt);
     }
     team_reduce<OP, W, VALUES>(acc, cnt);
     const int buf = r & 1;
     if (q == 0) {
-      s_part[buf][team] = to_bits<W>(acc);
+      s_part[buf][team] = acc;
       s_cnt[buf][team] = cnt;
     }
     // one barrier a round: the buffer written next round was folded
@@ -360,7 +339,7 @@ __device__ __forceinline__ void long_window(const Partial& p, long long w) {
       const int m = min(kTeams, chunks - r * kTeams);
       for (int t = 0; t < m; ++t) {
         if constexpr (VALUES) {
-          total = combine<OP, W>(total, from_bits<W>(s_part[buf][t]));
+          total = combine<OP, W>(total, s_part[buf][t]);
         }
         total_cnt += s_cnt[buf][t];
       }
@@ -370,7 +349,8 @@ __device__ __forceinline__ void long_window(const Partial& p, long long w) {
 }
 
 template <int OP, typename T, bool VALUES>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 8 ? kMinBlocks8 : kMinBlocks)
 sp_partial_kernel(const __grid_constant__ Partial p) {
   if (blockIdx.x < (unsigned)p.n_long) {
     long_window<OP, T, VALUES>(p, p.long_windows[blockIdx.x]);
@@ -404,39 +384,46 @@ cudaError_t partial_for(int op, const Partial& p, cudaStream_t stream) {
 // -------------------------------------------------------------------- merge
 
 struct Shards {
-  const uint32_t* part[kInline];   // in fold order
+  const void* part[kInline];       // in fold order
   const int32_t* cnt[kInline];     // mean only
-  const uint64_t* far;             // n > kInline: 2n device pointers
-  uint32_t* out;
+  const uint64_t* far;             // n > inline_of<T>(): 2n device pointers
+  void* out;
   int n, B;
   bool vec;                        // every pointer 16-byte aligned
 };
 
-template <typename P>
+template <typename P, typename Q>
 __device__ __forceinline__ const P* shard_ptr(const Shards& s,
-                                              const P* const* inl, int k,
+                                              const Q* const* inl, int k,
                                               int i, int half) {
   return s.far != nullptr
              ? reinterpret_cast<const P*>(s.far[half * s.n + k + i])
-             : inl[i];
+             : reinterpret_cast<const P*>(inl[i]);
 }
 
 // the kMergeWindows cells of one shard from w0 (cell by cell when cut)
-__device__ __forceinline__ uint4 load4(const uint32_t* ptr, long long w0,
-                                       int B, bool full) {
-  if (full) return __ldg(reinterpret_cast<const uint4*>(ptr + w0));
-  uint32_t x[kMergeWindows] = {0u, 0u, 0u, 0u};
+template <typename C>
+__device__ __forceinline__ typename C::Group load4(
+    const typename C::Word* ptr, long long w0, int B, bool full) {
+  if (full) return C::load(reinterpret_cast<const typename C::Group*>(
+      ptr + w0));
+  typename C::Word x[kMergeWindows] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int j = 0; j < kMergeWindows; ++j) {
     if (w0 + j < B) x[j] = __ldg(ptr + w0 + j);
   }
-  return make_uint4(x[0], x[1], x[2], x[3]);
+  return C::make(x);
 }
 
 template <int OP, typename T, int NB>
 __global__ void __launch_bounds__(kMergeThreads)
 sp_merge_kernel(const __grid_constant__ Shards s) {
   using W = typename Work<OP, T>::type;
+  using C = CellsOf<T>;
+  using Word = typename C::Word;
+  using C4 = Cells<4>;
+  // mean's float: float32 for a 4-byte dtype, float64 for an 8-byte one
+  using Out = typename std::conditional<sizeof(T) == 8, double, float>::type;
   constexpr bool kMean = OP == OP_MEAN;
   const long long w0 =
       ((long long)blockIdx.x * kMergeThreads + threadIdx.x) * kMergeWindows;
@@ -445,15 +432,15 @@ sp_merge_kernel(const __grid_constant__ Shards s) {
   W acc[kMergeWindows];
   int c[kMergeWindows] = {0, 0, 0, 0};
   for (int k = 0; k < s.n; k += NB) {
-    uint4 v[NB], cv[NB];
+    typename C::Group v[NB];
+    uint4 cv[NB];
 #pragma unroll
     for (int i = 0; i < NB; ++i) {   // every load before the first combine
       if (k + i < s.n) {
-        v[i] = load4(shard_ptr<uint32_t>(s, s.part, k, i, 0), w0, s.B, full);
+        v[i] = load4<C>(shard_ptr<Word>(s, s.part, k, i, 0), w0, s.B, full);
         if constexpr (kMean) {
-          cv[i] = load4(reinterpret_cast<const uint32_t*>(
-                            shard_ptr<int32_t>(s, s.cnt, k, i, 1)),
-                        w0, s.B, full);
+          cv[i] = load4<C4>(shard_ptr<uint32_t>(s, s.cnt, k, i, 1), w0, s.B,
+                            full);
         }
       }
     }
@@ -462,35 +449,31 @@ sp_merge_kernel(const __grid_constant__ Shards s) {
       if (k + i < s.n) {
 #pragma unroll
         for (int j = 0; j < kMergeWindows; ++j) {
-          const W x = from_bits<W>(lane_of(v[i], j));
+          const W x = value<T, W>(C::at(v[i], j));
           acc[j] = k + i == 0 ? x : combine<OP, W>(acc[j], x);
-          if constexpr (kMean) c[j] += (int32_t)lane_of(cv[i], j);
+          if constexpr (kMean) c[j] += (int32_t)C4::at(cv[i], j);
         }
       }
     }
   }
-  uint32_t o[kMergeWindows];
+  Word o[kMergeWindows];
 #pragma unroll
   for (int j = 0; j < kMergeWindows; ++j) {
     if constexpr (kMean) {
-      // JAX: s / max(c, 1), in float32 for both dtypes
-      float sum;
-      if constexpr (std::is_same<T, float>::value) {
-        sum = acc[j];
-      } else {
-        sum = (float)(int32_t)acc[j];
-      }
-      o[j] = to_bits<float>(sum / (float)(c[j] > 1 ? c[j] : 1));
+      // JAX: s / max(c, 1), the sum converted to the float first
+      const Out sum = (Out)bit_cast<T>(acc[j]);
+      o[j] = bit_cast<Word>(sum / (Out)(c[j] > 1 ? c[j] : 1));
     } else {
-      o[j] = to_bits<W>(acc[j]);
+      o[j] = stored<T, W>(acc[j]);
     }
   }
+  Word* out = static_cast<Word*>(s.out);
   if (full) {
-    *reinterpret_cast<uint4*>(s.out + w0) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<typename C::Group*>(out + w0) = C::make(o);
   } else {
 #pragma unroll
     for (int j = 0; j < kMergeWindows; ++j) {
-      if (w0 + j < s.B) s.out[w0 + j] = o[j];
+      if (w0 + j < s.B) out[w0 + j] = o[j];
     }
   }
 }
@@ -506,6 +489,8 @@ cudaError_t launch_merge(const Shards& s, cudaStream_t stream) {
   } else if (s.n <= 4) {
     sp_merge_kernel<OP, T, 4><<<grid, kMergeThreads, 0, stream>>>(s);
   } else if (s.n <= 8) {
+    sp_merge_kernel<OP, T, 8><<<grid, kMergeThreads, 0, stream>>>(s);
+  } else if constexpr (inline_of<T>() == 8) {
     sp_merge_kernel<OP, T, 8><<<grid, kMergeThreads, 0, stream>>>(s);
   } else {
     sp_merge_kernel<OP, T, kInline><<<grid, kMergeThreads, 0, stream>>>(s);
@@ -527,31 +512,47 @@ cudaError_t merge_for(int op, const Shards& s, cudaStream_t stream) {
 }
 
 bool valid(int op, int dtype) {
-  return op >= OP_SUM && op <= OP_MEAN &&
-         (dtype == DT_INT32 || dtype == DT_FLOAT32);
+  return op >= OP_SUM && op <= OP_MEAN && dtype >= DT_INT32 &&
+         dtype <= DT_FLOAT64 && dtype != DT_FLOAT16;
+}
+
+int width(int dtype) {
+  return dtype == DT_INT64 || dtype == DT_UINT64 || dtype == DT_FLOAT64 ? 8
+                                                                         : 4;
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+// fn<T>(args...) for the dtype code (valid() holds)
+#define WF_BY_DTYPE(fn, dtype, ...)                                  \
+  ((dtype) == DT_FLOAT32   ? fn<float>(__VA_ARGS__)                  \
+   : (dtype) == DT_INT32   ? fn<int32_t>(__VA_ARGS__)                \
+   : (dtype) == DT_UINT32  ? fn<uint32_t>(__VA_ARGS__)               \
+   : (dtype) == DT_INT64   ? fn<long long>(__VA_ARGS__)              \
+   : (dtype) == DT_UINT64  ? fn<unsigned long long>(__VA_ARGS__)     \
+                           : fn<double>(__VA_ARGS__))
+
 }  // namespace
 
-// Writes the (B,) partials `part` (32-bit words of the dtype) and, when
-// `cnt` is not null, the (B,) int32 kept-row counts of one shard: its
-// (Ns,) slice `vals` (int32 or float32 per `dtype`) holds rows [base,
-// base + Ns); `keep` is a (Ns,) byte mask or null; the windows are
-// (starts, lens) in the group's row coordinates; `ident` is the op's
-// identity's bits.  `long_windows` lists the n_long windows whose clipped
-// length exceeds `split` (each once, any order; null when n_long is 0):
-// they are reduced in chunks of `chunk_cells` cells (a multiple of 32),
-// every other window by one team; a listed window of split cells or fewer
-// is left to its team.  mean (op 5) and count need `cnt` for the merge.
-// One launch on `stream`; returns cudaGetLastError() after it.
+// Writes the (B,) partials `part` (words of the dtype) and, when `cnt` is
+// not null, the (B,) int32 kept-row counts of one shard: its (Ns,) slice
+// `vals` (of `dtype`, a Dtype code: int32, float32, uint32, int64, uint64
+// or float64) holds rows [base, base + Ns); `keep` is a (Ns,) byte mask
+// or null; the windows are (starts, lens) in the group's row coordinates;
+// `ident` is the op's identity's bits (the low 4 bytes for a 4-byte
+// dtype).  `long_windows` lists the n_long windows whose clipped length
+// exceeds `split` (each once, any order; null when n_long is 0): they are
+// reduced in chunks of `chunk_cells` cells (a multiple of 32), every other
+// window by one team; a listed window of split cells or fewer is left to
+// its team.  mean (op 5) and count need `cnt` for the merge.  One launch
+// on `stream`; returns cudaGetLastError() after it.
 extern "C" int wf_sp_window_partial(const void* vals, const void* keep,
                                     long long Ns, const void* starts,
                                     const void* lens, int B, long long base,
-                                    int op, int dtype, unsigned int ident,
+                                    int op, int dtype,
+                                    unsigned long long ident,
                                     const void* long_windows, int n_long,
                                     int split, int chunk_cells, void* part,
                                     void* cnt, void* stream) {
@@ -561,14 +562,14 @@ extern "C" int wf_sp_window_partial(const void* vals, const void* keep,
     return (int)cudaErrorInvalidValue;
   }
   Partial p{};
-  p.vals = static_cast<const uint32_t*>(vals);
+  p.vals = vals;
   p.keep = static_cast<const uint8_t*>(keep);
   p.Ns = Ns;
   p.base = base;
   p.starts = static_cast<const int32_t*>(starts);
   p.lens = static_cast<const int32_t*>(lens);
   p.long_windows = static_cast<const int32_t*>(long_windows);
-  p.part = static_cast<uint32_t*>(part);
+  p.part = part;
   p.cnt = static_cast<int32_t*>(cnt);
   p.B = B;
   p.n_long = n_long;
@@ -577,39 +578,39 @@ extern "C" int wf_sp_window_partial(const void* vals, const void* keep,
   p.ident = ident;
   p.vec = aligned(vals, 16) && (keep == nullptr || aligned(keep, 4));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == DT_FLOAT32 ? partial_for<float>(op, p, s)
-                                   : partial_for<int32_t>(op, p, s));
+  return (int)WF_BY_DTYPE(partial_for, dtype, op, p, s);
 }
 
 // Folds, for each of the B windows, the n partials parts[0], ..., parts[n
-// - 1] (device pointers to (B,) dtype words, already in fold order; for
-// mean also the (B,) int32 counts cnts[k]) into the (B,) `out`: dtype
-// words, or float32 for mean.  `parts` and `cnts` are host arrays of n
-// device pointers; past kInline = 16 partials `far` must be a device array
-// of the same 2n pointers (parts, then cnts; unused counts may be 0), else
+// - 1] (device pointers to (B,) words of the dtype, already in fold
+// order; for mean also the (B,) int32 counts cnts[k]) into the (B,) `out`:
+// words of the dtype, or for mean float32 (a 4-byte dtype) or float64 (an
+// 8-byte one).  `parts` and `cnts` are host arrays of n device pointers;
+// past 16 partials (8 for an 8-byte dtype) `far` must be a device array of
+// the same 2n pointers (parts, then cnts; unused counts may be 0), else
 // null.  One launch on `stream`; returns cudaGetLastError() after it.
 extern "C" int wf_sp_merge(const void* const* parts, const void* const* cnts,
                            const void* far, int n, int B, int op, int dtype,
                            void* out, void* stream) {
   const bool mean = op == OP_MEAN;
-  if (n <= 0 || B <= 0 || !valid(op, dtype) || (mean && cnts == nullptr) ||
-      (n > kInline && far == nullptr)) {
+  if (n <= 0 || B <= 0 || !valid(op, dtype) || (mean && cnts == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int inl = width(dtype) == 8 ? 8 : kInline;
+  if (n > inl && far == nullptr) return (int)cudaErrorInvalidValue;
   Shards s{};
   s.n = n;
   s.B = B;
-  s.out = static_cast<uint32_t*>(out);
-  s.far = n > kInline ? static_cast<const uint64_t*>(far) : nullptr;
+  s.out = out;
+  s.far = n > inl ? static_cast<const uint64_t*>(far) : nullptr;
   s.vec = aligned(out, 16);
   for (int k = 0; k < n; ++k) {
     s.vec = s.vec && aligned(parts[k], 16) && (!mean || aligned(cnts[k], 16));
-    if (k < kInline) {
-      s.part[k] = static_cast<const uint32_t*>(parts[k]);
+    if (k < inl) {
+      s.part[k] = parts[k];
       s.cnt[k] = mean ? static_cast<const int32_t*>(cnts[k]) : nullptr;
     }
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == DT_FLOAT32 ? merge_for<float>(op, s, st)
-                                   : merge_for<int32_t>(op, s, st));
+  return (int)WF_BY_DTYPE(merge_for, dtype, op, s, st);
 }

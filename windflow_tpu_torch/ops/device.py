@@ -19,9 +19,27 @@ Differences from the JAX executor, each on purpose:
   bench shape).  The kernels take runtime sizes and mask their own tails.
   A user function's tiles keep the JAX width, ``pad = _bucket(max len)``,
   so it sees the same tile shape; ``B`` stays exact.
-* **Explicit dtype canonicalisation.** The JAX package runs without x64:
-  ``jax.device_put`` turns float64 into float32 and int64 into int32.
-  Here the same casts are written out (:func:`canonical_dtype`).
+* **Explicit column dtypes.** A builtin monoid's column is staged and
+  reduced in the dtype the JAX package's XLA route (its default, the
+  non-Pallas one) computes in, written out here (:func:`staged_dtypes`):
+
+  - a column without a 64-bit ``compute_dtype`` follows JAX's default
+    config (no x64): int8 and int16 columns sum and multiply in int32,
+    uint8 and uint16 in uint32 (their min and max keep the column's dtype);
+    uint32 stays uint32 and uint64 is narrowed to uint32 (what
+    ``jax.device_put`` does); int64 is narrowed to int32 with JAX's
+    warning; float16 stays float16, reduced in float32 and rounded once;
+    float64 is narrowed to float32; a bool column sums and multiplies in
+    int32 (its min and max raise, as JAX's do);
+  - an explicit 64-bit ``compute_dtype`` (int64, uint64, float64) follows
+    JAX under x64: the column is staged and reduced in 64 bits (and a
+    narrow column's sum widens to int64 or uint64).
+
+  JAX's Pallas route (``use_pallas=True``) stores a sum or product of
+  int8, int16, uint8 or uint16 values in the column dtype, so it wraps
+  there; the port follows the XLA route, which does not.  A user window
+  function's staged columns are 32-bit (:func:`canonical_dtype`), or 64-bit
+  under a 64-bit ``compute_dtype``, as JAX under x64 hands them over.
 * **Async protocol.** Every launch, copy and allocation runs on the
   executor's own ``torch.cuda.Stream`` inside its device context (a user
   function's torch ops included).  Host-to-device copies go through pinned
@@ -43,6 +61,7 @@ import numpy as np
 import torch
 
 from .gather import window_gather
+from .monoid import identity
 from .windowed_reduce import windowed_reduce
 
 
@@ -58,15 +77,46 @@ def _bucket(n: int, lo: int = 8) -> int:
 
 
 def canonical_dtype(dtype: np.dtype) -> np.dtype:
-    """The dtype a value column is reduced in on the device: the 32-bit
-    width of its kind, as the JAX package gets it from ``jax.device_put``
-    without x64 (float64 -> float32, int64 -> int32).  Other integer and
-    boolean columns are widened to int32, the kernel's only integer type."""
+    """The dtype a user window function's column is staged in without a
+    64-bit ``compute_dtype``: the 32-bit width of its kind (float64 ->
+    float32, int64 -> int32, as ``jax.device_put`` without x64); other
+    integer and boolean columns are widened to int32."""
     dtype = np.dtype(dtype)
     if dtype.kind == "f":
         return np.dtype(np.float32)
     if dtype.kind in "iub":
         return np.dtype(np.int32)
+    raise TypeError(f"the device path reduces numeric columns only, got "
+                    f"{dtype}")
+
+
+def staged_dtypes(dtype, op: str, x64: bool = False):
+    """``(staged, result)``: the dtype a builtin monoid `op` reads a column
+    of `dtype` in (one of the windowed-reduce kernel's) and the dtype of
+    its result, as the JAX package's XLA route gives them (module
+    docstring); `x64` for a column cast by a 64-bit ``compute_dtype``."""
+    dtype = np.dtype(dtype)
+    kind, size = dtype.kind, dtype.itemsize
+    wide = {"i": np.int64 if x64 else np.int32,
+            "u": np.uint64 if x64 else np.uint32}
+    if kind == "b":
+        if op in ("min", "max"):
+            raise TypeError(f"{op} over a bool column: the JAX package "
+                            "raises too (no identity)")
+        staged = np.dtype(wide["i"])
+        return staged, staged
+    if kind in "iu" and size < 4:
+        # jnp.sum / jnp.prod widen to the default integer of the kind;
+        # min and max keep the column's dtype (reduced 32 bits wide)
+        staged = np.dtype(wide[kind] if op in ("sum", "prod") else
+                          np.int32 if kind == "i" else np.uint32)
+        return staged, (staged if op in ("sum", "prod") else dtype)
+    if kind in "iuf" and (size <= 4 or x64):
+        return dtype, dtype
+    if kind in "iuf":
+        staged = np.dtype({"i": np.int32, "u": np.uint32,
+                           "f": np.float32}[kind])
+        return staged, staged
     raise TypeError(f"the device path reduces numeric columns only, got "
                     f"{dtype}")
 
@@ -132,7 +182,12 @@ class DeviceWindowExecutor:
         # device path's empty-window results identical to the host path's
         # even though compute happens in a narrower dtype (int32 vs int64)
         self.empty_fill = dict(empty_fill or {})
-        # [(meta, B, empty_mask, host_results, event, keepalive)]
+        # a 64-bit compute_dtype: the columns follow JAX under x64
+        self._x64 = (compute_dtype is not None
+                     and np.dtype(compute_dtype).itemsize == 8)
+        # [(meta, B, empty_mask, host_results, event, keepalive,
+        #   narrow)]: narrow is (result dtype, lens == 0) where a narrow
+        #   column's min or max is cast back to its dtype
         self._inflight = []
         self._ready = []     # harvested result batches (host)
         self._warned_downcast = False
@@ -149,8 +204,9 @@ class DeviceWindowExecutor:
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             yield
 
-    def _stage_column(self, col: np.ndarray) -> np.ndarray:
-        """Host-side cast of one value column to the kernel's dtype."""
+    def _cast_column(self, col: np.ndarray) -> np.ndarray:
+        """A value column as JAX's executor stages it: cast to
+        ``compute_dtype`` (numeric columns), else int64 warned about."""
         col = np.asarray(col)
         if self.compute_dtype is not None and col.dtype.kind in "iuf":
             col = col.astype(self.compute_dtype)
@@ -163,6 +219,14 @@ class DeviceWindowExecutor:
                 "window reductions beyond ±2^31 will overflow — pass "
                 "compute_dtype (e.g. np.float32) for wide ranges",
                 stacklevel=4)
+        return col
+
+    def _stage_fn_column(self, col: np.ndarray) -> np.ndarray:
+        """A user function's column in its tile dtype: 32-bit, or 64-bit
+        as it is under a 64-bit compute_dtype."""
+        col = self._cast_column(col)
+        if self._x64 and col.dtype.itemsize == 8:
+            return col
         return col.astype(canonical_dtype(col.dtype), copy=False)
 
     def _to_device(self, host: np.ndarray):
@@ -205,10 +269,19 @@ class DeviceWindowExecutor:
     def _launch_op(self, meta, flat_cols, starts, lens):
         B = len(starts)
         pad = max(int(lens.max()) if B else 1, 1)
-        if self.fields:
-            flat = self._stage_column(flat_cols[self.fields[0]])
+        narrow = None
+        if self.fields and self.op != "count":
+            col = self._cast_column(flat_cols[self.fields[0]])
+            staged, result = staged_dtypes(col.dtype, self.op, self._x64)
+            flat = col.astype(staged, copy=False)
+            if result != staged:
+                narrow = (result, np.asarray(lens) == 0)
         else:
-            flat = np.zeros(0, dtype=np.int32)   # count reads no values
+            # count reads no values: it returns the lengths, in int32 as
+            # JAX's jnp.sum of the mask (a staged field still warns)
+            if self.fields:
+                self._cast_column(flat_cols[self.fields[0]])
+            flat = np.zeros(0, dtype=np.int32)
         sl = np.stack([np.asarray(starts, dtype=np.int32),
                        np.asarray(lens, dtype=np.int32)])
         with self._on_stream():
@@ -218,7 +291,7 @@ class DeviceWindowExecutor:
             hosts, event = self._fetch((out,))
         empty = lens == 0 if self.empty_fill and (lens == 0).any() else None
         self._inflight.append((meta, B, empty, hosts, event,
-                               (p_flat, p_sl, d_flat, d_sl, out)))
+                               (p_flat, p_sl, d_flat, d_sl, out), narrow))
 
     def _launch_fn(self, meta, flat_cols, starts, lens, keys, gwids):
         B = len(starts)
@@ -228,7 +301,7 @@ class DeviceWindowExecutor:
         gwids = np.zeros(B, np.int64) if gwids is None else np.asarray(gwids)
         if not self._warned_id_range:
             self._warned_id_range = warn_id_range(keys, gwids)
-        cols = [self._stage_column(flat_cols[f]) for f in self.fields]
+        cols = [self._stage_fn_column(flat_cols[f]) for f in self.fields]
         # starts, lens, keys, gwids: one int32 copy (keys and gwids wrap
         # like the JAX package's int32 cast)
         vec = np.stack([np.asarray(a).astype(np.int32)
@@ -248,15 +321,22 @@ class DeviceWindowExecutor:
             outs = out if isinstance(out, tuple) else (out,)
             hosts, event = self._fetch(outs)
         self._inflight.append((meta, B, None, hosts, event,
-                               (staged, d_vec, p_vec, tiles, mask, outs)))
+                               (staged, d_vec, p_vec, tiles, mask, outs),
+                               None))
 
     def _harvest_one(self):
-        meta, B, empty, hosts, event, _keep = self._inflight.pop(0)
+        meta, B, empty, hosts, event, _keep, narrow = self._inflight.pop(0)
         if event is not None:
             event.synchronize()
         cols = {}
         for f, h in zip(self.out_fields, hosts):
             v = h.numpy()[:B]
+            if narrow is not None:
+                # a narrow column's min or max, reduced 32 bits wide: its
+                # own dtype, and its identity over empty windows
+                dt, zero = narrow
+                v = v.astype(dt)
+                v[zero] = identity(self.op, dt)
             dt = self.out_dtypes.get(f)
             if dt is not None and v.dtype != dt:
                 v = v.astype(dt)

@@ -16,20 +16,22 @@ window ``b`` and lane ``j < pad`` of an ``(R, ncols)`` buffer::
 resident per-field step cuts the same tiles inside its own kernel
 (``ring.ring_append_multi_eval``), so this kernel serves the restaging
 path.  Values are
-int32 or float32.  :func:`window_gather` takes one buffer or a sequence of
-buffers of one shape (the fields of one window batch) and returns their
-``(B, pad)`` tiles with the bool mask.
+4-byte (int32, uint32, float32) or 8-byte (int64, uint64, float64).
+:func:`window_gather` takes one buffer or a sequence of buffers of one
+shape (the fields of one window batch) and returns their ``(B, pad)``
+tiles with the bool mask.
 
 The kernel (csrc/gather.cu) writes up to :data:`FIELDS_PER_LAUNCH`
 buffers' tiles and the mask in one launch: one block per window and run of
 1,024 lanes, the window's descriptors loaded once, each thread storing 4
-lanes of every field with one 16-byte store and 4 mask lanes with one
-4-byte store (lane by lane only where a row of an odd ``pad`` straddles a
-16-byte edge).  Values move as 32-bit words, so int32 and float32 buffers
-share a launch.
+lanes of every field with one 16-byte store (two for 8-byte values) and 4
+mask lanes with one 4-byte store (lane by lane only where a row of an odd
+``pad`` straddles a group's edge).  Values move as words of their width,
+so the buffers of one width share a launch; a batch with fields of both
+widths takes a launch for each.
 
 A CUDA tensor launches the kernel on the current stream, once for every
-:data:`FIELDS_PER_LAUNCH` buffers (asynchronous, counted in
+:data:`FIELDS_PER_LAUNCH` buffers of one width (asynchronous, counted in
 ``window_gather.launches``; the first launch also writes the mask); a CPU
 tensor runs the plain version.  There is no fallback from one to the other.
 """
@@ -42,8 +44,11 @@ import threading
 import torch
 
 from . import _nvcc
+from .windowed_reduce import _names, signed_view
 
-_DTYPES = (torch.int32, torch.float32)
+#: the dtypes the kernel gathers, by their width in bytes
+_WIDTH = {torch.int32: 4, torch.uint32: 4, torch.float32: 4,
+          torch.int64: 8, torch.uint64: 8, torch.float64: 8}
 #: buffers one kernel launch gathers (csrc/gather.cu kMaxFields)
 FIELDS_PER_LAUNCH = 8
 
@@ -63,8 +68,9 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-            lib.wf_window_gather.argtypes = [c_p, c_p, c_int, c_ll, c_p, c_p,
-                                             c_p, c_int, c_int, c_p, c_p]
+            lib.wf_window_gather.argtypes = [c_p, c_p, c_int, c_int, c_ll,
+                                             c_p, c_p, c_p, c_int, c_int,
+                                             c_p, c_p]
             lib.wf_window_gather.restype = c_int
             _lib = lib
         return _lib
@@ -77,7 +83,8 @@ def _as_tuple(bufs):
 
 def window_gather_reference(bufs, rows, starts, lens, pad: int):
     """Plain version: a clamped advanced-index gather per buffer and a
-    ``torch.where`` over the lane mask."""
+    ``torch.where`` over the lane mask (an unsigned buffer through its
+    signed view: the same words)."""
     single, bufs = _as_tuple(bufs)
     device = starts.device
     lane = torch.arange(int(pad), device=device)
@@ -90,10 +97,11 @@ def window_gather_reference(bufs, rows, starts, lens, pad: int):
                                      device=device))
             continue
         idx = (starts.long()[:, None] + lane[None, :]).clamp(0, ncols - 1)
-        vals = (buf[rows.long()[:, None], idx] if rows is not None
-                else buf[0][idx])
-        tiles.append(torch.where(mask, vals, torch.zeros((), dtype=buf.dtype,
-                                                         device=device)))
+        words = signed_view(buf)
+        vals = (words[rows.long()[:, None], idx] if rows is not None
+                else words[0][idx])
+        tiles.append(torch.where(mask, vals, torch.zeros(
+            (), dtype=vals.dtype, device=device)).view(buf.dtype))
     return (tiles[0] if single else tuple(tiles)), mask
 
 
@@ -102,11 +110,12 @@ def _check(bufs, rows, starts, lens):
         raise ValueError("window_gather needs at least one buffer")
     shape, device = bufs[0].shape, bufs[0].device
     for buf in bufs:
-        if (buf.dtype not in _DTYPES or buf.dim() != 2 or buf.shape != shape
+        if (buf.dtype not in _WIDTH or buf.dim() != 2 or buf.shape != shape
                 or buf.device != device):
-            raise TypeError(f"window_gather takes 2-D int32/float32 buffers of "
-                            f"one shape on one device, got {buf.dtype} "
-                            f"{tuple(buf.shape)} on {buf.device}")
+            raise TypeError(f"window_gather takes 2-D buffers of "
+                            f"{_names(_WIDTH)} of one shape on one device, "
+                            f"got {buf.dtype} {tuple(buf.shape)} on "
+                            f"{buf.device}")
     B = starts.numel()
     for name, t in (("rows", rows), ("starts", starts), ("lens", lens)):
         if t is None:
@@ -144,16 +153,20 @@ def window_gather(bufs, rows, starts, lens, pad: int):
         return (tiles[0] if single else tiles), mask
     lib = _load()
     ncols = bufs[0].shape[1]
+    widths = {}        # width -> its buffers, in order
+    for k, b in enumerate(bufs):
+        widths.setdefault(_WIDTH[b.dtype], []).append(k)
+    launches = [(w, m[i:i + FIELDS_PER_LAUNCH]) for w, m in widths.items()
+                for i in range(0, len(m), FIELDS_PER_LAUNCH)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for i in range(0, len(bufs), FIELDS_PER_LAUNCH):
-            group = range(i, min(i + FIELDS_PER_LAUNCH, len(bufs)))
+        for i, (width, group) in enumerate(launches):
             srcs = (ctypes.c_void_p * len(group))(
                 *(bufs[k].data_ptr() for k in group))
             dsts = (ctypes.c_void_p * len(group))(
                 *(tiles[k].data_ptr() for k in group))
             rc = lib.wf_window_gather(
-                srcs, dsts, len(group), ncols,
+                srcs, dsts, len(group), width, ncols,
                 rows.data_ptr() if rows is not None else None,
                 starts.data_ptr(), lens.data_ptr(), B, pad,
                 mask.data_ptr() if i == 0 else None, stream)

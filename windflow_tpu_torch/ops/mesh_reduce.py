@@ -10,7 +10,7 @@ pmax, the all_gather fold of prod, :167-186; the ring of ppermute hops,
 * :func:`sp_window_partial` — one (kf, wf, sp) shard's partial of each of
   its windows.  The shard's ``(Ns,)`` value slice holds rows ``[base, base
   + Ns)`` of its group (after the user's ``map_fn``, in the reduction's
-  dtype, int32 or float32); ``keep`` is ``None`` or the ``(Ns,)`` bool
+  dtype: one of :data:`DTYPES`); ``keep`` is ``None`` or the ``(Ns,)`` bool
   output of the user's ``filter_fn``.  Window ``w`` is clipped to the
   slice, ``lo = clip(starts[w] - base, 0, Ns)``, ``hi = clip(starts[w] +
   lens[w] - base, 0, Ns)``, and its kept rows are reduced; count and mean
@@ -24,9 +24,14 @@ pmax, the all_gather fold of prod, :167-186; the ring of ppermute hops,
   0, n-1, ..., 1 (``ring=True``: the order in which sp shard 0 accumulates
   its ``n_sp - 1`` ppermute hops, whose value JAX returns), in one launch
   on the merging device, reading each partial where it lies.  Partials on
-  another device are copied there first.  ``mean`` returns float32 ``sum
-  / max(count, 1)``, also for an int32 dtype (JAX's ``/`` of int32 gives
-  float32).
+  another device are copied there first.  ``mean`` returns ``sum /
+  max(count, 1)`` in float32 for a 4-byte dtype and in float64 for an
+  8-byte one, also for an integer dtype (JAX's ``/`` of int32 or uint32
+  gives float32, of int64 or uint64 under x64 float64).
+
+Integer sums and products wrap at the dtype's width, uint32 and uint64
+compare unsigned (windowed_reduce.Work: the plain versions and twins
+compute in it, torch having few ops for the unsigned dtypes).
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``; one launch a call); a CPU tensor runs
@@ -47,12 +52,14 @@ import torch
 
 from . import _nvcc
 from .monoid import identity
-from .windowed_reduce import GROUP, _combine, _wrap32, chunked_fold
+from .windowed_reduce import (DTYPE_CODES, GROUP, Work, _combine, _names,
+                              chunked_fold, signed_view)
 
-#: op codes of the C launchers (enum Op in the .cu source)
+#: op codes of the C launchers (enum Op in csrc/cells.cuh)
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4, "mean": 5}
-#: value dtypes the kernels are instantiated for (enum Dtype)
-_DTYPES = {torch.int32: 0, torch.float32: 1}
+#: value dtypes the kernels are instantiated for (their codes: enum Dtype)
+DTYPES = (torch.int32, torch.float32, torch.uint32, torch.int64,
+          torch.uint64, torch.float64)
 # sp_window_partial's geometry (csrc/mesh_reduce.cu; partial_order_twin
 # follows it): a window of at most SPLIT cells is reduced by one team of
 # 8 lanes, a longer one by a block, in chunks of CHUNK cells (a multiple
@@ -82,7 +89,7 @@ def _load():
             c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
             lib.wf_sp_window_partial.argtypes = [
                 c_p, c_p, c_ll, c_p, c_p, c_int, c_ll, c_int, c_int,
-                ctypes.c_uint, c_p, c_int, c_int, c_int, c_p, c_p, c_p]
+                ctypes.c_ulonglong, c_p, c_int, c_int, c_int, c_p, c_p, c_p]
             lib.wf_sp_window_partial.restype = c_int
             lib.wf_sp_merge.argtypes = [c_p, c_p, c_p, c_int, c_int, c_int,
                                         c_int, c_p, c_p]
@@ -99,18 +106,16 @@ def needs_count(op: str) -> bool:
 def _check_op(op: str, dtype: torch.dtype):
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {tuple(_OPS)}")
-    if dtype not in _DTYPES:
-        raise TypeError(f"the mesh reduction runs in int32 or float32, got "
+    if dtype not in DTYPES:
+        raise TypeError(f"the mesh reduction runs in {_names(DTYPES)}, got "
                         f"{dtype}")
 
 
-def _ident(op: str, dtype: torch.dtype) -> torch.Tensor:
-    return torch.tensor(identity(op, dtype).item(), dtype=dtype)
-
-
 def _ident_bits(op: str, dtype: torch.dtype) -> int:
-    np_dt = np.int32 if dtype == torch.int32 else np.float32
-    return int(np.array(identity(op, np_dt), dtype=np_dt).view(np.uint32))
+    """The identity's bits in `dtype`, as an unsigned 64-bit int."""
+    np_dt = torch.empty(0, dtype=dtype).numpy().dtype
+    a = np.array(identity(op, np_dt), dtype=np_dt)
+    return int(a.view(np.uint32 if a.itemsize == 4 else np.uint64))
 
 
 def _bounds(starts, lens, base: int, Ns: int):
@@ -133,15 +138,18 @@ def sp_window_partial_reference(vals, keep, starts, lens, base: int,
     dtype = vals.dtype
     _check_op(op, dtype)
     device = vals.device
+    work = Work(dtype)
+    vals = signed_view(vals)
     B, Ns = starts.numel(), vals.numel()
-    part = torch.empty(B, dtype=dtype, device=device)
+    part = torch.empty(B, dtype=vals.dtype, device=device)   # signed view
     cnt = torch.zeros(B, dtype=torch.int32, device=device)
     lo, hi = _bounds(starts, lens, base, Ns)
     n = (hi - lo).clamp(min=0)
-    ident = _ident(op if op != "count" else "sum", dtype).to(device)
+    red = "sum" if op in ("count", "mean") else op
+    ident = work.ident(red, device)
     if Ns == 0 or B == 0:
-        part[:] = ident
-        return part, (cnt if needs_count(op) else None)
+        part[:] = signed_view(work.store(ident))
+        return part.view(dtype), (cnt if needs_count(op) else None)
     order = torch.argsort(n)
     ns = n[order].cpu().numpy()
     i = 0
@@ -162,21 +170,12 @@ def sp_window_partial_reference(vals, keep, starts, lens, base: int,
         c = mask.sum(dim=1)
         cnt[sel] = c.to(torch.int32)
         if op == "count":
-            part[sel] = c.to(dtype)
+            part[sel] = signed_view(work.store(c))
         else:
-            v = torch.where(mask, vals[idx], ident)
-            if dtype == torch.int32 and op in ("sum", "mean", "prod"):
-                wide = v.long()
-                red = wide.prod(dim=1) if op == "prod" else wide.sum(dim=1)
-                part[sel] = _wrap32(red).to(torch.int32)
-            elif op in ("sum", "mean"):
-                part[sel] = v.sum(dim=1)
-            elif op == "prod":
-                part[sel] = v.prod(dim=1)
-            else:
-                part[sel] = v.amin(dim=1) if op == "min" else v.amax(dim=1)
+            v = torch.where(mask, work.load(vals[idx]), ident)
+            part[sel] = signed_view(work.store(work.reduce(red, v, 1)))
         i = j
-    return part, (cnt if needs_count(op) else None)
+    return part.view(dtype), (cnt if needs_count(op) else None)
 
 
 def find_long_windows(starts, lens, base: int, Ns: int,
@@ -207,24 +206,23 @@ def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
     dtype = vals.dtype
     _check_op(op, dtype)
     device = vals.device
+    work = Work(dtype)
+    vals = signed_view(vals)
     Ns = vals.numel()
     lo, hi = _bounds(starts, lens, base, Ns)
     n = (hi - lo).clamp(min=0)
-    is_int = dtype == torch.int32
-    work = torch.int64 if is_int else dtype
     red = "sum" if op in ("count", "mean") else op
-    ident = _ident(red, dtype).to(work).to(device)
 
     def cells(win, j):
         if Ns == 0:
             return None, False
         idx = (lo[win][:, None] + j).clamp(0, Ns - 1)
-        v = vals[idx].to(work) if op != "count" else None
+        v = work.load(vals[idx]) if op != "count" else None
         return v, (keep[idx] if keep is not None else True)
 
-    acc, cnt = chunked_fold(red, is_int, ident, lo % GROUP, n, split, chunk,
-                            cells)
-    part = cnt.to(dtype) if op == "count" else acc.to(dtype)
+    acc, cnt = chunked_fold(red, work, work.ident(red, device), lo % GROUP,
+                            n, split, chunk, cells)
+    part = work.store(cnt if op == "count" else acc)
     return part, (cnt.to(torch.int32) if needs_count(op) else None)
 
 
@@ -297,7 +295,7 @@ def sp_window_partial(vals, keep, starts, lens, base: int, op: str,
         rc = lib.wf_sp_window_partial(
             vals.data_ptr(), keep.data_ptr() if keep is not None else None,
             vals.numel(), starts.data_ptr(), lens.data_ptr(), B, int(base),
-            _OPS[op], _DTYPES[vals.dtype],
+            _OPS[op], DTYPE_CODES[vals.dtype],
             _ident_bits("sum" if op == "count" else op, vals.dtype),
             long_windows.data_ptr() if n_long else None, n_long, SPLIT,
             CHUNK, part.data_ptr(),
@@ -316,33 +314,34 @@ sp_window_partial.launches = 0
 
 # -------------------------------------------------------------------- merge
 
-def _merge_out(op, dtype):
-    return torch.float32 if op == "mean" else dtype
+def merge_out(op, dtype):
+    """sp_merge's result dtype: the partials', or for mean float32 (a
+    4-byte dtype) or float64 (an 8-byte one)."""
+    if op != "mean":
+        return dtype
+    return torch.float64 if Work(dtype).itemsize == 8 else torch.float32
 
 
-def _mean(s, c):
-    """JAX's ``s / max(c, 1)``: float32 for an int32 or float32 sum."""
-    return s.to(torch.float32) / c.clamp(min=1).to(torch.float32)
+def _mean(s, c, work):
+    """JAX's ``s / max(c, 1)`` over a held sum `s`: both converted to the
+    float of the dtype's width first."""
+    f = merge_out("mean", work.dtype)
+    return work.to_float(s, f) / c.clamp(min=1).to(f)
 
 
 def sp_merge_reference(parts, cnts, op: str, ring: bool = False):
     """Plain version: one torch reduction over the shard axis of the
-    ``(n, B)`` partials (int32 sums and products in int64, wrapped); the
-    order of a float fold is torch's.  ``ring`` selects only the order,
-    which the plain version does not fix."""
+    ``(n, B)`` partials, in the dtype's work type (integer sums and
+    products wrapped at its width); the order of a float fold is torch's.
+    ``ring`` selects only the order, which the plain version does not
+    fix."""
     _check_op(op, parts.dtype)
-    is_int = parts.dtype == torch.int32
-    if op in ("sum", "count", "mean", "prod"):
-        wide = parts.long() if is_int else parts
-        red = wide.prod(dim=0) if op == "prod" else wide.sum(dim=0)
-        s = _wrap32(red).to(torch.int32) if is_int else red
-    elif op == "min":
-        s = parts.amin(dim=0)
-    else:
-        s = parts.amax(dim=0)
+    work = Work(parts.dtype)
+    red = "sum" if op in ("count", "mean") else op
+    s = work.reduce(red, work.load(parts), 0)
     if op == "mean":
-        return _mean(s, cnts.long().sum(dim=0))
-    return s
+        return _mean(s, cnts.long().sum(dim=0), work)
+    return work.store(s)
 
 
 def fold_order(n: int, ring: bool) -> list:
@@ -355,24 +354,28 @@ def merge_order_twin(parts, cnts, op: str, ring: bool = False):
     (:func:`fold_order`), one shard at a time; no path of the port calls
     it."""
     _check_op(op, parts.dtype)
-    is_int = parts.dtype == torch.int32
-    work = torch.int64 if is_int else parts.dtype
+    work = Work(parts.dtype)
     order = fold_order(parts.shape[0], ring)
     red = "sum" if op in ("count", "mean") else op
-    acc = parts[order[0]].to(work)
+    acc = work.load(parts[order[0]])
     c = cnts[order[0]].long() if cnts is not None else None
     for k in order[1:]:
-        acc = _combine(red, acc, parts[k].to(work), is_int)
+        acc = _combine(red, acc, work.load(parts[k]), work)
         if c is not None:
             c = c + cnts[k].long()
     if op == "mean":
-        return _mean(acc.to(parts.dtype), c)
-    return acc.to(parts.dtype)
+        return _mean(acc, c, work)
+    return work.store(acc)
 
 
 #: partials whose pointers travel in the merge kernel's parameters
-#: (kInline); more go through a device array of pointers
+#: (kInline; 8 for 8-byte partials); more go through a device array of
+#: pointers
 MERGE_INLINE = 16
+
+
+def merge_inline(dtype: torch.dtype) -> int:
+    return MERGE_INLINE // 2 if Work(dtype).itemsize == 8 else MERGE_INLINE
 
 
 def _on_device(ts, name, want, B, device):
@@ -398,7 +401,7 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
     for mean).  One launch on the merging `device` (default: the first
     partial's) reads every partial that lies there in place; one on
     another device is copied there first.  Returns the (B,) result in
-    their dtype, float32 for mean."""
+    their dtype, for mean in :func:`merge_out`'s float."""
     first = partials[0]
     dtype = first.dtype
     _check_op(op, dtype)
@@ -419,7 +422,7 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
         raise ValueError(f"sp_merge runs on cuda or cpu tensors, got "
                          f"{device}")
     n = len(parts)
-    out = torch.empty(B, dtype=_merge_out(op, dtype), device=device)
+    out = torch.empty(B, dtype=merge_out(op, dtype), device=device)
     if B == 0:
         return out
     order = fold_order(n, ring)
@@ -427,7 +430,7 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
     cp = ([cnts[k].data_ptr() for k in order] if op == "mean"
           else [0] * n)
     far = None
-    if n > MERGE_INLINE:     # the pointers as a device array
+    if n > merge_inline(dtype):     # the pointers as a device array
         far = torch.tensor(pp + cp, dtype=torch.int64).to(device)
     lib = _load()
     with torch.cuda.device(device):
@@ -435,7 +438,7 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
             (ctypes.c_void_p * n)(*pp),
             (ctypes.c_void_p * n)(*cp) if op == "mean" else None,
             far.data_ptr() if far is not None else None, n, B, _OPS[op],
-            _DTYPES[dtype], out.data_ptr(),
+            DTYPE_CODES[dtype], out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sp_merge kernel launch failed: CUDA error {rc}")

@@ -69,7 +69,7 @@ import torch
 from . import _nvcc
 from .gather import FIELDS_PER_LAUNCH, window_gather_reference
 from .monoid import identity
-from .windowed_reduce import (GROUP, _OPS, _check_op, chunked_fold,
+from .windowed_reduce import (GROUP, _OPS, Work, _check_op, chunked_fold,
                               out_dtype, windowed_reduce_many_reference)
 
 #: wire dtypes of the rectangle (enum Wire in csrc/resident.cuh)
@@ -547,18 +547,15 @@ def _ordered(ring, op, rows, starts, lens, pad, split, chunk):
     n = lens.long().clamp(0, int(pad))
     # integers in int64: reduced modulo 2**32 after every step for cells
     # of 1-4 bytes (the kernels' uint32), int64's own wrap for 8
-    is_int = not ring.is_floating_point()
-    work = torch.int64 if is_int else ring.dtype
+    work = Work(ring.dtype)
 
     def cells(win, j):
         col = (s[win][:, None] + j).clamp(0, cap - 1)
-        return ring[r[win][:, None], col].to(work), True
+        return work.load(ring[r[win][:, None], col]), True
 
-    ident = torch.tensor(identity(op, ring.dtype).item(), dtype=work,
-                         device=ring.device)
-    acc, _ = chunked_fold(op, is_int and ring.dtype.itemsize < 8, ident,
+    acc, _ = chunked_fold(op, work, work.ident(op, ring.device),
                           (r * cap + s) % GROUP, n, split, chunk, cells)
-    return acc.to(out_dtype(op, ring.dtype))
+    return work.store(acc, out_dtype(op, ring.dtype))
 
 
 def _check_eval(ring, evals, rows, starts, lens, pad):

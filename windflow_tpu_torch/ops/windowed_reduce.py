@@ -7,12 +7,16 @@ This is the port of the Pallas TPU kernel
 XLA device bodies that evaluate windows over a resident ring
 (``_ring_eval`` through ``_append_eval`` and ``_make_multi_step``'s stats,
 ``windflow_tpu/ops/resident.py:243, :260, :599``).  An *evaluation* is a
-``(buf, op)`` pair: ``buf`` an ``(R, ncols)`` int32 or float32 tensor (or
-a 1-D ``(ncols,)`` one, a single row), ``op`` one of sum, count, min, max
-and prod.  Window ``w`` is ``buf[rows[w], starts[w] : starts[w] +
+``(buf, op)`` pair: ``buf`` an ``(R, ncols)`` tensor (or a 1-D
+``(ncols,)`` one, a single row) of int32, float32, uint32, int64, uint64,
+float16 or float64 (:data:`DTYPE_CODES`), ``op`` one of sum, count, min,
+max and prod.  Window ``w`` is ``buf[rows[w], starts[w] : starts[w] +
 min(lens[w], pad)]`` (``rows=None`` reads row 0), a column past the row's
 end reading its last cell as the JAX gathers clamp; it is reduced in the
-buffer's dtype.  ``count`` returns the lengths converted to that dtype.
+buffer's dtype: integer sums and products wrap at its width, uint32 and
+uint64 compare unsigned, and float16 is reduced in float32 and rounded to
+float16 once (:class:`Work`).  ``count`` returns the lengths converted to
+that dtype.
 The TPU kernel also accepted ``op="mean"`` and returned the window *sum*
 for it (its reducer table maps mean to sum); no Reducer reaches it, and
 this port refuses it.
@@ -38,18 +42,24 @@ import torch
 from . import _nvcc
 from .monoid import identity
 
-#: op codes of the C launcher (enum Op in the .cu source)
+#: op codes of the C launcher (enum Op in csrc/cells.cuh)
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4}
-#: value dtypes the kernel is instantiated for (enum Dtype)
-_DTYPES = {torch.int32: 0, torch.float32: 1}
+#: dtype codes of the C launchers (enum Dtype in csrc/cells.cuh), shared
+#: by the mesh kernels (ops/mesh_reduce.py)
+DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.uint32: 2,
+               torch.int64: 3, torch.uint64: 4, torch.float16: 5,
+               torch.float64: 6}
+#: the dtypes that share a launch (the kernel's <int32_t, float>
+#: instantiation); every other dtype launches on its own
+_INT32_CLASS = (torch.int32, torch.float32)
 
 # the kernel's geometry (constants of csrc/windowed_reduce.cu; the
 # lane-order twin follows them, the tests and chip_smoke.py build their
 # cases from them)
 #: evaluations one launch takes (kMaxEvals)
 EVALS_PER_LAUNCH = 8
-#: lanes that reduce one window (kLanes) and cells of a 16-byte group
-#: (kGroup): cell j of a window whose first cell has flat index f0 (row *
+#: lanes that reduce one window (kLanes) and cells of a group, one vector
+#: load at every width (kGroup): cell j of a window whose first cell has flat index f0 (row *
 #: ncols + start) is combined by lane ((f0 % GROUP + j) // GROUP) % LANES
 LANES = 8
 GROUP = 4
@@ -89,10 +99,98 @@ def _check_op(op: str):
         raise ValueError(f"unknown op {op!r}; expected one of {tuple(_OPS)}")
 
 
+_UNSIGNED = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(t: torch.Tensor) -> torch.Tensor:
+    """An unsigned tensor as the signed integers of its width (the same
+    bits): torch has few ops for uint32 and uint64, but gathers and copies
+    of the signed view are the same words."""
+    return t.view(_UNSIGNED[t.dtype]) if t.dtype in _UNSIGNED else t
+
+
+class Work:
+    """How the plain versions and the CPU twins compute over values of one
+    dtype, as the kernels do in their work type (csrc/cells.cuh, Work).
+
+    Values are held as int64 for every integer dtype (uint64 as its bits),
+    as float32 for float16, else in the dtype itself.  A sum or product of
+    integers of 1-4 bytes is reduced modulo 2**32 after every step (into
+    the int32 range for a signed dtype, [0, 2**32) for uint32); 64-bit
+    integers wrap by themselves.  min and max order uint64 values by their
+    bits with the sign bit flipped (an unsigned compare); every other held
+    value compares as it is."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.is_float = dtype.is_floating_point
+        self.held = (torch.float32 if dtype == torch.float16
+                     else dtype if self.is_float else torch.int64)
+        self.itemsize = torch.empty(0, dtype=dtype).element_size()
+
+    def load(self, x: torch.Tensor) -> torch.Tensor:
+        """Values stored in the dtype (or its signed view) as held."""
+        if self.dtype == torch.uint32:
+            return x.view(torch.int32).long() & 0xFFFFFFFF
+        if self.dtype == torch.uint64:
+            return x.view(torch.int64)
+        return x.to(self.held)
+
+    def store(self, x: torch.Tensor, dtype: torch.dtype = None):
+        """Held values as `dtype` (default: the dtype): an integer keeps
+        its low bits, float16 is rounded once."""
+        dtype = dtype or self.dtype
+        if dtype == torch.uint32:
+            return _wrap32(x).to(torch.int32).view(torch.uint32)
+        if dtype == torch.uint64:
+            return x.view(torch.uint64)
+        return x.to(dtype)
+
+    def wrap(self, x: torch.Tensor) -> torch.Tensor:
+        """A held sum or product reduced to the kernel's width."""
+        if self.is_float or self.itemsize == 8:
+            return x
+        if self.dtype == torch.uint32:
+            return x & 0xFFFFFFFF
+        return _wrap32(x)
+
+    def key(self, x: torch.Tensor) -> torch.Tensor:
+        """Held values in the order min and max compare them (an
+        involution: key(key(x)) is x)."""
+        return x ^ (-2 ** 63) if self.dtype == torch.uint64 else x
+
+    def ident(self, op: str, device=None) -> torch.Tensor:
+        """The identity of `op` over the dtype, held (a 0-d tensor)."""
+        np_dt = np.dtype(torch.empty(0, dtype=self.dtype).numpy().dtype)
+        arr = np.array([identity(op, np_dt)], dtype=np_dt)
+        return self.load(torch.from_numpy(arr))[0].to(device)
+
+    def reduce(self, op: str, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """`op` over held values along `dim`, in torch's order."""
+        if op in ("sum", "count", "mean"):
+            return self.wrap(x.sum(dim=dim))
+        if op == "prod":
+            return self.wrap(x.prod(dim=dim))
+        k = self.key(x)
+        return self.key(k.amin(dim=dim) if op == "min" else k.amax(dim=dim))
+
+    def to_float(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Held values as the float `dtype`, rounded once (a uint64 as its
+        unsigned value)."""
+        if self.dtype != torch.uint64:
+            return x.to(dtype)
+        hi = ((x >> 32) & 0xFFFFFFFF).to(torch.float64) * 2.0 ** 32
+        return (hi + (x & 0xFFFFFFFF).to(torch.float64)).to(dtype)
+
+
 def _ident_bits(op: str, dtype: torch.dtype) -> int:
-    """32-bit pattern of the monoid identity in `dtype` (kernel argument)."""
-    np_dt = np.int32 if dtype == torch.int32 else np.float32
-    return int(np.array(identity(op, np_dt), dtype=np_dt).view(np.uint32))
+    """Bit pattern of the monoid identity in the kernels' work type for
+    values of `dtype` (float32 for float16), as an unsigned 64-bit int
+    (kernel argument; a 4-byte pattern in the low bytes)."""
+    np_dt = (np.dtype(np.float32) if dtype == torch.float16
+             else torch.empty(0, dtype=dtype).numpy().dtype)
+    a = np.array(identity(op, np_dt), dtype=np_dt)
+    return int(a.view(np.uint32 if a.itemsize == 4 else np.uint64))
 
 
 def _as_rows(buf: torch.Tensor) -> torch.Tensor:
@@ -111,31 +209,24 @@ def out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
 
 
 def _reference_one(buf, rows, starts, lens, pad, op):
+    work = Work(buf.dtype)
     if op == "count":
-        return lens.to(buf.dtype)
-    buf = _as_rows(buf)
+        return work.store(lens.long())
+    buf = signed_view(_as_rows(buf))
     device = buf.device
-    ident = torch.tensor(identity(op, buf.dtype).item(), dtype=buf.dtype,
-                         device=device)
+    ident = work.ident(op, device)
     ncols = buf.shape[1]
     if ncols == 0:
-        return ident.expand(len(starts)).clone()
+        return work.store(ident.expand(len(starts)).clone(),
+                          out_dtype(op, work.dtype))
     lane = torch.arange(int(pad), device=device)
     mask = lane[None, :] < lens.long()[:, None]
     idx = (starts.long()[:, None] + lane[None, :]).clamp(0, ncols - 1)
     vals = buf[rows.long()[:, None], idx] if rows is not None else buf[0][idx]
-    vals = torch.where(mask, vals, ident)
-    if op in ("sum", "prod") and not buf.is_floating_point():
-        # accumulate in int64 and truncate: the low bits are the wrapped
-        # result (torch.sum of int32 would otherwise widen)
-        wide = vals.long()
-        red = wide.sum(dim=1) if op == "sum" else wide.prod(dim=1)
-        return red.to(out_dtype(op, buf.dtype))
-    if op == "sum":
-        return vals.sum(dim=1)
-    if op == "prod":
-        return vals.prod(dim=1)
-    return vals.amin(dim=1) if op == "min" else vals.amax(dim=1)
+    # integers held in int64 (their sums and products wrapped to the
+    # dtype's width), float16 in float32: torch.sum of int32 would widen
+    vals = torch.where(mask, work.load(vals), ident)
+    return work.store(work.reduce(op, vals, 1), out_dtype(op, work.dtype))
 
 
 def windowed_reduce_many_reference(evals, rows, starts, lens,
@@ -143,8 +234,9 @@ def windowed_reduce_many_reference(evals, rows, starts, lens,
     """Plain PyTorch version of the kernel: per evaluation a gather
     ``buf[rows, clamp(starts + lane, 0, ncols - 1)]`` into a (B, pad) tile,
     the lanes past each length set to the identity, a reduction over axis
-    1.  Integer sums and products wrap like the kernels' (int32 modulo
-    2**32; the ring kernels' other dtypes as :func:`out_dtype` says)."""
+    1, in the dtype's work type (:class:`Work`).  Integer sums and
+    products wrap like the kernels' (at the dtype's width; the ring
+    kernels' int8 and int16 as :func:`out_dtype` says)."""
     out = []
     for buf, op in evals:
         _check_op(op)
@@ -166,34 +258,35 @@ def _wrap32(x):
     return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
 
 
-def _combine(op, a, b, is_int):
-    """The kernel's combine(a, b): a + b and a * b (int32 wrapping), and
-    for min/max ``a`` where a is NaN or wins, else ``b``."""
+def _combine(op, a, b, work):
+    """The kernel's combine(a, b) over held values (`work` a
+    :class:`Work`): a + b and a * b (wrapped to the dtype's width), and for
+    min/max ``a`` where a is NaN or wins, else ``b``."""
     if op == "sum":
-        return _wrap32(a + b) if is_int else a + b
+        return work.wrap(a + b)
     if op == "prod":
-        return _wrap32(a * b) if is_int else a * b
-    first = a < b if op == "min" else a > b
-    if not is_int:
+        return work.wrap(a * b)
+    ka, kb = work.key(a), work.key(b)
+    first = ka < kb if op == "min" else ka > kb
+    if work.is_float:
         first = first | torch.isnan(a)
     return torch.where(first, a, b)
 
 
-def team_fold(op, is_int, ident, gb, ge, a, n, cells):
+def team_fold(op, work, ident, gb, ge, a, n, cells):
     """The order of a team of LANES lanes, shared by the CPU twins of the
     kernels that reduce in it (csrc/windowed_reduce.cu, csrc/mesh_reduce.cu).
 
     For S spans, each the groups [gb, ge) of a window of n cells whose cell
-    j lies in 16-byte group (a + j) // GROUP: lane q combines the groups g
+    j lies in 4-cell group (a + j) // GROUP: lane q combines the groups g
     = gb + q + LANES * t in ascending t, and in each its cells j = GROUP *
     g + k - a (k = 0 .. GROUP - 1) inside [0, n) in ascending k, starting
-    from the identity `ident` (a 0-d tensor of the work type); ``cells(j)``
-    gives the (S, LANES) values of cells j (in the work type; None: count
-    only) and a mask of the cells that count (True for all).  Then a
-    butterfly over LANES/2, ..., 2, 1 in which every lane combines its own
-    value with its partner's, own first.  int32 sums and products run in
-    int64 reduced modulo 2**32 after every step (the kernels' uint32).
-    Returns lane 0's (S,) value and the (S,) number of cells combined."""
+    from the identity `ident` (a 0-d tensor, held as `work` says: a
+    :class:`Work`); ``cells(j)`` gives the (S, LANES) held values of cells
+    j (None: count only) and a mask of the cells that count (True for
+    all).  Then a butterfly over LANES/2, ..., 2, 1 in which every lane
+    combines its own value with its partner's, own first.  Returns lane
+    0's (S,) value and the (S,) number of cells combined."""
     S = gb.numel()
     lane = torch.arange(LANES, device=gb.device)
     acc = ident.expand(S, LANES).clone()
@@ -207,16 +300,16 @@ def team_fold(op, is_int, ident, gb, ge, a, n, cells):
             live = (g < ge[:, None]) & (j >= 0) & (j < n[:, None]) & kept
             cnt += live
             if v is not None:
-                acc = torch.where(live, _combine(op, acc, v, is_int), acc)
+                acc = torch.where(live, _combine(op, acc, v, work), acc)
     off = LANES // 2
     while off:
-        acc = _combine(op, acc, acc[:, lane ^ off], is_int)
+        acc = _combine(op, acc, acc[:, lane ^ off], work)
         cnt = cnt + cnt[:, lane ^ off]
         off //= 2
     return acc[:, 0], cnt[:, 0]
 
 
-def chunked_fold(op, is_int, ident, a, n, split, chunk, cells):
+def chunked_fold(op, work, ident, a, n, split, chunk, cells):
     """The order of the kernels that cut long windows into chunks
     (csrc/mesh_reduce.cu sp_window_partial, csrc/resident.cuh
     ring_append_eval), shared by their CPU twins.
@@ -242,7 +335,7 @@ def chunked_fold(op, is_int, ident, a, n, split, chunk, cells):
     gb = torch.where(span_long, ch * cg, torch.zeros_like(ch))
     ge = torch.where(span_long, torch.minimum(gb + cg, groups[win]),
                      groups[win])
-    sv, sc = team_fold(op, is_int, ident, gb, ge, a[win], n[win],
+    sv, sc = team_fold(op, work, ident, gb, ge, a[win], n[win],
                        lambda j: cells(win, j))
     acc = ident.expand(B).clone()
     cnt = torch.zeros(B, dtype=torch.int64, device=device)
@@ -264,7 +357,7 @@ def chunked_fold(op, is_int, ident, a, n, split, chunk, cells):
         tot = ident.expand(lw.numel()).clone()
         for c in range(grid.shape[1]):
             tot = torch.where(c < chunks,
-                              _combine(op, tot, grid[:, c], is_int), tot)
+                              _combine(op, tot, grid[:, c], work), tot)
         acc[lw] = tot
         cnt[lw] = gcnt.sum(dim=1)
     return acc, cnt
@@ -277,21 +370,20 @@ def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
 
     With len = min(lens[w], pad), s = max(starts[w], 0) and a = (rows[w] *
     ncols + s) mod 4, cell j of window w is column min(s + j, ncols - 1) of
-    row rows[w] and lies in the window's 16-byte group (a + j) // 4, which
+    row rows[w] and lies in the window's 4-cell group (a + j) // 4, which
     belongs to lane group mod LANES; the lanes combine as
-    :func:`team_fold` says, over all of the window's groups."""
+    :func:`team_fold` says, over all of the window's groups, in the
+    dtype's work type (:class:`Work`; float16 rounded once at the end)."""
     outs = []
     for buf, op in evals:
         _check_op(op)
+        work = Work(buf.dtype)
         if op == "count":
-            outs.append(lens.to(buf.dtype))
+            outs.append(work.store(lens.long()))
             continue
-        buf2 = _as_rows(buf)
+        buf2 = signed_view(_as_rows(buf))
         ncols = buf2.shape[1]
-        is_int = buf.dtype == torch.int32
-        work = torch.int64 if is_int else buf.dtype
-        ident = torch.tensor(identity(op, buf.dtype).item(), dtype=work,
-                             device=buf.device)
+        ident = work.ident(op, buf.device)
         s = starts.long().clamp(min=0)
         n = (lens.long().clamp(0, int(pad)) if ncols
              else torch.zeros_like(s))
@@ -302,12 +394,16 @@ def lane_order_twin(evals, rows, starts, lens, pad: int) -> list:
             if not ncols:
                 return None, True
             col = (s[:, None] + j).clamp(0, ncols - 1)
-            return buf2[r[:, None], col].to(work), True
+            return work.load(buf2[r[:, None], col]), True
 
-        got, _ = team_fold(op, is_int, ident, torch.zeros_like(s),
+        got, _ = team_fold(op, work, ident, torch.zeros_like(s),
                            (a + n + GROUP - 1) // GROUP, a, n, cells)
-        outs.append(got.to(buf.dtype))
+        outs.append(work.store(got))
     return outs
+
+
+def _names(dtypes) -> str:
+    return ", ".join(str(d).replace("torch.", "") for d in dtypes)
 
 
 def _check_many(evals, rows, starts, lens):
@@ -316,9 +412,9 @@ def _check_many(evals, rows, starts, lens):
     shape, device = evals[0][0].shape, evals[0][0].device
     for buf, op in evals:
         _check_op(op)
-        if buf.dtype not in _DTYPES:
-            raise TypeError(f"windowed_reduce takes int32 or float32 values, "
-                            f"got {buf.dtype}")
+        if buf.dtype not in DTYPE_CODES:
+            raise TypeError(f"windowed_reduce takes values of "
+                            f"{_names(DTYPE_CODES)}, got {buf.dtype}")
         if (buf.dim() not in (1, 2) or buf.shape != shape
                 or buf.device != device):
             raise TypeError(f"windowed_reduce_many takes 1-D or 2-D buffers "
@@ -346,7 +442,9 @@ def windowed_reduce_many(evals, rows, starts, lens, pad: int) -> list:
     All buffers share one shape (their dtypes may differ) and lie on one
     device with the int32 descriptors; ``rows=None`` reads row 0.  A CUDA
     buffer launches the kernel, once for every :data:`EVALS_PER_LAUNCH`
-    evaluations (none for B = 0); a CPU buffer runs the plain version."""
+    evaluations of one launch class (int32 and float32 together; every
+    other dtype apart), none for B = 0; a CPU buffer runs the plain
+    version."""
     evals = [(buf, op) for buf, op in evals]
     device = _check_many(evals, rows, starts, lens)
     if device.type == "cpu":
@@ -365,21 +463,26 @@ def windowed_reduce_many(evals, rows, starts, lens, pad: int) -> list:
         return outs
     lib = _load()
     ncols = evals[0][0].shape[-1]
+    classes = {}       # launch class -> its evaluations, in order
+    for k, (buf, _op) in enumerate(evals):
+        cls = "int32" if buf.dtype in _INT32_CLASS else buf.dtype
+        classes.setdefault(cls, []).append(k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for i in range(0, len(evals), EVALS_PER_LAUNCH):
-            group = range(i, min(i + EVALS_PER_LAUNCH, len(evals)))
+        for members, i in ((m, i) for m in classes.values()
+                           for i in range(0, len(m), EVALS_PER_LAUNCH)):
+            group = members[i:i + EVALS_PER_LAUNCH]
             n = len(group)
             bufs = (ctypes.c_void_p * n)(*(evals[k][0].data_ptr()
                                            for k in group))
             dsts = (ctypes.c_void_p * n)(*(outs[k].data_ptr()
                                            for k in group))
             ops = (ctypes.c_int * n)(*(_OPS[evals[k][1]] for k in group))
-            dts = (ctypes.c_int * n)(*(_DTYPES[evals[k][0].dtype]
+            dts = (ctypes.c_int * n)(*(DTYPE_CODES[evals[k][0].dtype]
                                        for k in group))
-            ids = (ctypes.c_uint * n)(*(_ident_bits(evals[k][1],
-                                                    evals[k][0].dtype)
-                                        for k in group))
+            ids = (ctypes.c_ulonglong * n)(*(_ident_bits(evals[k][1],
+                                                         evals[k][0].dtype)
+                                             for k in group))
             rc = lib.wf_windowed_reduce(
                 bufs, dsts, ops, dts, ids, n, ncols,
                 rows.data_ptr() if rows is not None else None,
@@ -399,11 +502,11 @@ def windowed_reduce(flat: torch.Tensor, starts: torch.Tensor,
     The one-evaluation, one-row form of :func:`windowed_reduce_many`: a
     CUDA `flat` launches the kernel on the current stream (asynchronous,
     counted in ``windowed_reduce.launches``); a CPU `flat` runs the plain
-    version.  The kernel takes int32 or float32 values and int32
-    starts/lens, all on one device."""
+    version.  The kernel takes values of :data:`DTYPE_CODES`' dtypes and
+    int32 starts/lens, all on one device."""
     _check_op(op)
-    if flat.dtype not in _DTYPES:
-        raise TypeError(f"windowed_reduce takes int32 or float32 values, "
+    if flat.dtype not in DTYPE_CODES:
+        raise TypeError(f"windowed_reduce takes values of {_names(DTYPE_CODES)}, "
                         f"got {flat.dtype}")
     if flat.dim() != 1:
         raise ValueError("flat must be 1-D")

@@ -31,8 +31,10 @@ import numpy as np
 import torch
 
 from ..ops.device import _bucket
-from ..ops.mesh_reduce import find_long_windows, sp_merge, sp_window_partial
+from ..ops.mesh_reduce import (DTYPES, find_long_windows, merge_out,
+                               sp_merge, sp_window_partial)
 from ..ops.monoid import OPS as _OPS
+from ..ops.windowed_reduce import Work, _names
 
 KF_AXIS = "kf"   # key/group parallelism (no exchange; Key_Farm axis)
 WF_AXIS = "wf"   # window parallelism (no exchange; Win_Farm axis)
@@ -92,27 +94,49 @@ def make_mesh(n_kf: int = 1, n_sp: int = 1, devices=None,
     return DeviceMesh(grid.reshape(n_kf, n_wf, n_sp))
 
 
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def _torch_dtype(dtype) -> torch.dtype:
-    """int32 or float32 as a torch dtype, from a numpy or torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        out = dtype
-    else:
-        out = {np.dtype(np.int32): torch.int32,
-               np.dtype(np.float32): torch.float32}.get(np.dtype(dtype))
-    if out not in (torch.int32, torch.float32):
-        raise TypeError(f"the mesh reduction runs in int32 or float32, got "
+    """The reduction's dtype as a torch dtype, from a numpy or torch
+    dtype: one of the mesh kernels' (int32, float32, uint32, int64, uint64,
+    float64)."""
+    out = dtype if isinstance(dtype, torch.dtype) else {
+        _np_dtype(d): d for d in DTYPES}.get(np.dtype(dtype))
+    if out not in DTYPES:
+        raise TypeError(f"the mesh reduction runs in {_names(DTYPES)}, got "
                         f"{dtype}")
     return out
 
 
-def _canonical(a: np.ndarray) -> np.ndarray:
-    """64-bit values as their 32-bit kind (JAX's default canonicalisation
-    without x64, which the reference's rows go through)."""
-    if a.dtype.itemsize > 4 and a.dtype.kind in "iu":
-        return a.astype(np.int32)
-    if a.dtype.itemsize > 4 and a.dtype.kind == "f":
-        return a.astype(np.float32)
-    return a
+_NARROW = {"i": np.int32, "u": np.uint32, "f": np.float32}
+
+
+def _canonical(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """The group rows as JAX stages them for a reduction in `dtype`: with
+    a 64-bit dtype (which the JAX package runs under x64) as they are,
+    else 64-bit values as the 32-bit type of their kind (its default
+    canonicalisation: int64 -> int32, uint64 -> uint32, float64 ->
+    float32)."""
+    if Work(dtype).itemsize == 8 or a.dtype.itemsize <= 4:
+        return a
+    return a.astype(_NARROW[a.dtype.kind]) if a.dtype.kind in _NARROW else a
+
+
+def _convert(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`v` in the reduction's dtype, as XLA converts integers: the low
+    bits kept, an unsigned value zero-extended (torch has few ops for
+    uint32 and uint64, so those go through int64)."""
+    if v.dtype in (torch.uint32, torch.uint64):
+        work = Work(v.dtype)
+        v = work.load(v)
+        if dtype.is_floating_point:
+            return work.to_float(v, dtype)
+    if dtype in (torch.uint32, torch.uint64):
+        signed = torch.int32 if dtype == torch.uint32 else torch.int64
+        return v.to(signed).view(dtype)
+    return v.to(dtype)
 
 
 class MeshWindowedReduce:
@@ -140,7 +164,11 @@ class MeshWindowedReduce:
 
     ``collective`` is "auto"/"psum" (shards folded 0, 1, ..., n_sp - 1) or
     "ring" (0, n_sp - 1, ..., 1: the order in which JAX's ppermute ring
-    accumulates on sp shard 0); ``mean`` returns float32.
+    accumulates on sp shard 0).  ``dtype`` is int32, float32, uint32,
+    int64, uint64 or float64: a 64-bit dtype runs as the JAX package runs
+    it under x64 (the rows stay 64-bit), any other as in its default
+    config (64-bit rows narrowed to 32 bits of their kind).  ``mean``
+    returns float32, or float64 for a 64-bit dtype.
     """
 
     def __init__(self, mesh: DeviceMesh, op: str = "sum",
@@ -170,7 +198,7 @@ class MeshWindowedReduce:
         keep = None
         if self.filter_fn is not None:
             keep = self.filter_fn(v).to(torch.bool).contiguous()
-        vals = v.to(self.dtype).contiguous()
+        vals = _convert(v, self.dtype).contiguous()
         st = torch.from_numpy(starts).to(dev)
         ln = torch.from_numpy(lens).to(dev)
         return sp_window_partial(
@@ -182,7 +210,7 @@ class MeshWindowedReduce:
         """Evaluate all windows. ``flat`` is (KF, N) group rows; ``starts``
         and ``lens`` are (KF, B) window descriptors (row offsets within the
         group's flat segment). Returns (KF, B) reductions."""
-        flat = _canonical(np.asarray(flat))
+        flat = _canonical(np.asarray(flat), self.dtype)
         starts = np.asarray(starts)
         lens = np.asarray(lens)
         KF, N = flat.shape
@@ -216,9 +244,8 @@ class MeshWindowedReduce:
                 merged.append((g, a, b, sp_merge(
                     parts, cnts if cnts[0] is not None else None, self.op,
                     ring=ring, device=devs[g, w, 0])))
-        out_dt = np.float32 if self.op == "mean" else (
-            np.int32 if self.dtype == torch.int32 else np.float32)
-        out = np.zeros((KF, B), dtype=out_dt)
+        out = np.zeros((KF, B), dtype=_np_dtype(merge_out(self.op,
+                                                           self.dtype)))
         for g, a, b, res in merged:
             out[g, a:b] = res.cpu().numpy()
         return out

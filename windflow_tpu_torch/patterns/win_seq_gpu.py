@@ -108,8 +108,9 @@ class TorchWindowFunction:
     The function runs on the executor's device, inside its CUDA stream.
     ``keys`` and ``gwids`` are ``(B,)`` int32 tensors (the JAX package's
     width without x64); ``cols[f]`` is a ``(B, pad)`` tensor of field
-    ``f`` in its device dtype (its ring dtype on the resident path, float32
-    or int32 on the restaging one) with zeros past each window's length;
+    ``f`` in its device dtype (its ring dtype on the resident path; on the
+    restaging one float32 or int32, or the column's 64-bit dtype under a
+    64-bit ``compute_dtype``) with zeros past each window's length;
     ``mask`` is the ``(B, pad)`` bool mask of real lanes.
     It returns one ``(B,)`` tensor or a tuple of them, in
     ``result_fields`` order; harvest casts each to its declared dtype.
