@@ -278,13 +278,36 @@ catches its own failure):
    bit, float64 sums within FLOAT64_RTOL of Σ|x|); each kernel timed at
    its largest call beside the same inputs over int32 (and float32)
    rings, with the bytes bounds (ring_dtypes_rows, which also carries the
-   cold build's seconds of the ring kernels' library).
+   cold build's seconds of the ring kernels' library);
+26. column_dtypes: the JAX package's column dtypes on the restaging route
+   and in the mesh reduction (column_dtypes_phase's docstring);
+27. ring_dtypes_u: unsigned and float16 rings through the four ring
+   kernels and the mesh reduction at its 1- and 2-byte and float16
+   dtypes: (a) sum_test's 16M tuples on a uint32 ring, values 2**31 - 50
+   + i % 100 shipped as a wrapping int32 wire, every window against a
+   numpy oracle of the sums modulo 2**32; (b) the 1M Reducer("max")
+   prefix on uint32 (values across 2**31), uint8 (an int16 wire that
+   wraps) and uint16 rings and on a uint32 ring over make_mesh(n_kf=4);
+   (c) float16 rings: max and a use_resident=True float sum (the Python
+   core: ring_append_eval), an integer sum on the native core
+   (ring_append_regular_sum), each float16 sum within one float16 ulp of
+   the float64 sum of the ring's cells; (d) uint8, uint16, uint32, uint64
+   and float16 fields of one MultiFieldResidentExecutor, 8 stats, one
+   ring_append_multi_eval launch a dispatch; (e) MeshStreamStep at
+   pipe_test's chain on (2, 2, 2) at int8, int16, uint8, uint16 and
+   float16, every op, both orders, 2^20 rows a group; every call of the
+   six kernels against its plain version and twin (integers bit for bit,
+   float16 bit for bit against the twins), each kernel timed at its
+   largest call beside the same inputs at int32 or float32
+   (ring_dtypes_u_rows).
 
 The new paths' launch counts are printed together (new_path_launches), and
 each of ring_append_eval and ring_append_regular_sum must have been
 launched on one of them; the mesh runs' launches follow (mesh_launches),
 then ring_dtypes' (ring_dtypes_launches), where each of the three fused
-ring kernels must have been launched.
+ring kernels must have been launched, then column_dtypes' and
+ring_dtypes_u's, where each kernel of the phase must have been launched
+at a new dtype.
 Then it prints the kernels' JSON line (nine kernels, each with the
 empty-launch floor beside its times), the nvidia-smi line,
 and last
@@ -336,6 +359,9 @@ FLOAT_RTOL = 1e-5
 # the plain version's round at the row prefix's magnitude, the kernels at
 # the window's)
 FLOAT64_RTOL = 1e-12
+# float16: each result rounded once from a float32 sum, in another order
+# than the plain version's: two float16 ulps of the window's sum of |x|
+F16_RTOL = 2.0 ** -9
 WIRES = (torch.int8, torch.int16, torch.int32, torch.float32)
 ACCS = (torch.int32, torch.float32)
 _SAME_SIZE_INT = {1: torch.int8, 2: torch.int16, 4: torch.int32,
@@ -350,7 +376,8 @@ def bits(t):
 
 def rtol_of(t):
     """The stated sum tolerance of a float dtype (of |x| summed)."""
-    return FLOAT64_RTOL if t.dtype == torch.float64 else FLOAT_RTOL
+    return {torch.float64: FLOAT64_RTOL, torch.float16: F16_RTOL}.get(
+        t.dtype, FLOAT_RTOL)
 
 
 def emit(phase, **fields):
@@ -807,13 +834,21 @@ def check_ring(rk, case, name):
                             case["C"], case["slide"],
                             prefix=ring_p.dtype == torch.float64)
     err = 0.0
+    if out_p.dtype == torch.float16:
+        # float16 sums bit for bit against the kernel's order too
+        twin = rk.regular_sum_order_twin(
+            case["ring"].clone(), case["blk"], case["offs"], case["rstart0"],
+            case["rlen"], case["C"], case["slide"])
+        if not torch.equal(bits(fused[0][1]), bits(twin)):
+            raise AssertionError(f"ring_append_regular_sum {name}: float16 "
+                                 "sums differ from the order twin")
     for label, (ring_k, out_k) in (("ring_append_regular_sum", fused[0]),
                                    ("ring_append + window sums alone",
                                     two)):
-        if not torch.equal(ring_k, ring_p):
+        if not torch.equal(bits(ring_k), bits(ring_p)):
             raise AssertionError(f"{label} {name}: rings differ")
         if not out_k.is_floating_point():
-            if not torch.equal(out_k, out_p):
+            if not torch.equal(bits(out_k), bits(out_p)):
                 raise AssertionError(f"{label} {name}: sums differ")
             continue
         e = (out_k.double() - out_p.double()).abs()
@@ -1093,7 +1128,13 @@ AE_FLOAT_PROD_BOUND = 2.0 ** -23     # 2 (n - 1) 2^-24 of |x|, n cells
 def ae_values(gen, shape, dtype, prod):
     """Seeded values for a ring or a rectangle: 1..97 (YSB's revenue) or,
     for a product, values whose products stay finite (floats near 1, ints
-    in {-1, 1, 2})."""
+    in {-1, 1, 2}); an unsigned ring's anywhere in its range (past 2**31
+    for uint32)."""
+    if not dtype.is_signed and not prod:
+        np_dt = torch.empty(0, dtype=dtype).numpy().dtype
+        host = gen.integers(0, np.iinfo(np_dt).max, size=shape,
+                            dtype=np.uint64, endpoint=True).astype(np_dt)
+        return torch.from_numpy(host)
     if dtype.is_floating_point:
         host = (gen.uniform(0.999, 1.001, size=shape) if prod
                 else gen.uniform(-100, 100, size=shape))
@@ -1130,14 +1171,15 @@ def ae_compare(got, want, scale, n, op, name):
     of |x| (`scale`), float32 products within max(FLOAT_RTOL, 2 (n - 1)
     2^-24) of |want| for a window of n cells; float64 alike with
     FLOAT64_RTOL and 2 (n - 1) 2^-53."""
-    same = got == want
+    same = bits(got) == bits(want)
     if got.is_floating_point():
-        same |= torch.isnan(got) & torch.isnan(want)
+        same |= (got == want) | (torch.isnan(got) & torch.isnan(want))
     if not got.is_floating_point() or op in ("count", "min", "max"):
         if not bool(same.all()):
             bad = int((~same).nonzero()[0])
             raise AssertionError(f"{name} {op}: window {bad} gives "
-                                 f"{got[bad].item()} != {want[bad].item()}")
+                                 f"{bits(got)[bad].item()} != "
+                                 f"{bits(want)[bad].item()} (bits)")
         return 0.0
     err = torch.where(same, 0.0, (got.double() - want.double()).abs())
     wide = got.dtype == torch.float64
@@ -1177,8 +1219,8 @@ def check_append_eval(case, name, counters=None):
     twin = rk.append_eval_order_twin(rings[2], *args, split=c["long"].split,
                                      chunk=c["long"].chunk)
     _sync(dev)
-    if not (torch.equal(rings[0], rings[1]) and torch.equal(rings[0],
-                                                            rings[2])):
+    if not (torch.equal(bits(rings[0]), bits(rings[1]))
+            and torch.equal(bits(rings[0]), bits(rings[2]))):
         raise AssertionError(f"ring_append_eval {name}: the rings differ "
                              "from the plain append")
     if c["long"].n and bool(counters.any()):
@@ -1195,7 +1237,8 @@ def check_append_eval(case, name, counters=None):
                 bad = int((bits(g) != bits(other)).nonzero()[0])
                 raise AssertionError(
                     f"ring_append_eval {name} {op}: window {bad} gives "
-                    f"{g[bad].item()}, {what} {other[bad].item()}")
+                    f"{bits(g)[bad].item()}, {what} "
+                    f"{bits(other)[bad].item()} (bits)")
         err = max(err, ae_compare(g, p, scale, n, op,
                                   f"ring_append_eval {name}"))
     return err
@@ -1466,8 +1509,8 @@ def check_multi_append_eval(case, name):
         chunk=c["long"].chunk)
     _sync(dev)
     for f in range(len(c["rings"])):
-        if not (torch.equal(rings[0][f], rings[1][f])
-                and torch.equal(rings[0][f], rings[2][f])):
+        if not (torch.equal(bits(rings[0][f]), bits(rings[1][f]))
+                and torch.equal(bits(rings[0][f]), bits(rings[2][f]))):
             raise AssertionError(f"ring_append_multi_eval {name}: field "
                                  f"{f}'s ring differs from the plain append")
     if c["long"].n and bool(counters.any()):
@@ -1492,8 +1535,8 @@ def check_multi_append_eval(case, name):
                 bad = int((bits(g) != bits(other)).nonzero()[0])
                 raise AssertionError(
                     f"ring_append_multi_eval {name} {op} of field {f}: "
-                    f"window {bad} gives {g[bad].item()}, {what} "
-                    f"{other[bad].item()}")
+                    f"window {bad} gives {bits(g)[bad].item()}, {what} "
+                    f"{bits(other)[bad].item()} (bits)")
         ring = rings[1][f]
         scale = wr.windowed_reduce_many_reference(
             [(ring.abs(), "sum")], c["rows"], c["starts"], c["lens"],
@@ -3686,9 +3729,10 @@ def checked_mesh_kernels():
                 by[vals.dtype] = call
         return got
 
-    def merge(partials, counts, op, ring=False, device=None):
+    def merge(partials, counts, op, ring=False, device=None, dtype=None):
         before = mr.sp_merge.launches
-        got = orig_m(partials, counts, op, ring=ring, device=device)
+        got = orig_m(partials, counts, op, ring=ring, device=device,
+                     dtype=dtype)
         seen["merge_launches_per_call"][mr.sp_merge.launches - before] += 1
         seen["merges"] += 1
         # stacked as integers of their width: the same words (torch has
@@ -3697,8 +3741,8 @@ def checked_mesh_kernels():
                              for p in partials]).view(partials[0].dtype)
         cnts = (torch.stack([c.to(got.device) for c in counts])
                 if counts is not None else None)
-        twin = mr.merge_order_twin(parts, cnts, op, ring)
-        want = mr.sp_merge_reference(parts, cnts, op, ring)
+        twin = mr.merge_order_twin(parts, cnts, op, ring, dtype)
+        want = mr.sp_merge_reference(parts, cnts, op, ring, dtype)
         if not same(got, twin):
             raise AssertionError(f"sp_merge {op}/{parts.dtype} ring={ring}: "
                                  "the kernel differs from its twin")
@@ -3719,16 +3763,17 @@ def checked_mesh_kernels():
                                      f"{float(e.max())} against the plain "
                                      "version")
             seen["merge_err"] = max(seen["merge_err"], float(e.max()))
+        reduction = dtype or parts.dtype
         call = (list(partials), parts, list(counts) if counts is not None
-                else None, cnts, op, ring)
+                else None, cnts, op, ring, reduction)
         if (seen["big_merge"] is None
                 or parts.shape[1] > seen["big_merge"][1].shape[1]):
             seen["big_merge"] = call
-        if parts.dtype not in (torch.int32, torch.float32):
+        if reduction not in (torch.int32, torch.float32):
             by = seen["merge_by_dtype"]
-            if (parts.dtype not in by
-                    or parts.shape[1] > by[parts.dtype][1].shape[1]):
-                by[parts.dtype] = call
+            if (reduction not in by
+                    or parts.shape[1] > by[reduction][1].shape[1]):
+                by[reduction] = call
         return got
 
     pm.sp_window_partial, pm.sp_merge = partial, merge
@@ -3788,7 +3833,7 @@ def mesh_step_rows(seen):
         long_windows_ms=timed["long_partial"][0],
         long_windows_bound_ms=timed["long_partial"][3][0],
         split=mr.SPLIT, chunk=mr.CHUNK)}
-    plist, parts, clist, cnts, op, ring = seen["big_merge"]
+    plist, parts, clist, cnts, op, ring, _dtype = seen["big_merge"]
     n, B = parts.shape
     nbytes = 4 * n * B + 4 * B + (4 * n * B if op == "mean" else 0)
     mb = bytes_bound(nbytes, (n - 1) * B)
@@ -5584,7 +5629,7 @@ def cd_mesh_rows(seen):
         rows["sp_window_partial"][str(dtype) + (
             " long" if case == "partial_long_by_dtype" else "")] = row
     for dtype, call in seen["merge_by_dtype"].items():
-        plist, parts, clist, cnts, op, ring = call
+        plist, parts, clist, cnts, op, ring, reduction = call
         n, B = parts.shape
         row = {}
         for label, p in (("new", parts), ("as32", cd_as32(parts))):
@@ -5644,6 +5689,777 @@ def column_dtypes_phase(wr, builds):
     emit("column_dtypes_rows",
          build_s={k: builds[k][1] for k in ("windowed_reduce.cu",
                                              "gather.cu", "mesh_reduce.cu")},
+         phase_seconds=time.perf_counter() - t0, **rows)
+    return launches
+
+
+# ------------------------------------------ unsigned and float16 rings
+
+RU_U32_BASE = 2 ** 31 - 50       # (a): uint32 values 2**31 - 50 + i % 100
+#: (b): (label, ring dtype, values lo..hi-1, the dtypes a value passes
+#: through: the wire the ladder picks, then the ring)
+RU_MAX_RUNS = (("uint32", np.uint32, 2 ** 31 - 1000, 2 ** 31 + 1000,
+                (np.uint32,)),
+               ("uint8", np.uint8, 200, 30_000, (np.int16, np.uint8)),
+               ("uint16", np.uint16, 0, 100_000, (np.int32, np.uint16)))
+RU_F16_HI = 4.0                  # (c): float32 values in [0, 4)
+RU_MULTI_TUPLES = 1 << 20        # (d)
+RU_MULTI_FLUSH = FLUSH_ROWS // N_KEYS
+#: (d): the five fields' ring dtypes and value ranges
+RU_MULTI = {"a": (np.uint8, 0, 300), "b": (np.uint16, 1, 4),
+            "c": (np.uint32, 2 ** 31 - 1000, 2 ** 31 + 1000),
+            "d": (np.uint64, 2 ** 63 - 1000, 2 ** 63 + 1000),
+            "e": (np.float16, 0.0, RU_F16_HI)}
+RU_MULTI_STATS = (("sum", "a"), ("max", "a"), ("min", "b"), ("prod", "b"),
+                  ("sum", "c"), ("max", "c"), ("max", "d"), ("sum", "e"))
+RU_MESH_DTYPES = (torch.int8, torch.int16, torch.uint8, torch.uint16,
+                  torch.float16)
+RU_MESH_ROWS = CD_MESH_ROWS      # (e): a group's rows, as phase 26
+
+
+def ru_stream(schema, n_tuples, base):
+    """sum_test's keys and ids with values base + i % 100, i the tuple's
+    index in the stream."""
+    from windflow_tpu_torch import batch_from_columns
+    per_key = n_tuples // N_KEYS
+    batches = []
+    for at in range(0, per_key, CHUNK // N_KEYS):
+        m = min(CHUNK // N_KEYS, per_key - at)
+        ids = np.repeat(np.arange(at, at + m), N_KEYS)
+        i = at * N_KEYS + np.arange(m * N_KEYS)
+        batches.append(batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
+            value=base + i % 100))
+    return batches
+
+
+def ru_float_stream(schema, n_tuples, seed):
+    """sum_test's keys and ids with float32 values in [0, RU_F16_HI)."""
+    from windflow_tpu_torch import batch_from_columns
+    rng = np.random.default_rng(seed)
+    per_key = n_tuples // N_KEYS
+    batches = []
+    for at in range(0, per_key, CHUNK // N_KEYS):
+        m = min(CHUNK // N_KEYS, per_key - at)
+        ids = np.repeat(np.arange(at, at + m), N_KEYS)
+        batches.append(batch_from_columns(
+            schema, key=np.tile(np.arange(N_KEYS), m), id=ids, ts=ids,
+            value=rng.uniform(0, RU_F16_HI, m * N_KEYS).astype(np.float32)))
+    return batches
+
+
+def ru_keyed(batches):
+    """{key: its values in id order} of a stream."""
+    vals = np.concatenate([b["value"] for b in batches])
+    keys = np.concatenate([b["key"] for b in batches])
+    order = np.argsort(keys, kind="stable")
+    vals, keys = vals[order], keys[order]
+    bounds = np.searchsorted(keys, np.arange(N_KEYS + 1))
+    return {k: vals[bounds[k]:bounds[k + 1]] for k in range(N_KEYS)}
+
+
+def ru_check_fused(calls, name):
+    """ring_append_regular_sum against its plain version on every
+    recorded call (check_ring: rings and integer sums bit for bit, float16
+    sums bit for bit against the order twin and within F16_RTOL of the
+    plain version), each over a seeded ring of its shape and dtype.
+    Returns (calls checked, the largest error)."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = np.random.default_rng(6)
+    err = 0.0
+    for i, c in enumerate(calls):
+        case = dict(ring=ae_values(gen, c["shape"], c["dtype"],
+                                   False).to(c["blk"].device),
+                    **{k: c[k] for k in ("blk", "offs", "rstart0", "rlen",
+                                         "C", "slide")})
+        if c["dtype"] == torch.float16:
+            case["ring"] = (case["ring"].float() / 100).to(torch.float16)
+        err = max(err, check_ring(rk, case, f"{name} call {i}"))
+        del case
+    return len(calls), err
+
+
+def ru_as(dtype):
+    """The 4-byte dtype a new ring dtype is timed beside: float32 for
+    float16, else int32."""
+    return torch.float32 if dtype.is_floating_point else torch.int32
+
+
+def ru_fused_row(call):
+    """ring_append_regular_sum (cold and hot) and ring_append (hot) at a
+    recorded call's inputs over a seeded ring of its dtype and over one of
+    ru_as(dtype), each beside its bytes bound."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = np.random.default_rng(6)
+    row = {}
+    dev = call["blk"].device
+    for label, dtype in (("new", call["dtype"]),
+                         ("as32", ru_as(call["dtype"]))):
+        ring = ae_values(gen, call["shape"], dtype, False).to(dev)
+        case = dict(ring=ring, **{k: call[k] for k in (
+            "blk", "offs", "rstart0", "rlen", "C", "slide")})
+        args = (case["blk"], case["offs"], case["rstart0"], case["rlen"],
+                case["C"], case["slide"])
+        b = fused_bound(case)
+        blk, offs = case["blk"], case["offs"]
+        row[label] = dict(
+            acc=str(dtype),
+            ms=rd_cold(dev, lambda r, args=args: rk.ring_append_regular_sum(
+                r, *args), [ring]),
+            hot_ms=kernel_ms(lambda ring=ring, args=args:
+                             rk.ring_append_regular_sum(ring, *args)),
+            bound_ms=b[0], bound_by=b[1], bound_bytes=b[2],
+            append_ms=kernel_ms(lambda ring=ring: rk.ring_append(
+                ring, blk, offs)),
+            append_bound_ms=bytes_bound(
+                blk.numel() * (blk.element_size() + ring.element_size())
+                + 4 * offs.numel(), blk.numel())[0])
+        del case, ring
+    ring = ae_values(gen, call["shape"], call["dtype"], False).to(dev)
+    row["plain_ms"] = call_ms(lambda: rk.ring_append_regular_sum_reference(
+        ring, call["blk"], call["offs"], call["rstart0"], call["rlen"],
+        call["C"], call["slide"]), reps=2)
+    return row
+
+
+def ru_eval_row(call):
+    """ring_append_eval (cold) at a recorded call's inputs over a seeded
+    ring of its dtype and of ru_as(dtype), each beside its bound."""
+    from windflow_tpu_torch.ops import ring as rk
+    gen = np.random.default_rng(8)
+    row = {}
+    for label, dtype in (("new", call["dtype"]),
+                         ("as32", ru_as(call["dtype"]))):
+        case = append_eval_call_case(dict(call, dtype=dtype), gen)
+        dev = case["ring"].device
+        long = case["long"].on(torch.from_numpy(case["long"].vec).to(dev))
+        counters = torch.zeros(long.n + 1, dtype=torch.int32, device=dev)
+        args = (case["blk"], case["offs"], case["ops"], case["rows"],
+                case["starts"], case["lens"], case["pad"])
+        b = append_eval_bound(case)
+        row[label] = dict(
+            acc=str(dtype), ms=rd_cold(dev, lambda r: rk.ring_append_eval(
+                r, *args, long=long, counters=counters),
+                [case["ring"].clone()]),
+            bound_ms=b[0], bound_by=b[1], bound_bytes=b[2])
+        if label == "new":
+            row["plain_ms"] = call_ms(
+                lambda: rk.ring_append_eval_reference(case["ring"], *args),
+                reps=2)
+        del case
+    return row
+
+
+def ru_sum_test(rk, wt):
+    """(a) sum_test's 16M tuples through the resident route on a uint32
+    ring, values 2**31 - 50 + i % 100 (shipped as an int32 wire that wraps;
+    the ring wraps them back): every window against a numpy oracle of the
+    sums modulo 2**32, the total, one fused launch a regular flush, every
+    fused call checked; the fused kernel and ring_append timed at the
+    largest call beside int32."""
+    from windflow_tpu_torch.ops import resident
+    from windflow_tpu_torch.patterns.native_core import NativeResidentCore
+    schema = wt.Schema(value=np.int64)
+    t0 = time.perf_counter()
+    batches = ru_stream(schema, N_TUPLES, RU_U32_BASE)
+    exact = rd_oracle_rows(batches, "sum")
+    want = {k: w % 2 ** 32 for k, w in exact.items()}
+    cores = []
+    stage = stage_with_core(lambda: resident_stage(
+        wt, wt.Reducer("sum"), device=DEVICE, compute_dtype=np.uint32),
+        cores)
+    resident.stats_snapshot(reset=True)
+    with kernel_launches() as counts, recorded_fused() as calls:
+        dt, n_windows, total, rows = run_pipeline(stage, batches, schema,
+                                                  keep=True)
+    stats = resident.stats_snapshot(reset=True)
+    core = cores[0] if len(cores) == 1 else None
+    if not (isinstance(core, NativeResidentCore) and core._delegate is None
+            and core.executor.acc_dtype == np.uint32):
+        raise AssertionError(f"ring_dtypes_u sum_test: the core is {cores}")
+    windows = rd_check_rows(rows, want, "sum_test uint32")
+    oracle = int(sum(int(w.sum()) for w in want.values()))
+    wrapped = sum(int((w >= 2 ** 32).sum()) for w in exact.values())
+    if total != oracle or not wrapped:
+        raise AssertionError(f"ring_dtypes_u sum_test: total {total}, "
+                             f"oracle {oracle}, wrapped windows {wrapped}")
+    if not (counts["ring_append_regular_sum"] > 0
+            and counts["ring_append"] == counts["windowed_reduce"] == 0
+            and stats["dispatches"] == counts["ring_append_regular_sum"]
+            + counts["ring_append_eval"]):
+        raise AssertionError(f"ring_dtypes_u sum_test: launches {counts}, "
+                             f"dispatches {stats['dispatches']}")
+    wires = sorted({str(c["blk"].dtype) for c in calls})
+    if "torch.int32" not in wires:
+        raise AssertionError(f"ring_dtypes_u sum_test: wires {wires}")
+    n, err = ru_check_fused(calls, "ring_dtypes_u sum_test uint32")
+    big = max(calls, key=lambda c: c["blk"].numel() * c["C"])
+    row = dict(calls_checked=n, max_abs_err=err, wire=str(big["blk"].dtype),
+               **ru_fused_row(big))
+    emit("ring_dtypes_u", case="a_sum_test_uint32",
+         workload="sum_test CB win=256 slide=64 keys=64 resident, "
+                  "compute_dtype=uint32, values 2**31-50 + i%100",
+         tuples=N_TUPLES, seconds=dt, tuples_per_s=N_TUPLES / dt,
+         windows=windows, total=total, oracle=oracle,
+         wrapped_windows=wrapped, wires=wires, launches=counts,
+         dispatches=stats["dispatches"], ring_append_regular_sum=row,
+         phase_seconds=time.perf_counter() - t0)
+    return counts, row
+
+
+def ru_max_run(label, stage, batches, schema, cast, wire, rk):
+    """One max prefix: the run's launches (irregular: ring_append_eval
+    only), every window against the numpy oracle of the cast values, the
+    wire shipped, every ring_append_eval call checked."""
+    with kernel_launches() as counts, recorded_append_evals() as calls:
+        _, n_dev, _, rows = run_pipeline(stage, batches, schema, keep=True)
+    if not (counts["ring_append_eval"] > 0
+            and counts["ring_append"] == counts["windowed_reduce"] == 0):
+        raise AssertionError(f"ring_dtypes_u max {label}: launches {counts}")
+    rd_check_rows(rows, rd_oracle_rows(batches, "max", cast), f"max {label}")
+    wires = {c["blk"].dtype for c in calls}
+    if wire not in wires:
+        raise AssertionError(f"ring_dtypes_u max {label}: wires {wires}")
+    n, err = check_append_evals(calls, f"ring_dtypes_u max {label}")
+    return counts, calls, n_dev, dict(calls_checked=n, max_abs_err=err,
+                                      wires=sorted(map(str, wires)))
+
+
+def ru_max_prefixes(rk, wt):
+    """(b) the 1M-tuple Reducer("max") prefix on uint32 (values that
+    straddle 2**31: a signed compare would pick the smaller), uint8 (an
+    int16 wire that wraps) and uint16 rings (an int32 wire that wraps),
+    and on a uint32 ring over make_mesh(n_kf=4) of this card, each against
+    a numpy oracle, every ring_append_eval call checked; the largest call
+    of each ring timed beside int32."""
+    from windflow_tpu_torch.parallel import make_mesh
+    schema = wt.Schema(value=np.int64)
+    out, launches = {}, {}
+    for label, acc, lo, hi, cast in RU_MAX_RUNS:
+        t0 = time.perf_counter()
+        batches = rd_stream(schema, PREFIX_TUPLES, lo, hi, seed=10)
+        wire = torch.int16 if acc == np.uint8 else torch.int32
+        counts, calls, n_dev, row = ru_max_run(
+            label, resident_stage(wt, wt.Reducer("max"), device=DEVICE,
+                                  compute_dtype=acc),
+            batches, schema, cast, wire, rk)
+        big = max(calls, key=lambda c: (c["blk"].numel(),
+                                        c["starts"].numel()))
+        out[label] = dict(row, **ru_eval_row(big))
+        launches[label] = counts
+        emit("ring_dtypes_u", case=f"b_max_prefix_{label}",
+             workload=f"Reducer('max') CB win=256 slide=64 keys=64, "
+                      f"compute_dtype={label}, values {lo}..{hi - 1}",
+             tuples=PREFIX_TUPLES, windows=n_dev, launches=counts,
+             ring_append_eval=out[label],
+             phase_seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    label, acc, lo, hi, cast = RU_MAX_RUNS[0]
+    batches = rd_stream(schema, PREFIX_TUPLES, lo, hi, seed=11)
+    mesh = make_mesh(MESH_KF, devices=[DEVICE] * MESH_KF)
+    stage = wt.WinSeqGPU(wt.Reducer("max"), WIN, SLIDE, wt.WinType.CB,
+                         batch_len=BATCH_LEN, flush_rows=FLUSH_ROWS,
+                         depth=DEPTH, shards=1, mesh=mesh,
+                         compute_dtype=acc)
+    counts, calls, n_dev, row = ru_max_run("uint32 mesh", stage, batches,
+                                           schema, cast, torch.int32, rk)
+    if counts["ring_append_eval"] < MESH_KF:
+        raise AssertionError(f"ring_dtypes_u max uint32 mesh: launches "
+                             f"{counts}")
+    launches["uint32_mesh"] = counts
+    emit("ring_dtypes_u", case="b_max_prefix_uint32_mesh",
+         workload=f"Reducer('max') CB win=256 slide=64 keys=64, "
+                  f"compute_dtype=uint32, make_mesh(n_kf={MESH_KF}) of "
+                  f"{DEVICE}", tuples=PREFIX_TUPLES, windows=n_dev,
+         launches=counts, ring_append_eval=row,
+         phase_seconds=time.perf_counter() - t0)
+    return launches, out
+
+
+def ru_float16(rk, wt):
+    """(c) float16 rings: the 1M-tuple Reducer("max") prefix and a float
+    sum opted onto the resident route (use_resident=True; JAX's routing
+    keeps float sums off it by default), float32 values in [0, 4) rounded
+    into the ring, on the Python resident core (ring_append_eval, as the
+    native core ships int64 columns only); and an integer sum of values
+    0..3 on the native core (int8 wires into the float16 ring, regular
+    flushes: ring_append_regular_sum), whose window sums are exact.  max
+    exact; every float sum within one float16 ulp of the float64 sum of
+    the ring's cells (the stated rule); every call checked (float16 bit
+    for bit against the order twins); the largest call of each kernel
+    timed beside float32."""
+    fschema = wt.Schema(value=np.float32)
+    fbatches = ru_float_stream(fschema, PREFIX_TUPLES, seed=12)
+    ischema = wt.Schema(value=np.int64)
+    ibatches = rd_stream(ischema, PREFIX_TUPLES, 0, 4, seed=13)
+    out, launches = {}, {}
+    runs = (("max", np.float32, fschema, fbatches, recorded_append_evals,
+             "ring_append_eval", dict(use_resident=True)),
+            ("sum", np.float32, fschema, fbatches, recorded_append_evals,
+             "ring_append_eval", dict(use_resident=True)),
+            ("sum", np.int64, ischema, ibatches, recorded_fused,
+             "ring_append_regular_sum", {}))
+    for op, col, schema, batches, record, kernel, kw in runs:
+        label = f"{op}_{np.dtype(col).name}"
+        t0 = time.perf_counter()
+        cells = {k: v.astype(np.float16).astype(np.float64)
+                 for k, v in ru_keyed(batches).items()}
+        stage = resident_stage(wt, wt.Reducer(op, dtype=col), device=DEVICE,
+                               compute_dtype=np.float16, **kw)
+        with kernel_launches() as counts, record() as calls:
+            _, n_dev, _, rows = run_pipeline(stage, batches, schema,
+                                             keep=True)
+        if not counts[kernel] or any(
+                counts[k] for k in ("ring_append", "windowed_reduce")):
+            raise AssertionError(f"ring_dtypes_u float16 {label}: launches "
+                                 f"{counts}")
+        rows = np.concatenate(rows)
+        worst = 0.0
+        for k, v in cells.items():
+            mine = rows[rows["key"] == k]
+            s = np.arange(0, len(v), SLIDE)
+            e = np.minimum(s + WIN, len(v))
+            if not np.array_equal(mine["id"], np.arange(len(s))):
+                raise AssertionError(f"ring_dtypes_u float16 {label}: key "
+                                     f"{k}'s windows")
+            if op == "max":
+                want = np.array([v[a:b].max() for a, b in zip(s, e)])
+            else:
+                c = np.concatenate([[0.0], np.cumsum(v)])
+                want = c[e] - c[s]
+            ulp = np.spacing(np.abs(want.astype(np.float16))).astype(
+                np.float64)
+            d = np.abs(mine["value"].astype(np.float64) - want)
+            exact = op == "max" or col == np.int64
+            if not bool((d == 0).all() if exact else (d <= ulp).all()):
+                raise AssertionError(f"ring_dtypes_u float16 {label}: key "
+                                     f"{k} off by {d.max()}")
+            worst = max(worst, float((d / ulp).max()))
+        if kernel == "ring_append_eval":
+            n, err = check_append_evals(calls,
+                                        f"ring_dtypes_u float16 {label}")
+            big = max(calls, key=lambda c: (c["blk"].numel(),
+                                            c["starts"].numel()))
+            row = dict(calls_checked=n, max_abs_err=err,
+                       oracle_max_ulps=worst, **ru_eval_row(big))
+        else:
+            n, err = ru_check_fused(calls, f"ring_dtypes_u float16 {label}")
+            big = max(calls, key=lambda c: c["blk"].numel() * c["C"])
+            row = dict(calls_checked=n, max_abs_err=err,
+                       oracle_max_ulps=worst, wire=str(big["blk"].dtype),
+                       **ru_fused_row(big))
+        out[label] = row
+        launches[label] = counts
+        emit("ring_dtypes_u", case=f"c_float16_{label}",
+             workload=f"Reducer('{op}', {np.dtype(col).name}) CB win=256 "
+                      f"slide=64 keys=64, compute_dtype=float16"
+                      + (", use_resident=True, values in [0, 4)"
+                         if kw else ", values 0..3"),
+             tuples=PREFIX_TUPLES, windows=n_dev, launches=counts,
+             **{kernel: row}, phase_seconds=time.perf_counter() - t0)
+    return launches, out
+
+
+def ru_multi_fields(rk):
+    """(d) the five new ring dtypes as the fields of one
+    MultiFieldResidentExecutor (uint8 fed an int16 wire that wraps,
+    uint16, uint32 and uint64 values past 2**31 and 2**63 on signed wires
+    that wrap, float16 from float32): 8 stats, one ring_append_multi_eval
+    launch (multi_eval_kernel<true>) a dispatch over RU_MULTI_TUPLES
+    tuples of 64 keys, every window against a numpy oracle (integer sums
+    and products wrap in the ring or product dtype; the float16 sum
+    within one float16 ulp of the float64 sum of the ring's cells), every
+    call checked; the largest call timed beside the same shape over int32
+    and float32 rings."""
+    from windflow_tpu_torch.ops.resident import MultiFieldResidentExecutor
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    per_key = RU_MULTI_TUPLES // N_KEYS
+    cols = {}
+    for f, (acc, lo, hi) in RU_MULTI.items():
+        if np.dtype(acc).kind == "f":
+            cols[f] = rng.uniform(lo, hi, (N_KEYS, per_key)).astype(
+                np.float32)
+        else:
+            cols[f] = rng.integers(lo, hi, (N_KEYS, per_key),
+                                   dtype=np.uint64).astype(
+                np.uint64 if acc == np.uint64 else np.int64)
+    accs = {f: acc for f, (acc, _lo, _hi) in RU_MULTI.items()}
+    ex = MultiFieldResidentExecutor(tuple(RU_MULTI), RU_MULTI_STATS,
+                                    acc_dtypes=accs, device=DEVICE)
+    cap = 1 << (per_key - 1).bit_length()
+    ex.reset(N_KEYS, cap)
+    rk.ring_append_multi_eval.launches = 0
+    done, first, dispatches, metas = 0, 0, 0, []
+    with recorded_multi_evals() as calls:
+        for end in range(RU_MULTI_FLUSH, per_key + 1, RU_MULTI_FLUSH):
+            last = (end - WIN) // SLIDE
+            idx = np.arange(first, last + 1)
+            first = last + 1
+            rows = np.repeat(np.arange(N_KEYS), len(idx))
+            starts = np.tile(idx * SLIDE, N_KEYS)
+            blks = {}
+            for f in cols:
+                blk = cols[f][:, done:end]
+                blks[f] = blk.astype(ex.narrow_for(f, blk.ravel()))
+            ex.launch((rows, starts), blks, np.full(N_KEYS, done), rows,
+                      starts, np.full(len(rows), WIN))
+            metas.append(len(rows))
+            dispatches += 1
+            done = end
+        ready = ex.drain()
+    launches = rk.ring_append_multi_eval.launches
+    if launches != dispatches:
+        raise AssertionError(f"ring_dtypes_u multi: {launches} launches for "
+                             f"{dispatches} dispatches")
+    wires = {str(b.dtype) for c in calls for b in c["blks"]}
+    worst = 0.0
+    for (rows, starts), outs in ready:
+        for (op, f), got in zip(RU_MULTI_STATS, outs):
+            cells = cols[f][rows[:, None], starts[:, None]
+                            + np.arange(WIN)[None, :]]
+            if f == "e":
+                v = cells.astype(np.float16).astype(np.float64)
+                exact = v.sum(axis=1)
+                ulp = np.spacing(np.abs(exact.astype(np.float16))).astype(
+                    np.float64)
+                d = np.abs(got.astype(np.float64) - exact)
+                if not bool((d <= ulp).all()):
+                    raise AssertionError(f"ring_dtypes_u multi sum(e): off "
+                                         f"by {d.max()}")
+                worst = max(worst, float((d / ulp).max()))
+                continue
+            acc = accs[f]
+            cells = cells.astype(acc)
+            with np.errstate(over="ignore"):
+                want = {"sum": lambda x: x.sum(axis=1, dtype=acc),
+                        "max": lambda x: x.max(axis=1),
+                        "min": lambda x: x.min(axis=1),
+                        "prod": lambda x: x.prod(axis=1, dtype=np.uint32)
+                        }[op](cells)
+            if not (got.dtype == want.dtype and np.array_equal(got, want)):
+                raise AssertionError(f"ring_dtypes_u multi {op}({f}) "
+                                     "differs from the numpy oracle")
+    n, cerr = check_multi_evals(calls, "ring_dtypes_u multi")
+    big = max(calls, key=lambda c: c["starts"].numel())
+    case = multi_eval_call_case(big, np.random.default_rng(8))
+
+    def as32(r):
+        if r.dtype == torch.float16:
+            return r.float()
+        return r.view(_SAME_SIZE_INT[r.element_size()]).to(torch.int32)
+    as32_case = dict(case, rings=[as32(r) for r in case["rings"]],
+                     blks=[b.to(torch.int32) if b.dtype == torch.int64
+                           else b for b in case["blks"]])
+    row = dict(calls_checked=n, max_abs_err=cerr, oracle_max_ulps=worst,
+               wires=sorted(wires), **rd_multi_row(case, as32_case))
+    row["plain_ms"] = call_ms(lambda: rk.ring_append_multi_eval_reference(
+        [r.clone() for r in case["rings"]], case["blks"], case["offs"],
+        case["evals"], case["rows"], case["starts"], case["lens"],
+        case["pad"], case["tile_fields"]), reps=2)
+    emit("ring_dtypes_u", case="d_multi_fields",
+         workload="sum/max(a uint8), min/prod(b uint16), sum/max(c "
+                  "uint32), max(d uint64), sum(e float16) CB win=256 "
+                  "slide=64 keys=64, one MultiFieldResidentExecutor",
+         tuples=RU_MULTI_TUPLES, dispatches=dispatches,
+         windows=int(sum(metas)), launches=launches,
+         ring_append_multi_eval=row, phase_seconds=time.perf_counter() - t0)
+    del case, as32_case
+    return launches, row
+
+
+def ru_mesh_inputs(dtype, seed=29):
+    """(flat, starts, lens) of (e): per group RU_MESH_ROWS rows (int32 in
+    [-100000, 100000) for the integers, which wrap in the cast; float32 in
+    [-0.6, 0) for float16, so that 3v+1 stays in (-0.8, 1] and products
+    shrink), pipe_test's CB windows, CD_MESH_LONG long windows across the
+    sp boundary and MESH_PAST_N past N (phase 26's windows)."""
+    flat, starts, lens = cd_mesh_inputs(torch.uint32, seed)
+    rng = np.random.default_rng(seed)
+    if dtype == torch.float16:
+        flat = rng.uniform(-0.6, 0.0, flat.shape).astype(np.float32)
+    else:
+        flat = rng.integers(-100_000, 100_000, flat.shape).astype(np.int32)
+    return flat, starts, lens
+
+
+def ru_mesh_oracle(flat, starts, lens, rows, op, dtype):
+    """numpy, JAX's semantics of the stream step at `dtype`: per group the
+    rows padded with zeros to `rows`, mapped (3v+1, in int32 or float32),
+    filtered (v % 5 != 0) and cast to the dtype (integers wrap, floats
+    round to float16); a sum or product of 1- or 2-byte integers folds in
+    int32 or uint32, min and max in the dtype, count converted to it;
+    mean is the float32 sum over max(count, 1) wrapped into the dtype.
+    float16 in float64 (the checks allow the float16 rounding), but for
+    count, whose float16 shard counts and psum the oracle rounds as JAX
+    does (at 2 sp shards).  Returns
+    (values, the windows' sum of |x| over their kept rows)."""
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        return _ru_mesh_oracle(flat, starts, lens, rows, op, dtype)
+
+
+def _ru_mesh_oracle(flat, starts, lens, rows, op, dtype):
+    np_dt = np.dtype(torch.empty(0, dtype=dtype).numpy().dtype)
+    half = np_dt == np.float16
+    held = {np.dtype(np.int8): np.int32, np.dtype(np.int16): np.int32,
+            np.dtype(np.uint8): np.uint32,
+            np.dtype(np.uint16): np.uint32}.get(np_dt, np.float64)
+    outs, scales = [], []
+    for g in range(starts.shape[0]):
+        v = np.zeros(rows, dtype=np.float32 if half else np.int32)
+        v[:flat.shape[1]] = flat[g]
+        v = (3 * v + 1).astype(v.dtype)
+        kept = v % 5 != 0
+        x = (v.astype(np.float16).astype(np.float64) if half
+             else v.astype(np_dt))
+        s = np.clip(starts[g].astype(np.int64), 0, rows)
+        e = np.clip(starts[g].astype(np.int64) + lens[g], 0, rows)
+        csc = np.concatenate([[0], np.cumsum(kept)])
+        cnt = csc[e] - csc[s]
+        csa = np.concatenate([[0.0], np.cumsum(np.where(
+            kept, np.abs(x.astype(np.float64)), 0.0))])
+        scales.append(csa[e] - csa[s])
+        if op == "count" and half:
+            # each sp shard's count rounded to float16, then JAX's psum of
+            # float16 values in shard order (the ring's is the same at 2)
+            n_sp = MESH_STEP_SHAPE[2]
+            Ns = rows // n_sp
+            acc = None
+            for sh in range(n_sp):
+                lo = np.clip(s, sh * Ns, (sh + 1) * Ns)
+                hi = np.clip(e, sh * Ns, (sh + 1) * Ns)
+                c = (csc[hi] - csc[lo]).astype(np.float16)
+                acc = c if acc is None else (
+                    acc.astype(np.float32) + c.astype(np.float32)).astype(
+                        np.float16)
+            outs.append(acc)
+            continue
+        if op == "count":
+            outs.append(cnt.astype(np_dt))
+            continue
+        red = "sum" if op == "mean" else op
+        fold = (np.float64 if half else
+                held if red in ("sum", "prod") else np_dt)
+        xf = x.astype(fold)
+        ufunc = {"sum": np.add, "min": np.minimum, "max": np.maximum,
+                 "prod": np.multiply}[red]
+        if red in ("sum", "prod"):
+            ident = 0 if red == "sum" else 1
+        elif half:
+            ident = np.inf if red == "min" else -np.inf
+        else:
+            ident = (np.iinfo(np_dt).max if red == "min"
+                     else np.iinfo(np_dt).min)
+        masked = np.where(kept, xf, np.array(ident, dtype=fold))
+        res = np.full(len(s), ident, dtype=fold)
+        pad = -len(masked) % SLIDE
+        blocks = ufunc.reduce(np.concatenate(
+            [masked, np.full(pad, ident, dtype=fold)]).reshape(
+                -1, SLIDE), axis=1, dtype=fold)
+        full = (e - s == WIN) & (s % SLIDE == 0)
+        first = s[full] // SLIDE
+        acc = blocks[first]
+        for k in range(1, WIN // SLIDE):
+            acc = ufunc(acc, blocks[first + k])
+        res[full] = acc
+        for i in np.nonzero(~full & (e > s))[0]:
+            res[i] = ufunc.reduce(masked[s[i]:e[i]], dtype=fold)
+        if op == "mean":
+            d = np.maximum(cnt, 1)
+            if half:
+                res = res / d.astype(np.float16).astype(np.float64)
+            else:
+                res = (res.astype(np.float32)
+                       / d.astype(np_dt).astype(np.float32))
+        elif not half and red in ("min", "max"):
+            res = res.astype(np_dt)
+        outs.append(res)
+    return np.stack(outs), np.stack(scales)
+
+
+def ru_mesh():
+    """(e) MeshStreamStep at pipe_test's chain over a (2, 2, 2) mesh of
+    one card at int8, int16, uint8, uint16 and float16: every op, psum and
+    ring, windows past mr.SPLIT, against the numpy oracle (integers,
+    counts, min and max bit for bit, JAX's dtypes; float16 sums, means
+    and products within two float16 ulps plus 2**-12 of the window's sum
+    of |x|), every partial and merge call against its plain version and
+    twin (checked_mesh_kernels).  Returns (launches, errors, the largest
+    call of each dtype)."""
+    from windflow_tpu_torch.ops import mesh_reduce as mr
+    from windflow_tpu_torch.parallel import MeshStreamStep, make_mesh
+    kf, wf, sp = MESH_STEP_SHAPE
+    mesh = make_mesh(kf, sp, devices=[DEVICE] * (kf * wf * sp), n_wf=wf)
+    Ns = RU_MESH_ROWS // sp
+    errs = {}
+    with kernel_launches() as counts, checked_mesh_kernels() as seen:
+        for dtype in RU_MESH_DTYPES:
+            flat, starts, lens = ru_mesh_inputs(dtype)
+            for op in CD_MESH_OPS:
+                want, scale = ru_mesh_oracle(flat, starts, lens, Ns * sp,
+                                             op, dtype)
+                for collective in ("psum", "ring"):
+                    got = MeshStreamStep(
+                        mesh, op=op, dtype=dtype,
+                        map_fn=lambda v: 3 * v + 1,
+                        filter_fn=lambda v: v % 5 != 0,
+                        collective=collective)(flat, starts, lens)
+                    name = f"{op}/{str(dtype)[6:]}/{collective}"
+                    out = mr.merge_out(op, dtype)
+                    if got.dtype != torch.empty(0, dtype=out).numpy().dtype:
+                        raise AssertionError(f"ring_dtypes_u mesh {name}: "
+                                             f"dtype {got.dtype}")
+                    if dtype != torch.float16 or op in ("count", "min",
+                                                        "max"):
+                        same = got == want.astype(got.dtype)
+                        if got.dtype.kind == "f":
+                            same |= np.isnan(got) & np.isnan(
+                                want.astype(got.dtype))
+                        if not bool(same.all()):
+                            raise AssertionError(f"ring_dtypes_u mesh "
+                                                 f"{name}: differs from "
+                                                 "the oracle")
+                        errs[name] = 0.0
+                        continue
+                    g = got.astype(np.float64)
+                    with np.errstate(invalid="ignore", over="ignore"):
+                        w16 = want.astype(np.float16)
+                        ulp = np.spacing(np.abs(w16)).astype(np.float64)
+                        e = np.abs(g - want)
+                        e[(g == w16) | (np.isnan(g) & np.isnan(want))] = 0.0
+                        tol = 2 * ulp + 2.0 ** -12 * (
+                            scale / np.maximum(lens, 1) if op == "mean"
+                            else np.abs(want) * lens if op == "prod"
+                            else scale)
+                    if not bool((e <= tol).all()):
+                        raise AssertionError(f"ring_dtypes_u mesh {name}: "
+                                             f"error {e.max()}")
+                    errs[name] = float(e.max())
+    require_launches("ring_dtypes_u mesh", counts,
+                     ("sp_window_partial", "sp_merge"))
+    if not any(k > 0 for k in seen["long_windows"]):
+        raise AssertionError("ring_dtypes_u mesh: no long-window call")
+    return counts, errs, seen
+
+
+def ru_mesh_rows(seen):
+    """sp_window_partial (cold and hot; a 1- or 2-byte integer through
+    the wrapper, its widening copy included, and that copy alone) and
+    sp_merge (hot) at the largest call of each new dtype, beside the same
+    inputs as int32 or float32 (cd_as32), each with its bytes bound."""
+    from windflow_tpu_torch.ops import mesh_reduce as mr
+    rows = {"sp_window_partial": {}, "sp_merge": {}}
+    for dtype, call in seen["partial_by_dtype"].items():
+        if dtype not in RU_MESH_DTYPES:
+            continue
+        vals, keep, starts, lens, base, op, longw = call
+        Ns, B = vals.numel(), starts.numel()
+        s = np.clip(starts.cpu().numpy().astype(np.int64) - base, 0, Ns)
+        e = np.clip(starts.cpu().numpy().astype(np.int64)
+                    + lens.cpu().numpy() - base, 0, Ns)
+        cells = covered(s, np.maximum(e - s, 0))
+        row = {}
+        for label, v in (("new", vals), ("as32", cd_as32(vals))):
+            out = mr.partial_dtype(op, v.dtype)
+            nbytes = (cells * (v.element_size() + 1) + 8 * B
+                      + (torch.empty(0, dtype=out).element_size()
+                         + 4 * mr.needs_count(op)) * B)
+            b = bytes_bound(nbytes, int(np.maximum(e - s, 0).sum()))
+            hot, cold = cd_timed(v.device, lambda x, k: mr.sp_window_partial(
+                x, k, starts, lens, base, op, long_windows=longw),
+                [v, keep])
+            row[label] = dict(dtype=str(v.dtype), ms=cold, hot_ms=hot,
+                              bound_ms=b[0], bound_by=b[1],
+                              bound_bytes=nbytes)
+        if vals.dtype in mr._HELD:
+            row["widen_copy_ms"] = kernel_ms(lambda: mr._widened(vals))
+        row["plain_ms"] = call_ms(lambda: mr.sp_window_partial_reference(
+            vals, keep, starts, lens, base, op), reps=2)
+        row.update(op=op, Ns=Ns, windows=B, cells=cells,
+                   long_windows=longw.numel())
+        rows["sp_window_partial"][str(dtype)] = row
+    for dtype, call in seen["merge_by_dtype"].items():
+        if dtype not in RU_MESH_DTYPES:
+            continue
+        plist, parts, clist, cnts, op, ring, reduction = call
+        n, B = parts.shape
+        row = {}
+        for label, p, d in (("new", parts, reduction),
+                            ("as32", cd_as32(parts), None)):
+            size = p.element_size()
+            nbytes = (size * n * B + size * B
+                      + (4 * n * B if op == "mean" else 0))
+            b = bytes_bound(nbytes, (n - 1) * B)
+            ps = list(p)
+            row[label] = dict(dtype=str(p.dtype), ms=kernel_ms(
+                lambda ps=ps, d=d: mr.sp_merge(ps, clist, op, ring=ring,
+                                               dtype=d)),
+                bound_ms=b[0], bound_by=b[1], bound_bytes=nbytes)
+        if dtype in mr._HELD:
+            # a max merge: the 1- or 2-byte partials widened, merged, cast
+            # back (sum's partials are int32 already), beside int32's
+            narrow = [mr._cast_back(p, dtype) for p in parts]
+            wide = list(cd_as32(parts))
+            row["max_ms"] = kernel_ms(lambda: mr.sp_merge(
+                narrow, None, "max", ring=ring, dtype=dtype))
+            row["max_as32_ms"] = kernel_ms(lambda: mr.sp_merge(
+                wide, None, "max", ring=ring))
+        row["plain_ms"] = call_ms(lambda: mr.sp_merge_reference(
+            parts, cnts, op, ring, reduction))
+        row.update(op=op, ring=ring, n_sp=n, windows=B)
+        rows["sp_merge"][str(dtype)] = row
+    return rows
+
+
+def ring_dtypes_u_phase(rk, builds):
+    """Phase 27: unsigned and float16 rings through the four ring kernels
+    ((a) sum_test's 16M tuples on a uint32 ring, (b) the max prefix on
+    uint32, uint8 and uint16 rings and on a uint32 kf mesh, (c) float16
+    max and sum, (d) five fields of the five new ring dtypes in one
+    per-field launch a dispatch) and the mesh reduction at int8, int16,
+    uint8, uint16 and float16 ((e) the stream step): every window against
+    a numpy oracle, every recorded call of the six kernels against its
+    plain version and twin, each kernel timed at the new dtype beside the
+    same inputs at int32 or float32.  Returns each kernel's launches at
+    the new dtypes."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.ops import _nvcc
+    t0 = time.perf_counter()
+    sum_counts, fused = ru_sum_test(rk, wt)
+    max_counts, evals = ru_max_prefixes(rk, wt)
+    f16_counts, f16 = ru_float16(rk, wt)
+    multi_launches, multi = ru_multi_fields(rk)
+    mesh_counts, mesh_errs, seen = ru_mesh()
+    emit("ring_dtypes_u", case="e_mesh_step",
+         workload="MeshStreamStep map 3v+1, filter v%5!=0, (kf, wf, sp) "
+                  f"= {MESH_STEP_SHAPE} x {DEVICE}, {RU_MESH_ROWS} rows a "
+                  "group", dtypes=[str(d) for d in RU_MESH_DTYPES],
+         ops=list(CD_MESH_OPS), launches=mesh_counts,
+         oracle_max_abs_err=mesh_errs,
+         partial_calls_checked=seen["partials"],
+         merge_calls_checked=seen["merges"],
+         partial_twin_checks=seen["twins"],
+         long_windows_per_call=dict(seen["long_windows"]))
+    launches = {
+        "ring_append_regular_sum": sum_counts["ring_append_regular_sum"]
+        + f16_counts["sum_int64"]["ring_append_regular_sum"],
+        "ring_append_eval": sum(c["ring_append_eval"]
+                                for c in (*max_counts.values(),
+                                          f16_counts["max_float32"],
+                                          f16_counts["sum_float32"])),
+        "ring_append_multi_eval": multi_launches,
+        "sp_window_partial": mesh_counts["sp_window_partial"],
+        "sp_merge": mesh_counts["sp_merge"]}
+    rows = dict(ring_append_regular_sum={"uint32": fused,
+                                         "float16": f16["sum_int64"]},
+                ring_append_eval={**evals,
+                                  "float16 max": f16["max_float32"],
+                                  "float16 sum": f16["sum_float32"]},
+                ring_append_multi_eval=multi, **ru_mesh_rows(seen))
+    del seen
+    emit("ring_dtypes_u_rows", build_s=builds["resident.cu"][1],
+         build_units_s=_nvcc.UNIT_SECONDS.get("resident"),
+         mesh_build_s=builds["mesh_reduce.cu"][1],
          phase_seconds=time.perf_counter() - t0, **rows)
     return launches
 
@@ -5719,6 +6535,12 @@ def main() -> int:
     for name, n in column_launches.items():
         if not n:
             raise AssertionError(f"column_dtypes launched no {name} at a "
+                                 "new dtype")
+    unsigned_launches = ring_dtypes_u_phase(rk, builds)
+    emit("ring_dtypes_u_launches", **unsigned_launches)
+    for name, n in unsigned_launches.items():
+        if not n:
+            raise AssertionError(f"ring_dtypes_u launched no {name} at a "
                                  "new dtype")
     runs = [c for path in new_paths.values()
             for c in (path.values() if "kf-gpu" in path else [path])]

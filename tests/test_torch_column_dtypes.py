@@ -613,10 +613,12 @@ def test_mesh_twins_match_plain(dtype, split, chunk):
 
 
 def test_new_dtypes_refused_where_not_taken():
-    """float16 is no mesh dtype, int16 no kernel dtype: both raise."""
+    """bfloat16 is no mesh dtype (float16 and the 1- and 2-byte integers
+    are, since the mesh took JAX's other dtypes), int16 no gather dtype:
+    both raise."""
     t = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(TypeError, match="mesh reduction runs in"):
-        mr.sp_window_partial(torch.zeros(8, dtype=torch.float16), None, t,
+        mr.sp_window_partial(torch.zeros(8, dtype=torch.bfloat16), None, t,
                              t, 0, "sum")
     with pytest.raises(TypeError, match="window_gather takes"):
         g.window_gather(torch.zeros((1, 8), dtype=torch.int16), None, t, t,

@@ -404,7 +404,7 @@ def test_refuses_bad_inputs():
     with pytest.raises(ValueError, match="at least one field"):
         f([], [], offs, [], v, v, v, 4)
     with pytest.raises(TypeError, match="the ring must be"):
-        f([rings[0].half(), rings[1]], blks, offs, [], v, v, v, 4)
+        f([rings[0].bfloat16(), rings[1]], blks, offs, [], v, v, v, 4)
     with pytest.raises(TypeError, match="blk"):
         f(rings, [blks[0].double(), blks[1]], offs, [], v, v, v, 4)
     with pytest.raises(TypeError, match="one shape"):

@@ -224,7 +224,8 @@ def test_resident_64bit_compute_dtype():
     """A 64-bit compute_dtype runs on an int64 ring and gives the JAX
     package's results under x64, byte for byte, sums past 2**32 included
     (the JAX package without x64 still raises ValueError; a ring dtype the
-    kernels lack, float16, raises in the port)."""
+    kernels lack, bfloat16, which JAX's core cannot run either, raises in
+    the port)."""
     import jax
     if not jax.config.jax_enable_x64:
         with pytest.raises(ValueError, match="x64"):
@@ -243,8 +244,10 @@ def test_resident_64bit_compute_dtype():
             batch_len=32, flush_rows=100), batches)
     assert_identical(got, want)
     assert int(got["value"].max()) > 2 ** 35
-    with pytest.raises(ValueError, match="float16"):
-        ResidentWindowExecutor("sum", device="cpu", acc_dtype=np.float16)
+    import ml_dtypes
+    with pytest.raises(ValueError, match="bfloat16"):
+        ResidentWindowExecutor("sum", device="cpu",
+                               acc_dtype=ml_dtypes.bfloat16)
 
 
 def test_resident_count_skips_device_entirely():

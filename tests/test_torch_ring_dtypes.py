@@ -265,11 +265,14 @@ def test_plain_matches_jax_regular_body(acc, wire):
 
 
 def test_ring_dtypes_and_pairs():
-    """The kernels' type set: six ring dtypes, 26 (wire, ring) pairs; any
-    other ring dtype or pair raises on the CPU as on the card, and an
-    op's output dtype follows _ring_eval."""
-    assert len(rk.RING_DTYPES) == 6
-    assert sum(len(rk.wires_of(d)) for d in rk.RING_DTYPES) == 26
+    """The kernels' type set: eleven ring dtypes (these six, the unsigned
+    ones and float16), 47 (wire, ring) pairs; any other ring dtype or pair
+    raises on the CPU as on the card, and an op's output dtype follows
+    _ring_eval."""
+    assert len(rk.RING_DTYPES) == 11
+    assert set(NEW_ACCS) | {np.int32, np.float32} <= {
+        torch.empty(0, dtype=d).numpy().dtype.type for d in rk.RING_DTYPES}
+    assert sum(len(rk.wires_of(d)) for d in rk.RING_DTYPES) == 47
     ring = torch.zeros((4, 32), dtype=torch.int64)
     offs = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError, match="blk"):
@@ -302,7 +305,7 @@ def test_identity_words():
 
 
 def test_library_builds_its_units_in_parallel(tmp_path, monkeypatch):
-    """build() compiles the 14 units (the ring kernels once a ring dtype,
+    """build() compiles the 24 units (the ring kernels once a ring dtype,
     the per-field evaluations once a ring dtype in 64 registers) as
     relocatable device code, one nvcc each, links them into one library,
     removes the objects and records each unit's seconds; a second build
@@ -321,20 +324,21 @@ def test_library_builds_its_units_in_parallel(tmp_path, monkeypatch):
                            out_dir=str(tmp_path / "build"))
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in c]
-    assert len(compiles) == len(rk.UNITS) == 14 and len(calls) == 15
+    assert len(compiles) == len(rk.UNITS) == 24 and len(calls) == 25
     assert all("-rdc=true" in c for c in calls)
-    assert sum("-maxrregcount=64" in c for c in compiles) == 6
-    assert sorted(c.split("-DWF_RING_ACC=")[1].split()[0] for c in compiles
-                  if "resident_ring.cu" in c) == [str(k) for k in range(6)]
+    assert sum("-maxrregcount=64" in c for c in compiles) == 11
+    assert sorted((c.split("-DWF_RING_ACC=")[1].split()[0] for c in compiles
+                   if "resident_ring.cu" in c), key=int) == [
+        str(k) for k in range(11)]
     link = calls[-1]
-    assert "-shared" in link and link.count(".o") == 14
+    assert "-shared" in link and link.count(".o") == 24
     assert os.path.exists(so) and os.listdir(tmp_path / "build") == [
         os.path.basename(so)]
-    assert len(_nvcc.UNIT_SECONDS["resident"]) == 15
+    assert len(_nvcc.UNIT_SECONDS["resident"]) == 25
     assert _nvcc.build_units("resident", rk.UNITS,
                              headers=("resident.cuh",),
                              out_dir=str(tmp_path / "build")) == so
-    assert len(log.read_text().splitlines()) == 15
+    assert len(log.read_text().splitlines()) == 25
 
 
 # ----------------------------------------------------------- order twins
@@ -759,8 +763,8 @@ def test_narrow_follows_jax_ladder(acc):
 def test_select_acc_dtype_follows_jax(monkeypatch):
     """select_acc_dtype takes every ring dtype; the range warning fires
     exactly where JAX's does (a narrow ring under an int64 reducer), never
-    for a 64-bit one; float16 rings are not ported and the executor
-    refuses them."""
+    for a 64-bit one; a float16 ring is taken as JAX takes it, and a
+    bfloat16 one refused, as JAX's core refuses it."""
     from windflow_tpu.core.windows import WindowSpec as JWindowSpec
     from windflow_tpu.core.windows import WinType as JWinType
     from windflow_tpu.ops.functions import Reducer as JReducer
@@ -787,8 +791,12 @@ def test_select_acc_dtype_follows_jax(monkeypatch):
                                        WindowSpec(8, 4, wt.WinType.CB))
         assert pacc == jacc == np.dtype(acc)
         assert len(pwarn) == len(jwarn), acc
-    with pytest.raises(ValueError, match="float16"):
-        ResidentWindowExecutor("sum", device="cpu", acc_dtype=np.float16)
+    assert ResidentWindowExecutor("sum", device="cpu",
+                                  acc_dtype=np.float16)._acc == torch.float16
+    import ml_dtypes
+    with pytest.raises(ValueError, match="bfloat16"):
+        ResidentWindowExecutor("sum", device="cpu",
+                               acc_dtype=ml_dtypes.bfloat16)
 
 
 # --------------------------------------------------------------- cores

@@ -299,8 +299,8 @@ def test_wrappers_refuse_bad_inputs():
     ring = torch.zeros((4, 32), dtype=torch.int32)
     offs = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError, match="the ring must be"):
-        rk.ring_append(ring.half(), torch.zeros((4, 8), dtype=torch.int8),
-                       offs)
+        rk.ring_append(ring.bfloat16(), torch.zeros((4, 8),
+                                                    dtype=torch.int8), offs)
     with pytest.raises(TypeError, match="blk"):
         rk.ring_append(ring, torch.zeros((3, 8), dtype=torch.int8), offs)
     with pytest.raises(TypeError, match="blk"):

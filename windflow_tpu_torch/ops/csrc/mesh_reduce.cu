@@ -10,8 +10,9 @@
 // wf_sp_window_partial.  For window w < B of one shard whose row slice
 // `vals` holds rows [base, base + Ns) of its group (values after the
 // user's map_fn, in the reduction's dtype: int32, float32, uint32, int64,
-// uint64 or float64), with keep == null or a (Ns,)
-// byte mask (the user's filter_fn):
+// uint64, float64 or float16; a 1- or 2-byte integer dtype comes widened
+// to int32 or uint32 by the wrapper, a copy, with that dtype's identity),
+// with keep == null or a (Ns,) byte mask (the user's filter_fn):
 //     lo = clip(starts[w] - base, 0, Ns), hi = clip(starts[w] + lens[w] -
 //     base, 0, Ns)
 //     cnt[w]  = #{c in [lo, hi) : keep[c]}
@@ -29,10 +30,20 @@
 // shard whose value JAX returns).  mean writes sum / max(count, 1) in
 // float32 for a 4-byte dtype and in float64 for an 8-byte one, the integer
 // sum converted to that float first (JAX's true division of an integer
-// dtype; float64 under x64).
+// dtype; float64 under x64).  For a 1- or 2-byte integer dtype the
+// partials are int32 or uint32 (JAX's sums and products of them; its min,
+// max and count the wrapper widens) and mean divides the float32 sum by
+// max(count, 1) wrapped into that dtype (JAX's
+// jnp.maximum(c, 1).astype(dtype): 0 past 255 for uint8, so inf or nan).
+// float16 partials are combined in float and, where JAX's collective
+// works on float16 values (psum and the ring's hops: sum, count, mean,
+// and prod on the ring), rounded to float16 after every combine (`step`);
+// prod's gather fold rounds once.  A float16 mean is a float16 quotient,
+// the sum over max(count, 1) rounded to float16.
 //
 // Semantics kept identical to the reference: integer sums and products
-// wrap modulo 2^32 or 2^64 (they run in the unsigned type of their width);
+// wrap modulo 2^32 or 2^64 (they run in the unsigned type of their width;
+// float16 in float, rounded to float16 once a partial);
 // uint32 and uint64 compare unsigned; float min/max propagate NaN as
 // jnp.min and jnp.max do; the identity comes from the caller as its 64-bit
 // pattern (ops/monoid.py:identity).  The dtypes' storage and work types
@@ -100,7 +111,9 @@
 // (n, B) tensor's rows or n separate tensors are read where they lie.
 // Bound by bytes: n * B partials (and counts) read, B values written.
 // int32 and float32 keep their measured instantiations; each new dtype
-// is an instantiation of its own.
+// is an instantiation of its own (float16: Cells<2>, 8-byte groups; the
+// 1- and 2-byte integers the int32 and uint32 ones, and for mean an
+// instantiation a divisor type).
 
 #include "cells.cuh"
 
@@ -123,6 +136,13 @@ constexpr int kMinBlocks8 = 4;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeWindows = 4;             // windows a merge thread
 constexpr int kInline = 16;                  // merge pointers by value
+
+// merge codes of the 1- and 2-byte integer dtypes (ops/mesh_reduce.py
+// _NARROW_CODES): their partials are held in int32 or uint32
+enum NarrowDtype { DT_INT8 = 7, DT_INT16 = 8, DT_UINT8 = 9, DT_UINT16 = 10 };
+
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
 // merge pointers by value for values of T (8-byte partials: 8, so that
 // the shards in flight stay in registers)
@@ -390,6 +410,7 @@ struct Shards {
   void* out;
   int n, B;
   bool vec;                        // every pointer 16-byte aligned
+  bool step;                       // float16: round after every combine
 };
 
 template <typename P, typename Q>
@@ -415,7 +436,9 @@ __device__ __forceinline__ typename C::Group load4(
   return C::make(x);
 }
 
-template <int OP, typename T, int NB>
+// D: the type mean's max(count, 1) is converted to before the division
+// (int: none; a 1- or 2-byte integer: JAX's astype into the dtype)
+template <int OP, typename T, int NB, typename D = int>
 __global__ void __launch_bounds__(kMergeThreads)
 sp_merge_kernel(const __grid_constant__ Shards s) {
   using W = typename Work<OP, T>::type;
@@ -451,6 +474,9 @@ sp_merge_kernel(const __grid_constant__ Shards s) {
         for (int j = 0; j < kMergeWindows; ++j) {
           const W x = value<T, W>(C::at(v[i], j));
           acc[j] = k + i == 0 ? x : combine<OP, W>(acc[j], x);
+          if constexpr (kHalf<T>) {
+            if (s.step) acc[j] = __half2float(__float2half_rn(acc[j]));
+          }
           if constexpr (kMean) c[j] += (int32_t)C4::at(cv[i], j);
         }
       }
@@ -459,10 +485,15 @@ sp_merge_kernel(const __grid_constant__ Shards s) {
   Word o[kMergeWindows];
 #pragma unroll
   for (int j = 0; j < kMergeWindows; ++j) {
-    if constexpr (kMean) {
+    if constexpr (kMean && kHalf<T>) {
+      // JAX: s / max(c, 1).astype(float16), a float16 quotient
+      const float den = __half2float(__float2half_rn(
+          (float)(c[j] > 1 ? c[j] : 1)));
+      o[j] = stored<T, W>(acc[j] / den);
+    } else if constexpr (kMean) {
       // JAX: s / max(c, 1), the sum converted to the float first
       const Out sum = (Out)bit_cast<T>(acc[j]);
-      o[j] = bit_cast<Word>(sum / (Out)(c[j] > 1 ? c[j] : 1));
+      o[j] = bit_cast<Word>(sum / (Out)(D)(c[j] > 1 ? c[j] : 1));
     } else {
       o[j] = stored<T, W>(acc[j]);
     }
@@ -478,42 +509,67 @@ sp_merge_kernel(const __grid_constant__ Shards s) {
   }
 }
 
-template <int OP, typename T>
+template <int OP, typename T, typename D = int>
 cudaError_t launch_merge(const Shards& s, cudaStream_t stream) {
   const long long threads = ((long long)s.B + kMergeWindows - 1) /
                             kMergeWindows;
   const unsigned grid =
       (unsigned)((threads + kMergeThreads - 1) / kMergeThreads);
   if (s.n <= 2) {
-    sp_merge_kernel<OP, T, 2><<<grid, kMergeThreads, 0, stream>>>(s);
+    sp_merge_kernel<OP, T, 2, D><<<grid, kMergeThreads, 0, stream>>>(s);
   } else if (s.n <= 4) {
-    sp_merge_kernel<OP, T, 4><<<grid, kMergeThreads, 0, stream>>>(s);
+    sp_merge_kernel<OP, T, 4, D><<<grid, kMergeThreads, 0, stream>>>(s);
   } else if (s.n <= 8) {
-    sp_merge_kernel<OP, T, 8><<<grid, kMergeThreads, 0, stream>>>(s);
+    sp_merge_kernel<OP, T, 8, D><<<grid, kMergeThreads, 0, stream>>>(s);
   } else if constexpr (inline_of<T>() == 8) {
-    sp_merge_kernel<OP, T, 8><<<grid, kMergeThreads, 0, stream>>>(s);
+    sp_merge_kernel<OP, T, 8, D><<<grid, kMergeThreads, 0, stream>>>(s);
   } else {
-    sp_merge_kernel<OP, T, kInline><<<grid, kMergeThreads, 0, stream>>>(s);
+    sp_merge_kernel<OP, T, kInline, D><<<grid, kMergeThreads, 0, stream>>>(
+        s);
   }
   return cudaGetLastError();
 }
 
+// mean over the partials of T for a reduction of code `dtype`: a 1- or
+// 2-byte integer dtype divides by the count wrapped into it
 template <typename T>
-cudaError_t merge_for(int op, const Shards& s, cudaStream_t stream) {
+cudaError_t merge_mean(int dtype, const Shards& s, cudaStream_t stream) {
+  if constexpr (std::is_same<T, int32_t>::value) {
+    if (dtype == DT_INT8) return launch_merge<OP_MEAN, T, int8_t>(s, stream);
+    if (dtype == DT_INT16) {
+      return launch_merge<OP_MEAN, T, int16_t>(s, stream);
+    }
+  } else if constexpr (std::is_same<T, uint32_t>::value) {
+    if (dtype == DT_UINT8) {
+      return launch_merge<OP_MEAN, T, uint8_t>(s, stream);
+    }
+    if (dtype == DT_UINT16) {
+      return launch_merge<OP_MEAN, T, uint16_t>(s, stream);
+    }
+  }
+  return launch_merge<OP_MEAN, T>(s, stream);
+}
+
+template <typename T>
+cudaError_t merge_for(int op, int dtype, const Shards& s,
+                      cudaStream_t stream) {
   switch (op) {
     case OP_SUM:
     case OP_COUNT:   // partial counts add in the dtype
       return launch_merge<OP_SUM, T>(s, stream);
-    case OP_MEAN: return launch_merge<OP_MEAN, T>(s, stream);
+    case OP_MEAN: return merge_mean<T>(dtype, s, stream);
     case OP_MIN: return launch_merge<OP_MIN, T>(s, stream);
     case OP_MAX: return launch_merge<OP_MAX, T>(s, stream);
     default: return launch_merge<OP_PROD, T>(s, stream);
   }
 }
 
-bool valid(int op, int dtype) {
-  return op >= OP_SUM && op <= OP_MEAN && dtype >= DT_INT32 &&
-         dtype <= DT_FLOAT64 && dtype != DT_FLOAT16;
+// the partial takes the seven value dtypes; the merge also the codes of
+// the 1- and 2-byte integers (partials held in int32 or uint32)
+bool valid(int op, int dtype, bool merge) {
+  return op >= OP_SUM && op <= OP_MEAN &&
+         ((dtype >= DT_INT32 && dtype <= DT_FLOAT64) ||
+          (merge && dtype >= DT_INT8 && dtype <= DT_UINT16));
 }
 
 int width(int dtype) {
@@ -525,24 +581,29 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// fn<T>(args...) for the dtype code (valid() holds)
-#define WF_BY_DTYPE(fn, dtype, ...)                                  \
-  ((dtype) == DT_FLOAT32   ? fn<float>(__VA_ARGS__)                  \
-   : (dtype) == DT_INT32   ? fn<int32_t>(__VA_ARGS__)                \
-   : (dtype) == DT_UINT32  ? fn<uint32_t>(__VA_ARGS__)               \
-   : (dtype) == DT_INT64   ? fn<long long>(__VA_ARGS__)              \
-   : (dtype) == DT_UINT64  ? fn<unsigned long long>(__VA_ARGS__)     \
+// fn<T>(args...) for the dtype code (valid() holds; a 1- or 2-byte
+// integer code takes its 4-byte holder)
+#define WF_BY_DTYPE(fn, dtype, ...)                                    \
+  ((dtype) == DT_FLOAT32   ? fn<float>(__VA_ARGS__)                    \
+   : (dtype) == DT_INT32 || (dtype) == DT_INT8 || (dtype) == DT_INT16  \
+       ? fn<int32_t>(__VA_ARGS__)                                      \
+   : (dtype) == DT_UINT32 || (dtype) == DT_UINT8 ||                    \
+         (dtype) == DT_UINT16                                          \
+       ? fn<uint32_t>(__VA_ARGS__)                                     \
+   : (dtype) == DT_INT64   ? fn<long long>(__VA_ARGS__)                \
+   : (dtype) == DT_UINT64  ? fn<unsigned long long>(__VA_ARGS__)       \
+   : (dtype) == DT_FLOAT16 ? fn<__half>(__VA_ARGS__)                   \
                            : fn<double>(__VA_ARGS__))
 
 }  // namespace
 
 // Writes the (B,) partials `part` (words of the dtype) and, when `cnt` is
 // not null, the (B,) int32 kept-row counts of one shard: its (Ns,) slice
-// `vals` (of `dtype`, a Dtype code: int32, float32, uint32, int64, uint64
-// or float64) holds rows [base, base + Ns); `keep` is a (Ns,) byte mask
-// or null; the windows are (starts, lens) in the group's row coordinates;
-// `ident` is the op's identity's bits (the low 4 bytes for a 4-byte
-// dtype).  `long_windows` lists the n_long windows whose clipped length
+// `vals` (of `dtype`, a Dtype code: int32, float32, uint32, int64,
+// uint64, float64 or float16) holds rows [base, base + Ns); `keep` is a
+// (Ns,) byte mask or null; the windows are (starts, lens) in the group's
+// row coordinates; `ident` is the op's identity's bits in the work type
+// (the low 4 bytes for a 4-byte one; float16: float32).  `long_windows` lists the n_long windows whose clipped length
 // exceeds `split` (each once, any order; null when n_long is 0): they are
 // reduced in chunks of `chunk_cells` cells (a multiple of 32), every other
 // window by one team; a listed window of split cells or fewer is left to
@@ -556,7 +617,8 @@ extern "C" int wf_sp_window_partial(const void* vals, const void* keep,
                                     const void* long_windows, int n_long,
                                     int split, int chunk_cells, void* part,
                                     void* cnt, void* stream) {
-  if (B <= 0 || Ns < 0 || !valid(op, dtype) || n_long < 0 || split < 0 ||
+  if (B <= 0 || Ns < 0 || !valid(op, dtype, false) || n_long < 0 ||
+      split < 0 ||
       chunk_cells <= 0 || chunk_cells % (kGroup * kLanes) != 0 ||
       (n_long > 0 && long_windows == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -584,16 +646,21 @@ extern "C" int wf_sp_window_partial(const void* vals, const void* keep,
 // Folds, for each of the B windows, the n partials parts[0], ..., parts[n
 // - 1] (device pointers to (B,) words of the dtype, already in fold
 // order; for mean also the (B,) int32 counts cnts[k]) into the (B,) `out`:
-// words of the dtype, or for mean float32 (a 4-byte dtype) or float64 (an
-// 8-byte one).  `parts` and `cnts` are host arrays of n device pointers;
-// past 16 partials (8 for an 8-byte dtype) `far` must be a device array of
-// the same 2n pointers (parts, then cnts; unused counts may be 0), else
-// null.  One launch on `stream`; returns cudaGetLastError() after it.
+// words of the dtype, or for mean float32 (a 4-byte or narrower integer
+// dtype), float64 (an 8-byte one) or float16.  `dtype` is the
+// reduction's Dtype code, or for a 1- or 2-byte integer its NarrowDtype
+// code (partials in int32 or uint32).  `step` rounds float16 partials to
+// float16 after every combine.  `parts` and `cnts` are host arrays of n
+// device pointers; past 16 partials (8 for an 8-byte dtype) `far` must be
+// a device array of the same 2n pointers (parts, then cnts; unused counts
+// may be 0), else null.  One launch on `stream`; returns
+// cudaGetLastError() after it.
 extern "C" int wf_sp_merge(const void* const* parts, const void* const* cnts,
                            const void* far, int n, int B, int op, int dtype,
-                           void* out, void* stream) {
+                           int step, void* out, void* stream) {
   const bool mean = op == OP_MEAN;
-  if (n <= 0 || B <= 0 || !valid(op, dtype) || (mean && cnts == nullptr)) {
+  if (n <= 0 || B <= 0 || !valid(op, dtype, true) ||
+      (mean && cnts == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int inl = width(dtype) == 8 ? 8 : kInline;
@@ -604,6 +671,7 @@ extern "C" int wf_sp_merge(const void* const* parts, const void* const* cnts,
   s.out = out;
   s.far = n > inl ? static_cast<const uint64_t*>(far) : nullptr;
   s.vec = aligned(out, 16);
+  s.step = step != 0;
   for (int k = 0; k < n; ++k) {
     s.vec = s.vec && aligned(parts[k], 16) && (!mean || aligned(cnts[k], 16));
     if (k < inl) {
@@ -612,5 +680,5 @@ extern "C" int wf_sp_merge(const void* const* parts, const void* const* cnts,
     }
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)WF_BY_DTYPE(merge_for, dtype, op, s, st);
+  return (int)WF_BY_DTYPE(merge_for, dtype, op, dtype, s, st);
 }

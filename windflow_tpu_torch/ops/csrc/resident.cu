@@ -6,7 +6,7 @@
 // windflow_tpu/ops/resident.py _make_multi_step (:599-628; on every kf
 // shard _make_mesh_multi_step :784):
 //  * ring_append_multi_eval: a ring a field (at most kMaxFields, each
-//    with its own wire and ring dtype of resident.cuh's 26 pairs, all of
+//    with its own wire and ring dtype of resident.cuh's 47 pairs, all of
 //    one (KP, cap) shape, their rectangles of one (KP, Rb) shape at the
 //    shared offsets): every field's append, every (field, op) stat over
 //    the (row, start, len) windows of the rings after it as
@@ -28,7 +28,7 @@
 // rings are all int32 or float32 takes multi_eval_kernel<false>, here,
 // which holds those 8 pairs' team evaluations (ring_append_eval's) inline;
 // any other launch multi_eval_kernel<true> (resident_multi.cu), which
-// calls each of the 26 pairs' field_eval in resident_field.cu (inlined in
+// calls each of the 47 pairs' field_eval in resident_field.cu (inlined in
 // one kernel they would build one after another, and a wire switched
 // cell by cell spilled).  A block's switch is uniform: an append or tile
 // field's blocks are that field's, and the evaluation blocks walk the
@@ -63,6 +63,11 @@ int append_sum(int wire, int acc, void* ring, const void* blk,
     WF_CASE(A_INT16)
     WF_CASE(A_INT64)
     WF_CASE(A_FLOAT64)
+    WF_CASE(A_UINT8)
+    WF_CASE(A_UINT16)
+    WF_CASE(A_UINT32)
+    WF_CASE(A_UINT64)
+    WF_CASE(A_FLOAT16)
 #undef WF_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -80,6 +85,11 @@ int append_eval(int wire, int acc, const AppendEval& p, cudaStream_t st) {
     WF_CASE(A_INT16)
     WF_CASE(A_INT64)
     WF_CASE(A_FLOAT64)
+    WF_CASE(A_UINT8)
+    WF_CASE(A_UINT16)
+    WF_CASE(A_UINT32)
+    WF_CASE(A_UINT64)
+    WF_CASE(A_FLOAT16)
 #undef WF_CASE
   }
   return (int)cudaErrorInvalidValue;

@@ -25,26 +25,32 @@
 // A third, multi_eval_kernel (at the end; its notes in resident.cu),
 // replaces _make_multi_step.
 //
-// Dtypes.  A ring holds int8, int16, int32, int64, float32 or float64
-// cells (enum Acc); the rectangle comes in the wire dtype the JAX
-// package's narrowing ladder picks for it (enum Wire): int8, int16, int32
-// or float32 into a ring of 1-4 byte cells, int8, int16, int32, int64 or
-// float64 into a ring of 8-byte cells, 26 (wire, ring) pairs in all
-// (wire_ok below).  A wire wider than the ring wraps as XLA's astype
-// does; a float wire into an integer ring truncates toward zero,
-// saturating at the ring's range, NaN to 0 (XLA's conversion).  Integer
-// sums and products run in uint32 (rings of 1-4 byte cells) or uint64
-// (int64 rings) and wrap: a sum is written in the ring dtype (modulo
-// 2^8 for an int8 ring, as the JAX cumsum of an int8 ring wraps), a
-// product of an int8 or int16 ring as int32 (jnp.prod promotes them to
-// the default int, int32 without x64), every other result in the ring
-// dtype; min and max compare in int32 (int64 rings: int64) or the float
-// type.  A long window's chunk partials are kept in that working type
-// (4 or 8 bytes).
+// Dtypes.  A ring holds int8, int16, int32, int64, uint8, uint16,
+// uint32, uint64, float16, float32 or float64 cells (enum Acc); the
+// rectangle comes in the wire dtype the JAX package's narrowing ladder
+// picks for it (enum Wire; the ladder ships signed wires only): int8,
+// int16, int32 or float32 into a ring of 1-4 byte cells, int8, int16,
+// int32, int64 or float64 into a ring of 8-byte cells, 47 (wire, ring)
+// pairs in all (wire_ok below).  A wire wider than the ring, or a signed
+// wire into an unsigned ring, wraps as XLA's astype does; a float wire
+// into an integer ring truncates toward zero, saturating at the ring's
+// range, NaN to 0; any wire into a float16 ring rounds to nearest even
+// (XLA's conversions).  Integer sums and products run in uint32 (rings
+// of 1-4 byte cells) or uint64 (8-byte rings) and wrap: a sum is written
+// in the ring dtype (modulo 2^8 for an int8 ring, as the JAX cumsum of an
+// int8 ring wraps), a product of an int8 or int16 ring as int32 and of a
+// uint8 or uint16 ring as uint32 (jnp.prod promotes them to the default
+// int of their kind without x64), every other result in the ring dtype;
+// min and max compare in int32 or int64, in uint32 or uint64 for an
+// unsigned ring, or in the float type.  A float16 ring is reduced in
+// float and each result rounded to float16 once (__float2half_rn), the
+// rule of cells.cuh; a window sum adds its cells, where JAX takes a
+// difference of two float16 prefix sums (a recorded divergence).  A long
+// window's chunk partials are kept in that working type (4 or 8 bytes).
 // The ring kernels are compiled for every pair: resident_ring.cu holds
 // append_sum_kernel and append_eval_kernel for the wires of one ring
-// dtype (six objects built in parallel), resident.cu the multi kernel and
-// the C entry points.
+// dtype (eleven objects built in parallel), resident.cu the multi kernel
+// and the C entry points.
 //
 // The irregular evaluation.  For window w < B, with len = min(lens[w],
 // pad) (0 if negative) and s = max(starts[w], 0), and each op e:
@@ -161,6 +167,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -175,7 +182,8 @@ enum Wire {
 };
 enum Acc {
   A_INT32 = 0, A_FLOAT32 = 1, A_INT8 = 2, A_INT16 = 3, A_INT64 = 4,
-  A_FLOAT64 = 5
+  A_FLOAT64 = 5, A_UINT8 = 6, A_UINT16 = 7, A_UINT32 = 8, A_UINT64 = 9,
+  A_FLOAT16 = 10
 };
 enum Op { OP_SUM = 0, OP_COUNT = 1, OP_MIN = 2, OP_MAX = 3, OP_PROD = 4 };
 
@@ -265,6 +273,14 @@ template <> struct AccOf<A_INT8> { using type = int8_t; };
 template <> struct AccOf<A_INT16> { using type = int16_t; };
 template <> struct AccOf<A_INT64> { using type = i64; };
 template <> struct AccOf<A_FLOAT64> { using type = double; };
+template <> struct AccOf<A_UINT8> { using type = uint8_t; };
+template <> struct AccOf<A_UINT16> { using type = uint16_t; };
+template <> struct AccOf<A_UINT32> { using type = uint32_t; };
+template <> struct AccOf<A_UINT64> { using type = u64; };
+template <> struct AccOf<A_FLOAT16> { using type = __half; };
+
+template <typename A>
+constexpr bool kIsHalf = std::is_same<A, __half>::value;
 
 // Calls fn(W{}) with the wire type of code `wire` among those a ring of A
 // cells takes (an unknown code takes the last: the entry points refuse
@@ -301,6 +317,11 @@ __host__ __device__ __forceinline__ auto with_acc(int acc, F&& fn) {
     case A_INT8: return fn(int8_t{});
     case A_INT16: return fn(int16_t{});
     case A_INT64: return fn(i64{});
+    case A_UINT8: return fn(uint8_t{});
+    case A_UINT16: return fn(uint16_t{});
+    case A_UINT32: return fn(uint32_t{});
+    case A_UINT64: return fn(u64{});
+    case A_FLOAT16: return fn(__half{});
     default: return fn(double{});
   }
 }
@@ -317,9 +338,13 @@ __device__ __forceinline__ void with_types(int wire, int acc, F&& fn) {
 }
 
 // whether a ring of code acc takes a rectangle of code wire
+inline bool is_wide(int acc) {
+  return acc == A_INT64 || acc == A_FLOAT64 || acc == A_UINT64;
+}
+
 inline bool wire_ok(int wire, int acc) {
-  if (acc < A_INT32 || acc > A_FLOAT64) return false;
-  const bool wide = acc == A_INT64 || acc == A_FLOAT64;
+  if (acc < A_INT32 || acc > A_FLOAT16) return false;
+  const bool wide = is_wide(acc);
   return wide ? (wire == W_INT8 || wire == W_INT16 || wire == W_INT32 ||
                  wire == W_INT64 || wire == W_FLOAT64)
               : (wire >= W_INT8 && wire <= W_FLOAT32);
@@ -332,13 +357,13 @@ inline bool aligned16(const void* p) {
 // bytes of an output and of a partial of op over a ring of code acc
 // (Out and Work below)
 inline int out_bytes_of(int op, int acc) {
-  const int cell = acc == A_INT8 ? 1 : acc == A_INT16 ? 2
-                 : (acc == A_INT64 || acc == A_FLOAT64) ? 8 : 4;
-  return op == OP_PROD && cell < 4 ? 4 : cell;
+  const int cell = (acc == A_INT8 || acc == A_UINT8) ? 1
+                 : (acc == A_INT16 || acc == A_UINT16 || acc == A_FLOAT16)
+                     ? 2
+                 : is_wide(acc) ? 8 : 4;
+  return op == OP_PROD && cell < 4 && acc != A_FLOAT16 ? 4 : cell;
 }
-inline int part_bytes_of(int acc) {
-  return acc == A_INT64 || acc == A_FLOAT64 ? 8 : 4;
-}
+inline int part_bytes_of(int acc) { return is_wide(acc) ? 8 : 4; }
 
 // per ring dtype launchers, instantiated in resident_ring.cu, an object a
 // ring dtype
@@ -356,7 +381,7 @@ int launch_multi_any(const AppendEval& p, unsigned blocks, int stage,
 // One evaluation (op p.op[e]) of groups [gb, ge) of window (r, s, len) of
 // field f's ring by a team (FieldRings<true>), its rectangle of W cells
 // into a ring of A cells: eval_span, a function of its own for each of the
-// 26 pairs, defined in resident_field.cu (an object a ring dtype, built
+// 47 pairs, defined in resident_field.cu (an object a ring dtype, built
 // with relocatable device code: resident_multi.cu calls them).
 template <typename W, typename A>
 __device__ void field_eval(const AppendEval& p, int e, const FieldRing& f,
@@ -370,8 +395,31 @@ namespace {
 // the wire value v widened (or wrapped) to the ring's type A
 template <typename A, typename W>
 __device__ __forceinline__ A widen(W v) {
-  if constexpr (std::is_floating_point<W>::value &&
-                std::is_integral<A>::value) {
+  if constexpr (kIsHalf<A>) {
+    // any wire into a float16 ring: to nearest even (an int32 past 65504
+    // is inf, as XLA's convert gives it)
+    if constexpr (std::is_floating_point<W>::value) {
+      return __float2half_rn((float)v);
+    } else {
+      return __int2half_rn((int)v);
+    }
+  } else if constexpr (std::is_floating_point<W>::value &&
+                       std::is_unsigned<A>::value) {
+    // a float wire into an unsigned ring: toward zero, saturating at 0
+    // and at the ring's max, NaN to 0
+    constexpr A kMax = (A)~A(0);
+    constexpr double kTop = (double)kMax + 1.0;
+    if (!(v > W(0))) return 0;    // NaN, negatives and -0
+    if ((double)v >= kTop) return kMax;
+    if constexpr (sizeof(A) == 8) {
+      return (A)__double2ull_rz((double)v);
+    } else if constexpr (sizeof(W) == 8) {
+      return (A)__double2uint_rz((double)v);
+    } else {
+      return (A)__float2uint_rz((float)v);
+    }
+  } else if constexpr (std::is_floating_point<W>::value &&
+                       std::is_integral<A>::value) {
     // a float wire into an integer ring: toward zero, saturating, NaN to 0
     // (a C++ cast is undefined out of range)
     if (v != v) return 0;
@@ -570,25 +618,42 @@ __device__ __forceinline__ void append_warp(A* ring, const W* blk,
 
 // working type of a sum or product: integers wrap in uint32 (rings of 1-4
 // byte cells) or uint64 (signed overflow is undefined behaviour in C++);
-// min and max compare in int32 or int64; floats stay in their type
+// min and max compare in int32 or int64, unsigned rings in uint32 or
+// uint64; float16 works in float, other floats stay in their type
 template <int OP, typename A>
 struct Work {
   static constexpr bool kWrap = OP == OP_SUM || OP == OP_PROD;
+  static constexpr bool kUnsigned = kWrap || std::is_unsigned<A>::value;
   using type = std::conditional_t<
-      !std::is_integral<A>::value, A,
-      std::conditional_t<sizeof(A) == 8,
-                         std::conditional_t<kWrap, u64, i64>,
-                         std::conditional_t<kWrap, uint32_t, int32_t>>>;
+      kIsHalf<A>, float,
+      std::conditional_t<
+          !std::is_integral<A>::value, A,
+          std::conditional_t<sizeof(A) == 8,
+                             std::conditional_t<kUnsigned, u64, i64>,
+                             std::conditional_t<kUnsigned, uint32_t,
+                                                int32_t>>>>;
 };
 
-// output type: a product of int8 or int16 cells is int32 (jnp.prod
-// promotes them), every other result the ring's type
+// output type: a product of int8 or int16 cells is int32 and of uint8 or
+// uint16 cells uint32 (jnp.prod promotes them), every other result the
+// ring's type
 template <int OP, typename A>
 struct Out {
   using type = std::conditional_t<
-      OP == OP_PROD && std::is_integral<A>::value && sizeof(A) < 4, int32_t,
-      A>;
+      OP == OP_PROD && std::is_integral<A>::value && sizeof(A) < 4,
+      std::conditional_t<std::is_unsigned<A>::value, uint32_t, int32_t>, A>;
 };
+
+// a working value as the output type O (float16 rounded once, to nearest
+// even; an integer keeps its low bits)
+template <typename O, typename T>
+__device__ __forceinline__ O to_out(T x) {
+  if constexpr (kIsHalf<O>) {
+    return __float2half_rn(x);
+  } else {
+    return (O)x;
+  }
+}
 
 __device__ __forceinline__ long long clip(long long x, long long cap) {
   return x < 0 ? 0 : (x > cap ? cap : x);
@@ -670,7 +735,9 @@ append_sum_kernel(A* __restrict__ ring, const W* __restrict__ blk,
   }
 #pragma unroll
   for (int j = 0; j < kWinPerWarp; ++j) {
-    if (lane == j && i0 + j < C) out[(long long)r * C + i0 + j] = (A)acc[j];
+    if (lane == j && i0 + j < C) {
+      out[(long long)r * C + i0 + j] = to_out<A>(acc[j]);
+    }
   }
 }
 
@@ -861,7 +928,7 @@ __device__ __forceinline__ void team_eval(const Window<W, A>& c, bool vec,
       *static_cast<T*>(dst) = acc;
     } else {
       using O = typename Out<OP, A>::type;
-      *static_cast<O*>(dst) = (O)acc;
+      *static_cast<O*>(dst) = to_out<O>(acc);
     }
   }
 }
@@ -987,7 +1054,7 @@ __device__ __forceinline__ void fold_chunks_op(const void* part_, int n,
     }
     __syncwarp();
   }
-  if (lane == 0) *static_cast<O*>(dst) = (O)acc;
+  if (lane == 0) *static_cast<O*>(dst) = to_out<O>(acc);
 }
 
 template <typename A>
@@ -1160,7 +1227,7 @@ struct Span {
 };
 
 // Calls fn(W{}, A{}) with the wire and ring types of the codes: any of
-// the 26 pairs (kAll), or one of the 8 of int32 and float32 rings.
+// the 47 pairs (kAll), or one of the 8 of int32 and float32 rings.
 template <bool kAll, typename F>
 __device__ __forceinline__ void with_pair(int wire, int acc, F&& fn) {
   if constexpr (kAll) {

@@ -31,9 +31,9 @@ __device__ void field_eval(const AppendEval& p, int e, const FieldRing& f,
 WF_FIELD_EVAL(int8_t)
 WF_FIELD_EVAL(int16_t)
 WF_FIELD_EVAL(int32_t)
-// the wires of wire_ok: an 8-byte ring (A_INT64 = 4, A_FLOAT64 = 5) takes
-// int64 and float64, a narrower one float32
-#if WF_RING_ACC == 4 || WF_RING_ACC == 5
+// the wires of wire_ok: an 8-byte ring (A_INT64 = 4, A_FLOAT64 = 5,
+// A_UINT64 = 9) takes int64 and float64, a narrower one float32
+#if WF_RING_ACC == 4 || WF_RING_ACC == 5 || WF_RING_ACC == 9
 WF_FIELD_EVAL(i64)
 WF_FIELD_EVAL(double)
 #else

@@ -1,9 +1,10 @@
 // The single-ring kernels of resident.cuh (append_sum_kernel: ring_append
 // and ring_append_regular_sum; append_eval_kernel: ring_append_eval) for
 // the wires of ONE ring dtype, the Acc code WF_RING_ACC.  ops/ring.py
-// compiles this file once for each of the six codes, all in parallel, and
-// links the objects with resident.cu into one library: one translation
-// unit for all 26 (wire, ring) pairs would build them one after another.
+// compiles this file once for each of the eleven codes, all in parallel,
+// and links the objects with resident.cu into one library: one
+// translation unit for all 47 (wire, ring) pairs would build them one
+// after another.
 
 #include "resident.cuh"
 

@@ -33,6 +33,20 @@ Integer sums and products wrap at the dtype's width, uint32 and uint64
 compare unsigned (windowed_reduce.Work: the plain versions and twins
 compute in it, torch having few ops for the unsigned dtypes).
 
+The 1- and 2-byte dtypes give JAX's result dtypes (:func:`merge_out`).
+int8, int16, uint8 and uint16 are reduced in the 4-byte integer of their
+kind: the wrappers widen the values (a copy a call) and reduce from the
+dtype's own identity; a sum or product partial stays int32 or uint32
+(``jnp.sum`` and ``jnp.prod`` promote them), a min, max or count partial
+is cast back (a count wraps, as JAX's ``astype`` does, and so does its
+merge); mean divides by ``max(count, 1)`` wrapped into the dtype, as JAX's
+``jnp.maximum(c, 1).astype(dtype)`` does (a uint8 window of 256 kept rows
+divides by 0).  float16 is reduced in float32 and a partial rounded to
+float16 once (XLA's reduction); the merge rounds to float16 after every
+combine where JAX's collective combines float16 values (sum, count and
+mean; prod with ``ring=True``) and once for prod's gather fold; a float16
+mean is the float16 quotient of the float16 sum and count.
+
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``; one launch a call); a CPU tensor runs
 the plain version.
@@ -57,9 +71,18 @@ from .windowed_reduce import (DTYPE_CODES, GROUP, Work, _combine, _names,
 
 #: op codes of the C launchers (enum Op in csrc/cells.cuh)
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3, "prod": 4, "mean": 5}
-#: value dtypes the kernels are instantiated for (their codes: enum Dtype)
+#: the reduction dtypes the wrappers take: the kernels' value dtypes (their
+#: codes: enum Dtype) and the 1- and 2-byte integers (held in 4 bytes)
 DTYPES = (torch.int32, torch.float32, torch.uint32, torch.int64,
-          torch.uint64, torch.float64)
+          torch.uint64, torch.float64, torch.float16, torch.int8,
+          torch.int16, torch.uint8, torch.uint16)
+#: the 4-byte integer that holds each 1- or 2-byte one in the kernels
+_HELD = {torch.int8: torch.int32, torch.int16: torch.int32,
+         torch.uint8: torch.uint32, torch.uint16: torch.uint32}
+#: sp_merge's codes of those dtypes (enum NarrowDtype): the kernel takes
+#: their partials in 4 bytes, and mean's divisor wraps into them
+_NARROW_CODES = {torch.int8: 7, torch.int16: 8, torch.uint8: 9,
+                 torch.uint16: 10}
 # sp_window_partial's geometry (csrc/mesh_reduce.cu; partial_order_twin
 # follows it): a window of at most SPLIT cells is reduced by one team of
 # 8 lanes, a longer one by a block, in chunks of CHUNK cells (a multiple
@@ -92,7 +115,7 @@ def _load():
                 ctypes.c_ulonglong, c_p, c_int, c_int, c_int, c_p, c_p, c_p]
             lib.wf_sp_window_partial.restype = c_int
             lib.wf_sp_merge.argtypes = [c_p, c_p, c_p, c_int, c_int, c_int,
-                                        c_int, c_p, c_p]
+                                        c_int, c_int, c_p, c_p]
             lib.wf_sp_merge.restype = c_int
             _lib = lib
         return _lib
@@ -112,10 +135,57 @@ def _check_op(op: str, dtype: torch.dtype):
 
 
 def _ident_bits(op: str, dtype: torch.dtype) -> int:
-    """The identity's bits in `dtype`, as an unsigned 64-bit int."""
+    """The identity of `op` over `dtype` as the bits of the kernels' work
+    type, an unsigned 64-bit int: float32 for float16, the 4-byte holder
+    of a 1- or 2-byte integer (its own identity: an int8 min from 127)."""
     np_dt = torch.empty(0, dtype=dtype).numpy().dtype
-    a = np.array(identity(op, np_dt), dtype=np_dt)
+    work = (np.float32 if dtype == torch.float16 else
+            torch.empty(0, dtype=_HELD.get(dtype, dtype)).numpy().dtype)
+    a = np.array(identity(op, np_dt)).astype(work)
     return int(a.view(np.uint32 if a.itemsize == 4 else np.uint64))
+
+
+def partial_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a partial of `op` over values of `dtype`: int32 or
+    uint32 for a sum, product or mean's sum of 1- or 2-byte integers
+    (JAX's ``jnp.sum`` and ``jnp.prod`` promote them), else `dtype`."""
+    if dtype in _HELD and op in ("sum", "prod", "mean"):
+        return _HELD[dtype]
+    return dtype
+
+
+def _widened(vals: torch.Tensor) -> torch.Tensor:
+    """1- or 2-byte integer values in their 4-byte holder (a copy; an
+    unsigned one zero-extended)."""
+    held = _HELD[vals.dtype]
+    out = vals.to(torch.int32)
+    return out if held == torch.int32 else out.view(held)
+
+
+def _cast_back(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A held partial or result as `dtype` (its low bits)."""
+    return Work(dtype).store(Work(part.dtype).load(part))
+
+
+def _held_partial(fn, vals, keep, starts, lens, base, op, **kw):
+    """`fn` (a partial: the kernel's wrapper, the plain version or the
+    twin) over 1- or 2-byte integer values: widened to their holder,
+    reduced from `vals.dtype`'s identity, a min, max or count cast back."""
+    dtype = vals.dtype
+    part, cnt = fn(_widened(vals), keep, starts, lens, base, op,
+                   dtype=dtype, **kw)
+    if op in ("count", "min", "max"):
+        part = _cast_back(part, dtype)
+    return part, cnt
+
+
+def _ident_held(work, red: str, dtype: torch.dtype, device):
+    """The identity of `red` over `dtype`, held as `work` holds values
+    (of `dtype` or of its 4-byte holder)."""
+    if work.dtype == dtype:
+        return work.ident(red, device)
+    return torch.tensor(int(identity(red, dtype)), dtype=torch.int64,
+                        device=device)
 
 
 def _bounds(starts, lens, base: int, Ns: int):
@@ -129,14 +199,20 @@ def _bounds(starts, lens, base: int, Ns: int):
 # ------------------------------------------------------------------ partial
 
 def sp_window_partial_reference(vals, keep, starts, lens, base: int,
-                                op: str):
+                                op: str, dtype=None):
     """Plain version, JAX's formulation: a ``(B, pad)`` gather at
     ``min(lo + iota, Ns - 1)``, the mask ``iota < hi - lo`` and the keep
     mask at the gathered rows, the identity in masked lanes, a reduction
     over axis 1.  Windows are taken in order of length, in runs of at most
-    ``_PLAIN_CELLS`` gathered cells.  Returns (partial, count or None)."""
+    ``_PLAIN_CELLS`` gathered cells.  Returns (partial, count or None).
+    (`dtype`: the reduction's, where `vals` holds a 1- or 2-byte integer
+    widened.)"""
+    _check_op(op, vals.dtype)
+    if vals.dtype in _HELD:
+        return _held_partial(sp_window_partial_reference, vals, keep,
+                             starts, lens, base, op)
+    reduction = dtype or vals.dtype
     dtype = vals.dtype
-    _check_op(op, dtype)
     device = vals.device
     work = Work(dtype)
     vals = signed_view(vals)
@@ -146,7 +222,7 @@ def sp_window_partial_reference(vals, keep, starts, lens, base: int,
     lo, hi = _bounds(starts, lens, base, Ns)
     n = (hi - lo).clamp(min=0)
     red = "sum" if op in ("count", "mean") else op
-    ident = work.ident(red, device)
+    ident = _ident_held(work, red, reduction, device)
     if Ns == 0 or B == 0:
         part[:] = signed_view(work.store(ident))
         return part.view(dtype), (cnt if needs_count(op) else None)
@@ -193,7 +269,7 @@ def find_long_windows(starts, lens, base: int, Ns: int,
 
 
 def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
-                       split: int = SPLIT, chunk: int = CHUNK):
+                       split: int = SPLIT, chunk: int = CHUNK, dtype=None):
     """Plain torch that reproduces sp_window_partial's combine order
     (csrc/mesh_reduce.cu, "Order"); no path of the port calls it.  With a
     = lo mod 4, cell j of a window lies in its group (a + j) // 4.  A window
@@ -202,9 +278,15 @@ def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
     (``chunk // 4`` groups from the window's first aligned group), each
     chunk reduced in the team's order, and the chunk partials are folded in
     chunk order starting from the identity.  Filtered cells are skipped and
-    not counted.  Returns (partial, count or None)."""
+    not counted.  Returns (partial, count or None).  1- and 2-byte integers
+    as the kernel's wrapper takes them (widened; `dtype`: the reduction's
+    where `vals` holds one widened)."""
+    _check_op(op, vals.dtype)
+    if vals.dtype in _HELD:
+        return _held_partial(partial_order_twin, vals, keep, starts, lens,
+                             base, op, split=split, chunk=chunk)
+    reduction = dtype or vals.dtype
     dtype = vals.dtype
-    _check_op(op, dtype)
     device = vals.device
     work = Work(dtype)
     vals = signed_view(vals)
@@ -220,8 +302,9 @@ def partial_order_twin(vals, keep, starts, lens, base: int, op: str,
         v = work.load(vals[idx]) if op != "count" else None
         return v, (keep[idx] if keep is not None else True)
 
-    acc, cnt = chunked_fold(red, work, work.ident(red, device), lo % GROUP,
-                            n, split, chunk, cells)
+    acc, cnt = chunked_fold(red, work, _ident_held(work, red, reduction,
+                                                   device),
+                            lo % GROUP, n, split, chunk, cells)
     part = work.store(cnt if op == "count" else acc)
     return part, (cnt.to(torch.int32) if needs_count(op) else None)
 
@@ -247,7 +330,7 @@ def _check_partial(vals, keep, starts, lens):
 
 
 def sp_window_partial(vals, keep, starts, lens, base: int, op: str,
-                      long_windows=None):
+                      long_windows=None, dtype=None):
     """The partial of each window ``(starts[w], lens[w])`` over the shard's
     ``(Ns,)`` slice `vals` of rows ``[base, base + Ns)``, kept rows only
     (`keep` a bool mask or None); returns ``(partial, count)``, the (B,)
@@ -257,12 +340,18 @@ def sp_window_partial(vals, keep, starts, lens, base: int, op: str,
     A CUDA `vals` launches the kernel once; a CPU one runs the plain
     version.  `long_windows` is :func:`find_long_windows` of these windows
     (a numpy array, or an int32 tensor on vals' device); without it the
-    wrapper computes it from the windows, which waits for the device."""
+    wrapper computes it from the windows, which waits for the device.
+    1- and 2-byte integer `vals` are widened first (a copy) and the
+    partial is in :func:`partial_dtype` (`dtype` is the reduction's where
+    `vals` holds one widened)."""
     _check_op(op, vals.dtype)
     device = _check_partial(vals, keep, starts, lens)
+    if vals.dtype in _HELD:
+        return _held_partial(sp_window_partial, vals, keep, starts, lens,
+                             base, op, long_windows=long_windows)
     if device.type == "cpu":
         return sp_window_partial_reference(vals, keep, starts, lens, base,
-                                           op)
+                                           op, dtype=dtype)
     if device.type != "cuda":
         raise ValueError(f"sp_window_partial runs on cuda or cpu tensors, "
                          f"got {device}")
@@ -296,7 +385,7 @@ def sp_window_partial(vals, keep, starts, lens, base: int, op: str,
             vals.data_ptr(), keep.data_ptr() if keep is not None else None,
             vals.numel(), starts.data_ptr(), lens.data_ptr(), B, int(base),
             _OPS[op], DTYPE_CODES[vals.dtype],
-            _ident_bits("sum" if op == "count" else op, vals.dtype),
+            _ident_bits("sum" if op == "count" else op, dtype or vals.dtype),
             long_windows.data_ptr() if n_long else None, n_long, SPLIT,
             CHUNK, part.data_ptr(),
             cnt.data_ptr() if cnt is not None else None,
@@ -315,32 +404,74 @@ sp_window_partial.launches = 0
 # -------------------------------------------------------------------- merge
 
 def merge_out(op, dtype):
-    """sp_merge's result dtype: the partials', or for mean float32 (a
-    4-byte dtype) or float64 (an 8-byte one)."""
+    """sp_merge's result dtype for a reduction in `dtype` (JAX's): the
+    partials' (:func:`partial_dtype`), or for mean float16 for float16,
+    float64 for an 8-byte dtype and float32 for any other."""
     if op != "mean":
-        return dtype
+        return partial_dtype(op, dtype)
+    if dtype == torch.float16:
+        return torch.float16
     return torch.float64 if Work(dtype).itemsize == 8 else torch.float32
 
 
-def _mean(s, c, work):
-    """JAX's ``s / max(c, 1)`` over a held sum `s`: both converted to the
-    float of the dtype's width first."""
-    f = merge_out("mean", work.dtype)
-    return work.to_float(s, f) / c.clamp(min=1).to(f)
+def _rounds_each_step(op: str, ring: bool) -> bool:
+    """Whether JAX's collective for `op` combines float16 values (psum,
+    the ring's hops), rounding after every combine, rather than folding a
+    gather in float32 (prod's all_gather) and rounding once."""
+    return op != "prod" or ring
 
 
-def sp_merge_reference(parts, cnts, op: str, ring: bool = False):
+def _mean(s, c, work, dtype):
+    """JAX's ``s / max(c, 1).astype(dtype)`` over a held sum `s`: the
+    count wrapped into a 1- or 2-byte integer dtype, both converted to
+    :func:`merge_out`'s float first; for float16 a float16 quotient."""
+    d = c.clamp(min=1)
+    if dtype in _HELD:
+        d = Work(dtype).load(Work(dtype).store(d))
+    if dtype == torch.float16:
+        return (s / d.to(torch.float16).float()).to(torch.float16)
+    f = merge_out("mean", dtype)
+    return work.to_float(s, f) / d.to(f)
+
+
+def _held_merge(fn, parts, cnts, op, ring, dtype):
+    """`fn` (the plain merge or its twin) over `parts` of the reduction
+    `dtype` (default: theirs): 1- or 2-byte integer partials (a min, max
+    or count) widened to their holder and the result cast back."""
+    dtype = dtype or parts.dtype
+    _check_merge(parts.dtype, op, dtype)
+    if parts.dtype not in _HELD:
+        return fn(parts, cnts, op, ring, dtype)
+    return _cast_back(fn(_widened(parts), cnts, op, ring, dtype), dtype)
+
+
+def _check_merge(pdtype, op, dtype):
+    _check_op(op, dtype)
+    if pdtype != partial_dtype(op, dtype):
+        raise TypeError(f"partials of {op} over {dtype} are "
+                        f"{partial_dtype(op, dtype)}, got {pdtype}")
+
+
+def sp_merge_reference(parts, cnts, op: str, ring: bool = False,
+                       dtype=None):
     """Plain version: one torch reduction over the shard axis of the
     ``(n, B)`` partials, in the dtype's work type (integer sums and
     products wrapped at its width); the order of a float fold is torch's.
-    ``ring`` selects only the order, which the plain version does not
-    fix."""
-    _check_op(op, parts.dtype)
+    ``ring`` selects only the order, which the plain version does not fix,
+    except for float16 partials that JAX's collective rounds after every
+    combine (:func:`merge_order_twin`'s fold).  `dtype` is the reduction's
+    (default: the partials')."""
+    return _held_merge(_merge_plain, parts, cnts, op, ring, dtype)
+
+
+def _merge_plain(parts, cnts, op, ring, dtype):
+    if parts.dtype == torch.float16 and _rounds_each_step(op, ring):
+        return _merge_ordered(parts, cnts, op, ring, dtype)
     work = Work(parts.dtype)
     red = "sum" if op in ("count", "mean") else op
     s = work.reduce(red, work.load(parts), 0)
     if op == "mean":
-        return _mean(s, cnts.long().sum(dim=0), work)
+        return _mean(s, cnts.long().sum(dim=0), work, dtype)
     return work.store(s)
 
 
@@ -349,22 +480,29 @@ def fold_order(n: int, ring: bool) -> list:
     return [0] + (list(range(n - 1, 0, -1)) if ring else list(range(1, n)))
 
 
-def merge_order_twin(parts, cnts, op: str, ring: bool = False):
+def merge_order_twin(parts, cnts, op: str, ring: bool = False, dtype=None):
     """Plain torch that folds the ``(n, B)`` partials in sp_merge's order
-    (:func:`fold_order`), one shard at a time; no path of the port calls
+    (:func:`fold_order`), one shard at a time, float16 rounded after each
+    combine where JAX's collective rounds; no path of the port calls
     it."""
-    _check_op(op, parts.dtype)
+    return _held_merge(_merge_ordered, parts, cnts, op, ring, dtype)
+
+
+def _merge_ordered(parts, cnts, op, ring, dtype):
     work = Work(parts.dtype)
     order = fold_order(parts.shape[0], ring)
     red = "sum" if op in ("count", "mean") else op
+    step = parts.dtype == torch.float16 and _rounds_each_step(op, ring)
     acc = work.load(parts[order[0]])
     c = cnts[order[0]].long() if cnts is not None else None
     for k in order[1:]:
         acc = _combine(red, acc, work.load(parts[k]), work)
+        if step:
+            acc = acc.to(torch.float16).float()
         if c is not None:
             c = c + cnts[k].long()
     if op == "mean":
-        return _mean(acc, c, work)
+        return _mean(acc, c, work, dtype)
     return work.store(acc)
 
 
@@ -394,20 +532,25 @@ def _on_device(ts, name, want, B, device):
     return out
 
 
-def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
+def sp_merge(partials, counts, op: str, ring: bool = False, device=None,
+             dtype=None):
     """Fold the sp partials of every window: `partials` is a sequence of
     ``n`` (B,) tensors (one a shard, in sp order, on any devices) or an
     ``(n, B)`` tensor, `counts` the same of int32 counts or None (needed
     for mean).  One launch on the merging `device` (default: the first
     partial's) reads every partial that lies there in place; one on
-    another device is copied there first.  Returns the (B,) result in
-    their dtype, for mean in :func:`merge_out`'s float."""
+    another device is copied there first, and 1- or 2-byte integer
+    partials (a min, max or count) are widened to their holder (a copy).
+    `dtype` is the reduction's (default: the partials'; a mean over a 1-
+    or 2-byte integer dtype needs it, its partials being int32 or
+    uint32).  Returns the (B,) result in :func:`merge_out`'s dtype."""
     first = partials[0]
-    dtype = first.dtype
-    _check_op(op, dtype)
+    pdtype = first.dtype
+    dtype = dtype or pdtype
+    _check_merge(pdtype, op, dtype)
     device = torch.device(device) if device is not None else first.device
     B = first.numel()
-    parts = _on_device(partials, "partials", dtype, B, device)
+    parts = _on_device(partials, "partials", pdtype, B, device)
     cnts = (_on_device(counts, "counts", torch.int32, B, device)
             if counts is not None else None)
     if op == "mean" and cnts is None:
@@ -417,20 +560,24 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
     if device.type == "cpu":
         return sp_merge_reference(
             torch.stack(parts), torch.stack(cnts) if cnts else None, op,
-            ring)
+            ring, dtype)
     if device.type != "cuda":
         raise ValueError(f"sp_merge runs on cuda or cpu tensors, got "
                          f"{device}")
+    if pdtype in _HELD:
+        parts = [_widened(p) for p in parts]
+    held = parts[0].dtype
     n = len(parts)
-    out = torch.empty(B, dtype=merge_out(op, dtype), device=device)
+    out = torch.empty(B, dtype=merge_out(op, dtype if op == "mean"
+                                         else held), device=device)
     if B == 0:
-        return out
+        return _cast_back(out, pdtype) if pdtype in _HELD else out
     order = fold_order(n, ring)
     pp = [parts[k].data_ptr() for k in order]
     cp = ([cnts[k].data_ptr() for k in order] if op == "mean"
           else [0] * n)
     far = None
-    if n > merge_inline(dtype):     # the pointers as a device array
+    if n > merge_inline(held):     # the pointers as a device array
         far = torch.tensor(pp + cp, dtype=torch.int64).to(device)
     lib = _load()
     with torch.cuda.device(device):
@@ -438,12 +585,13 @@ def sp_merge(partials, counts, op: str, ring: bool = False, device=None):
             (ctypes.c_void_p * n)(*pp),
             (ctypes.c_void_p * n)(*cp) if op == "mean" else None,
             far.data_ptr() if far is not None else None, n, B, _OPS[op],
-            DTYPE_CODES[dtype], out.data_ptr(),
+            _NARROW_CODES.get(dtype, DTYPE_CODES[held]),
+            int(_rounds_each_step(op, ring)), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sp_merge kernel launch failed: CUDA error {rc}")
     sp_merge.launches += 1
-    return out
+    return _cast_back(out, pdtype) if pdtype in _HELD else out
 
 
 #: kernel launches since the count was last reset

@@ -143,14 +143,17 @@ def wire_service_floor_ms():
 #: ring accumulate dtypes the kernels take (ring.RING_DTYPES)
 _TORCH_ACC = {np.dtype(d): t for d, t in (
     (np.int8, torch.int8), (np.int16, torch.int16), (np.int32, torch.int32),
-    (np.int64, torch.int64), (np.float32, torch.float32),
-    (np.float64, torch.float64))}
+    (np.int64, torch.int64), (np.uint8, torch.uint8),
+    (np.uint16, torch.uint16), (np.uint32, torch.uint32),
+    (np.uint64, torch.uint64), (np.float16, torch.float16),
+    (np.float32, torch.float32), (np.float64, torch.float64))}
 _NP_OF = {t: d for d, t in _TORCH_ACC.items()}
 
 
 def _torch_acc(dt: np.dtype, what: str) -> torch.dtype:
     """The torch dtype of ring dtype `dt`; raises ValueError on one the
-    kernels do not take (float16 and bfloat16 rings are not ported)."""
+    kernels do not take (bfloat16, which the JAX core refuses too, and
+    every non-numeric dtype)."""
     if dt not in _TORCH_ACC:
         raise ValueError(f"{what}: the ring kernels accumulate in "
                          f"{', '.join(str(d) for d in _TORCH_ACC)}, got "
@@ -162,7 +165,11 @@ def _narrow(vals: np.ndarray, acc: np.dtype) -> np.dtype:
     """The JAX executors' ladder: the narrowest wire dtype holding `vals`
     exactly into a ring of `acc`: ints narrow to int8/int16/int32 (and
     int64 into an 8-byte ring), floats ship in the ring's precision
-    (float64 into an 8-byte ring, else float32)."""
+    (float64 into an 8-byte ring, else float32; a float16 ring takes
+    float32 and rounds).  The ladder is signed at every ring dtype: values
+    past its top (a uint32 value from 2**31, a uint64 one from 2**63) ship
+    in its widest wire, which wraps them, and the ring's conversion wraps
+    them back."""
     wide = acc.itemsize >= 8
     if vals.dtype.kind == "f":
         return np.dtype(np.float64 if wide else np.float32)
@@ -322,10 +329,11 @@ class ResidentWindowExecutor:
     harvest.  ``op`` is one of sum/min/max/prod, or a tuple of them
     evaluated over the same ring in one dispatch ("count" needs no device
     work — the host core answers it from window lengths).  The ring
-    accumulates in ``acc_dtype``: int8, int16, int32, int64, float32 or
-    float64 (a 64-bit ring follows the JAX package under x64; the port has
-    no x64 switch).  A CUDA ``device`` launches the hand-written kernels; a
-    CPU device runs their plain versions, synchronously.
+    accumulates in ``acc_dtype``: int8, int16, int32, int64, uint8,
+    uint16, uint32, uint64, float16, float32 or float64 (a 64-bit ring
+    follows the JAX package under x64; the port has no x64 switch).  A
+    CUDA ``device`` launches the hand-written kernels; a CPU device runs
+    their plain versions, synchronously.
     """
 
     def __init__(self, op, device=None, depth: int = 8,
@@ -634,8 +642,8 @@ class MultiFieldResidentExecutor(ResidentWindowExecutor):
     ``stats``: a tuple of ``(op, field)`` evaluations (sum/min/max/prod);
     ``fn``: an optional ``TorchWindowFunction`` whose ``fn(keys, gwids,
     cols, mask)`` runs over ``(B, pad)`` tiles of its fields;
-    ``acc_dtypes`` maps every field to its ring dtype (int8, int16, int32,
-    int64, float32 or float64).  A dispatch stages every field's
+    ``acc_dtypes`` maps every field to its ring dtype (any of
+    :class:`ResidentWindowExecutor`'s).  A dispatch stages every field's
     rectangle and its launch vector in one copy and makes one
     ``ring_append_multi_eval`` launch (a further one for every 8 fields
     past the first 8 and every 8 stats past a group's first 8): every

@@ -41,16 +41,23 @@ These port the XLA-jitted device bodies of ``windflow_tpu/ops/resident.py``:
 
 :func:`ring_eval_reference` is a plain transcription of ``_ring_eval``.
 
-Dtypes: a ring holds int8, int16, int32, int64, float32 or float64 cells
-(:data:`RING_DTYPES`) and takes the wires the JAX package's narrowing
-ladder gives it (:func:`wires_of`): int8/int16/int32/float32 into a ring
+Dtypes: a ring holds int8, int16, int32, int64, uint8, uint16, uint32,
+uint64, float16, float32 or float64 cells (:data:`RING_DTYPES`) and takes
+the wires the JAX package's narrowing ladder gives it (:func:`wires_of`;
+the ladder ships signed wires only): int8/int16/int32/float32 into a ring
 of 1-4 byte cells, int8/int16/int32/int64/float64 into an 8-byte one.  A
-wire wider than the ring wraps, a float wire into an integer ring
-truncates toward zero, saturating, NaN to 0 (XLA's conversions).  An op's
-result is in the ring dtype except a product over int8 or int16 cells,
-which is int32 (:func:`out_dtype`; ``jnp.prod`` promotes them to the
-default int, int32 without x64).  Any other ring dtype or pair raises,
-on the card and off it.
+wire wider than the ring, or a signed wire into an unsigned ring, wraps;
+a float wire into an integer ring truncates toward zero, saturating at
+the ring's range, NaN to 0; any wire into a float16 ring rounds to
+nearest even (XLA's conversions).  An op's result is in the ring dtype
+except a product over int8 or int16 cells, which is int32, and one over
+uint8 or uint16 cells, which is uint32 (:func:`out_dtype`; ``jnp.prod``
+promotes them to the default int of their kind without x64).  Unsigned
+rings compare unsigned; a float16 ring is reduced in float32 and each
+result rounded to float16 once (a window sum is summed directly, where
+JAX takes a difference of two float16 prefix sums: ROADMAP, "Recorded
+divergences").  bfloat16, and any other ring dtype or pair, raises, on
+the card and off it.
 
 A CUDA tensor launches the kernel on the current stream (asynchronous,
 counted in ``<wrapper>.launches``); a CPU tensor runs the plain version.
@@ -69,15 +76,17 @@ import torch
 from . import _nvcc
 from .gather import FIELDS_PER_LAUNCH, window_gather_reference
 from .monoid import identity
-from .windowed_reduce import (GROUP, _OPS, Work, _check_op, chunked_fold,
-                              out_dtype, windowed_reduce_many_reference)
+from .windowed_reduce import (GROUP, _OPS, _UNSIGNED, Work, _check_op,
+                              chunked_fold, out_dtype, signed_view,
+                              windowed_reduce_many_reference)
 
 #: wire dtypes of the rectangle (enum Wire in csrc/resident.cuh)
 _WIRES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3,
           torch.int64: 4, torch.float64: 5}
 #: accumulate dtypes of the ring (enum Acc)
 _ACCS = {torch.int32: 0, torch.float32: 1, torch.int8: 2, torch.int16: 3,
-         torch.int64: 4, torch.float64: 5}
+         torch.int64: 4, torch.float64: 5, torch.uint8: 6, torch.uint16: 7,
+         torch.uint32: 8, torch.uint64: 9, torch.float16: 10}
 #: the ring dtypes the kernels take
 RING_DTYPES = tuple(_ACCS)
 _NARROW_WIRES = (torch.int8, torch.int16, torch.int32, torch.float32)
@@ -103,7 +112,7 @@ _lock = threading.Lock()
 _lib = None
 
 
-#: the library's translation units, built in parallel (one unit of all 26
+#: the library's translation units, built in parallel (one unit of all 47
 #: wire/ring pairs would build them in turn): the entry points and the
 #: per-field kernel of int32 and float32 rings; the per-field kernel of any
 #: ring dtype; the single-ring kernels and that kernel's evaluations once
@@ -132,11 +141,12 @@ def wires_of(ring_dtype: torch.dtype) -> tuple:
 def _work_np(op: str, ring_dtype: torch.dtype):
     """numpy dtype of the kernels' working type for `op` (its identity's
     bits, a long window's partials): integer sums and products in uint32
-    or uint64, min and max in int32 or int64, floats in the ring's."""
+    or uint64, min and max in int32 or int64 (uint32 or uint64 for an
+    unsigned ring), floats in the ring's (float32 for float16)."""
     wide = ring_dtype.itemsize == 8
     if ring_dtype.is_floating_point:
         return np.float64 if wide else np.float32
-    if op in ("min", "max"):
+    if op in ("min", "max") and ring_dtype.is_signed:
         return np.int64 if wide else np.int32
     return np.uint64 if wide else np.uint32
 
@@ -152,18 +162,37 @@ def _ident_word(op: str, ring_dtype: torch.dtype) -> int:
 
 def _widen(blk: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`blk` in the ring's dtype as XLA's ``astype`` gives it: integers
-    wrap, floats into an integer dtype truncate toward zero, saturating,
-    NaN to 0 (a plain ``to`` leaves those out of range undefined)."""
-    if not blk.is_floating_point() or dtype.is_floating_point:
+    wrap (a signed wire into an unsigned ring too), any wire into a float
+    ring rounds to nearest even, floats into an integer dtype truncate
+    toward zero, saturating at the dtype's range, NaN to 0 (a plain ``to``
+    leaves those out of range undefined).  An unsigned result of 2 bytes
+    or more is built as its signed view (torch converts few ops into
+    those dtypes)."""
+    signed = _UNSIGNED.get(dtype)
+    if dtype.is_floating_point:
         return blk.to(dtype)
-    info = torch.iinfo(dtype)
+    if not blk.is_floating_point():
+        return blk.to(signed).view(dtype) if signed else blk.to(dtype)
+    bits = 8 * torch.empty(0, dtype=dtype).element_size()
+    lo, hi = ((0.0, 2.0 ** bits) if not dtype.is_signed
+              else (-2.0 ** (bits - 1), 2.0 ** (bits - 1)))
     x = torch.nan_to_num(blk.double(), nan=0.0, posinf=np.inf,
                          neginf=-np.inf)
-    high, low = x >= 2.0 ** (info.bits - 1), x < -2.0 ** (info.bits - 1)
-    out = torch.where(high | low, 0.0, x).to(dtype)
-    out[high] = info.max
-    out[low] = info.min
-    return out
+    high, low = x >= hi, x < lo
+    x = torch.where(high | low, 0.0, x).trunc()
+    if signed is None:
+        out = x.to(dtype)
+        out[high] = torch.iinfo(dtype).max
+        out[low] = torch.iinfo(dtype).min
+        return out
+    # unsigned of 2-8 bytes: the value as int64 bits (a uint64 past 2**63
+    # as its bits), saturated, then its low bytes
+    top = x >= 2.0 ** 63
+    out = torch.where(top, x - 2.0 ** 63, x).to(torch.int64)
+    out = torch.where(top, out | (-2 ** 63), out)
+    out[high] = -1 if bits == 64 else (1 << bits) - 1
+    out[low] = 0
+    return out.to(signed).view(dtype)
 
 
 def _load():
@@ -254,7 +283,7 @@ def ring_append_reference(ring: torch.Tensor, blk: torch.Tensor,
     (``scatter_`` checks its indices; the JAX body would clamp)."""
     Rb = blk.shape[1]
     idx = offs.long()[:, None] + torch.arange(Rb, device=ring.device)[None, :]
-    ring.scatter_(1, idx, _widen(blk, ring.dtype))
+    signed_view(ring).scatter_(1, idx, signed_view(_widen(blk, ring.dtype)))
     return ring
 
 
@@ -297,13 +326,25 @@ def regular_window_sum_reference(ring: torch.Tensor, rstart0: torch.Tensor,
     at the clipped window bounds, cast back to the ring's dtype — the low
     bits of the int64 difference are the wrapped integer sum."""
     KP, cap = ring.shape
-    wide = torch.float64 if ring.is_floating_point() else torch.int64
-    cs = torch.zeros((KP, cap + 1), dtype=wide, device=ring.device)
-    torch.cumsum(ring, dim=1, dtype=wide, out=cs[:, 1:])
+    cs = _prefix_sums(ring)
     i = torch.arange(C, dtype=torch.int64, device=ring.device)
     s = (rstart0.long()[:, None] + i[None, :] * int(slide)).clamp(0, cap)
     e = (s + rlen.long()[:, None]).clamp(0, cap)
-    return (cs.gather(1, e) - cs.gather(1, s)).to(ring.dtype)
+    return Work(ring.dtype).store(cs.gather(1, e) - cs.gather(1, s))
+
+
+def _prefix_sums(ring: torch.Tensor) -> torch.Tensor:
+    """The (KP, cap + 1) exclusive prefix sums of the ring's rows, in
+    float64 for a float ring, else in int64 over the held values
+    (windowed_reduce.Work: an unsigned cell zero-extended)."""
+    KP, cap = ring.shape
+    float_ring = ring.is_floating_point()
+    wide = torch.float64 if float_ring else torch.int64
+    cs = torch.zeros((KP, cap + 1), dtype=wide, device=ring.device)
+    vals = ring if float_ring else Work(ring.dtype).load(signed_view(ring))
+    torch.cumsum(vals, dim=1, dtype=wide, out=cs[:, 1:])
+    return cs
+
 
 
 def ring_append_regular_sum_reference(ring: torch.Tensor, blk: torch.Tensor,
@@ -315,6 +356,41 @@ def ring_append_regular_sum_reference(ring: torch.Tensor, blk: torch.Tensor,
     window sums of the ring after it."""
     return regular_window_sum_reference(
         ring_append_reference(ring, blk, offs), rstart0, rlen, C, slide)
+
+
+def regular_sum_order_twin(ring: torch.Tensor, blk: torch.Tensor,
+                           offs: torch.Tensor, rstart0: torch.Tensor,
+                           rlen: torch.Tensor, C: int,
+                           slide: int) -> torch.Tensor:
+    """Plain torch that reproduces ring_append_regular_sum's combine order
+    (csrc/resident.cuh, "The regular window sums"), so that the kernel can
+    be held to it bit for bit; no path of the port calls it.  The plain
+    append, then for each window lane l of its warp adds cells s + l, s +
+    l + 32, ... in turn in the working type (float32 for a float16 ring),
+    a butterfly over 16, 8, 4, 2, 1 combines the 32 lanes, and the sum is
+    rounded to the ring dtype once.  An integer ring's sums wrap, the same
+    in any order: the plain version's."""
+    ring_append_reference(ring, blk, offs)
+    if not ring.is_floating_point():
+        return regular_window_sum_reference(ring, rstart0, rlen, C, slide)
+    KP, cap = ring.shape
+    device = ring.device
+    work = Work(ring.dtype)
+    i = torch.arange(C, dtype=torch.int64, device=device)
+    s = (rstart0.long()[:, None] + i[None, :] * int(slide)).clamp(0, cap)
+    n = ((s + rlen.long()[:, None]).clamp(0, cap) - s).reshape(-1)
+    s = s.reshape(-1)
+    rows = torch.arange(KP, device=device).repeat_interleave(C)
+    lane = torch.arange(32, device=device)
+    lanes = torch.zeros((KP * C, 32), dtype=work.held, device=device)
+    for t in range(-(-int(n.max()) // 32) if n.numel() else 0):
+        j = 32 * t + lane
+        col = (s[:, None] + j[None, :]).clamp(max=cap - 1)
+        v = work.load(ring[rows[:, None], col])
+        lanes = torch.where(j[None, :] < n[:, None], lanes + v, lanes)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, lane ^ off]
+    return work.store(lanes[:, 0]).reshape(KP, C)
 
 
 def ring_append_regular_sum(ring: torch.Tensor, blk: torch.Tensor,
@@ -367,27 +443,23 @@ def ring_eval_reference(op: str, ring: torch.Tensor, rows: torch.Tensor,
     """Plain transcription of the JAX ``_ring_eval``: a cumsum two-point
     gather for sum (in int64/float64, cast back), a masked (B, pad) gather
     with the column clamped to ``cap - 1`` and the monoid identity in the
-    masked lanes for min/max/prod.  Windows lie in their row
-    (``starts + lens <= cap``).  A product over int8 or int16 cells is
-    int32 (:func:`out_dtype`)."""
-    KP, cap = ring.shape
+    masked lanes for min/max/prod, reduced over the held values
+    (windowed_reduce.Work).  Windows lie in their row (``starts + lens <=
+    cap``).  A product over int8 or int16 cells is int32, over uint8 or
+    uint16 cells uint32 (:func:`out_dtype`)."""
+    cap = ring.shape[1]
     rows, starts, lens = rows.long(), starts.long(), lens.long()
     if op == "sum":
-        wide = torch.float64 if ring.is_floating_point() else torch.int64
-        cs = torch.zeros((KP, cap + 1), dtype=wide, device=ring.device)
-        torch.cumsum(ring, dim=1, dtype=wide, out=cs[:, 1:])
-        return (cs[rows, starts + lens] - cs[rows, starts]).to(ring.dtype)
+        cs = _prefix_sums(ring)
+        return Work(ring.dtype).store(cs[rows, starts + lens]
+                                      - cs[rows, starts])
+    work = Work(ring.dtype)
     lane = torch.arange(pad, device=ring.device)
     idx = (starts[:, None] + lane[None, :]).clamp(max=cap - 1)
-    vals = ring[rows[:, None], idx]
-    ident = torch.tensor(identity(op, ring.dtype).item(), dtype=ring.dtype,
-                         device=ring.device)
-    vals = torch.where(lane[None, :] < lens[:, None], vals, ident)
-    if op == "prod":
-        if not ring.is_floating_point():
-            return vals.long().prod(dim=1).to(out_dtype(op, ring.dtype))
-        return vals.prod(dim=1)
-    return vals.amin(dim=1) if op == "min" else vals.amax(dim=1)
+    vals = work.load(signed_view(ring)[rows[:, None], idx])
+    vals = torch.where(lane[None, :] < lens[:, None], vals,
+                       work.ident(op, ring.device))
+    return work.store(work.reduce(op, vals, 1), out_dtype(op, ring.dtype))
 
 
 # ------------------------------------------------------ irregular dispatch
@@ -549,9 +621,11 @@ def _ordered(ring, op, rows, starts, lens, pad, split, chunk):
     # of 1-4 bytes (the kernels' uint32), int64's own wrap for 8
     work = Work(ring.dtype)
 
+    cells_of = signed_view(ring)
+
     def cells(win, j):
         col = (s[win][:, None] + j).clamp(0, cap - 1)
-        return work.load(ring[r[win][:, None], col]), True
+        return work.load(cells_of[r[win][:, None], col]), True
 
     acc, _ = chunked_fold(op, work, work.ident(op, ring.device),
                           (r * cap + s) % GROUP, n, split, chunk, cells)

@@ -99,13 +99,14 @@ def _check_op(op: str):
         raise ValueError(f"unknown op {op!r}; expected one of {tuple(_OPS)}")
 
 
-_UNSIGNED = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+_UNSIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+             torch.uint64: torch.int64}
 
 
 def signed_view(t: torch.Tensor) -> torch.Tensor:
     """An unsigned tensor as the signed integers of its width (the same
-    bits): torch has few ops for uint32 and uint64, but gathers and copies
-    of the signed view are the same words."""
+    bits): torch has few ops for uint16, uint32 and uint64, but gathers,
+    scatters and copies of the signed view are the same words."""
     return t.view(_UNSIGNED[t.dtype]) if t.dtype in _UNSIGNED else t
 
 
@@ -113,13 +114,14 @@ class Work:
     """How the plain versions and the CPU twins compute over values of one
     dtype, as the kernels do in their work type (csrc/cells.cuh, Work).
 
-    Values are held as int64 for every integer dtype (uint64 as its bits),
-    as float32 for float16, else in the dtype itself.  A sum or product of
-    integers of 1-4 bytes is reduced modulo 2**32 after every step (into
-    the int32 range for a signed dtype, [0, 2**32) for uint32); 64-bit
-    integers wrap by themselves.  min and max order uint64 values by their
-    bits with the sign bit flipped (an unsigned compare); every other held
-    value compares as it is."""
+    Values are held as int64 for every integer dtype (uint64 as its bits,
+    uint8, uint16 and uint32 zero-extended), as float32 for float16, else
+    in the dtype itself.  A sum or product of integers of 1-4 bytes is
+    reduced modulo 2**32 after every step (into the int32 range for a
+    signed dtype, [0, 2**32) for an unsigned one); 64-bit integers wrap by
+    themselves.  min and max order uint64 values by their bits with the
+    sign bit flipped (an unsigned compare); every other held value
+    compares as it is."""
 
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
@@ -130,8 +132,10 @@ class Work:
 
     def load(self, x: torch.Tensor) -> torch.Tensor:
         """Values stored in the dtype (or its signed view) as held."""
-        if self.dtype == torch.uint32:
-            return x.view(torch.int32).long() & 0xFFFFFFFF
+        if self.dtype in (torch.uint16, torch.uint32):
+            bits = 8 * self.itemsize
+            return (x.view(_UNSIGNED[self.dtype]).long()
+                    & ((1 << bits) - 1))
         if self.dtype == torch.uint64:
             return x.view(torch.int64)
         return x.to(self.held)
@@ -144,13 +148,15 @@ class Work:
             return _wrap32(x).to(torch.int32).view(torch.uint32)
         if dtype == torch.uint64:
             return x.view(torch.uint64)
+        if dtype == torch.uint16:
+            return x.to(torch.int16).view(torch.uint16)
         return x.to(dtype)
 
     def wrap(self, x: torch.Tensor) -> torch.Tensor:
         """A held sum or product reduced to the kernel's width."""
         if self.is_float or self.itemsize == 8:
             return x
-        if self.dtype == torch.uint32:
+        if not self.dtype.is_signed:
             return x & 0xFFFFFFFF
         return _wrap32(x)
 
@@ -201,10 +207,13 @@ def _as_rows(buf: torch.Tensor) -> torch.Tensor:
 def out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
     """Dtype of `op`'s result over values of `dtype` (what ``_ring_eval``
     returns without x64 for cells of 1-4 bytes, with x64 for 8): the
-    values', except int32 for a product of int8 or int16 values
-    (``jnp.prod`` promotes them to the default int)."""
+    values', except int32 for a product of int8 or int16 values and
+    uint32 for one of uint8 or uint16 values (``jnp.prod`` promotes them
+    to the default int of their kind)."""
     if op == "prod" and dtype in (torch.int8, torch.int16):
         return torch.int32
+    if op == "prod" and dtype in (torch.uint8, torch.uint16):
+        return torch.uint32
     return dtype
 
 

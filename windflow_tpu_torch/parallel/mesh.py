@@ -101,7 +101,7 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
 def _torch_dtype(dtype) -> torch.dtype:
     """The reduction's dtype as a torch dtype, from a numpy or torch
     dtype: one of the mesh kernels' (int32, float32, uint32, int64, uint64,
-    float64)."""
+    float64, float16, int8, int16, uint8, uint16)."""
     out = dtype if isinstance(dtype, torch.dtype) else {
         _np_dtype(d): d for d in DTYPES}.get(np.dtype(dtype))
     if out not in DTYPES:
@@ -165,10 +165,15 @@ class MeshWindowedReduce:
     ``collective`` is "auto"/"psum" (shards folded 0, 1, ..., n_sp - 1) or
     "ring" (0, n_sp - 1, ..., 1: the order in which JAX's ppermute ring
     accumulates on sp shard 0).  ``dtype`` is int32, float32, uint32,
-    int64, uint64 or float64: a 64-bit dtype runs as the JAX package runs
-    it under x64 (the rows stay 64-bit), any other as in its default
-    config (64-bit rows narrowed to 32 bits of their kind).  ``mean``
-    returns float32, or float64 for a 64-bit dtype.
+    int64, uint64, float64, float16, int8, int16, uint8 or uint16: a 64-bit
+    dtype runs as the JAX package runs it under x64 (the rows stay
+    64-bit), any other as in its default config (64-bit rows narrowed to
+    32 bits of their kind).  The results are JAX's dtypes
+    (``mesh_reduce.merge_out``): a sum or product of 1- or 2-byte integers
+    is int32 or uint32, their min, max and count keep the dtype (a count
+    wraps); ``mean`` returns float32, float64 for a 64-bit dtype and
+    float16 for float16, dividing by the window's count wrapped into a 1-
+    or 2-byte integer dtype as JAX does.
     """
 
     def __init__(self, mesh: DeviceMesh, op: str = "sum",
@@ -243,7 +248,7 @@ class MeshWindowedReduce:
                     cnts.append(c)
                 merged.append((g, a, b, sp_merge(
                     parts, cnts if cnts[0] is not None else None, self.op,
-                    ring=ring, device=devs[g, w, 0])))
+                    ring=ring, device=devs[g, w, 0], dtype=self.dtype)))
         out = np.zeros((KF, B), dtype=_np_dtype(merge_out(self.op,
                                                            self.dtype)))
         for g, a, b, res in merged:

@@ -115,8 +115,9 @@ class TorchWindowFunction:
     It returns one ``(B,)`` tensor or a tuple of them, in
     ``result_fields`` order; harvest casts each to its declared dtype.
     ``field_dtypes`` types each field's ring on the resident path (default
-    int32; float columns need an explicit float32 or float64 there; int8,
-    int16 and int64 rings are taken too)."""
+    int32; float columns need an explicit float16, float32 or float64
+    there; every ring dtype of ``ops/ring.py`` is taken: int8-int64,
+    uint8-uint64, float16-float64)."""
 
     def __init__(self, fn, fields=("value",), result_fields=None,
                  field_dtypes=None):
@@ -356,7 +357,9 @@ def select_acc_dtype(reducer: Reducer, compute_dtype,
                      spec: WindowSpec = None) -> np.dtype:
     """Accumulate dtype for the resident device path: int32/float32 by
     default, overridable via ``compute_dtype`` (int8, int16, int32, int64,
-    float32 or float64: the ring kernels' dtypes).  Warns when the
+    uint8, uint16, uint32, uint64, float16, float32 or float64: the ring
+    kernels' dtypes; the executor refuses any other, bfloat16 as JAX's
+    core does).  Warns when the
     reducer's result dtype exceeds the accumulate range — unless the
     reducer's declared ``value_range`` plus the window shape prove the
     results fit.  A 64-bit ``compute_dtype`` runs as the JAX package runs
