@@ -18,25 +18,40 @@ from __future__ import annotations
 
 import os
 import sys
+from time import perf_counter_ns as _pc_ns
 
 import numpy as np
 
 from ..core.tuples import MARKER_FIELD, Schema
 from ..runtime.emitters import Collector, StandardEmitter, default_routing
 from ..runtime.node import Node, RuntimeContext, SourceNode
+from ..utils.profile import timeline_record as _tl_record
+from ..utils.profile import timeline_stamp as _tl_stamp
 
 
 class Shipper:
     """Push-many output handle for loop-sources and flatmaps
-    (shipper.hpp:52-105), buffering rows into batches."""
+    (shipper.hpp:52-105), buffering rows into batches.
 
-    def __init__(self, schema: Schema, emit_fn, chunk: int = 4096):
+    Given a source's `stats` that keep operator states, it times each batch
+    it pushes on (the stages fused after the source, or the put into the
+    next inbox) into ``stats.push_ns_total``; the rest of the source's
+    ``generate`` is the generator's own time (its ``pull``)."""
+
+    def __init__(self, schema: Schema, emit_fn, chunk: int = 4096,
+                 stats=None):
         self._schema = schema
-        self._dtype = schema.dtype()
+        self._dtype = schema.dtype() if schema is not None else None
         self._emit = emit_fn
         self._chunk = chunk
         self._rows = []
         self.delivered = 0
+        if stats is not None and not stats.states:
+            stats = None
+        self._stats = stats
+        if stats is not None:
+            stats.push_ns_total = 0
+            self._pulled = _tl_stamp()   # the generator's turn since
 
     def push(self, key=0, id=0, ts=0, **payload):
         row = np.zeros((), dtype=self._dtype)
@@ -52,12 +67,27 @@ class Shipper:
         """Vectorised push of a whole pre-built batch."""
         self.flush()
         self.delivered += len(batch)
-        self._emit(batch)
+        self._push(batch)
 
     def flush(self):
         if self._rows:
-            self._emit(np.stack(self._rows))
+            self._push(np.stack(self._rows))
             self._rows = []
+
+    def _push(self, batch):
+        st = self._stats
+        if st is None:
+            self._emit(batch)
+            return
+        if self._pulled is not None:
+            _tl_record("pull", self._pulled)
+        stamp = _tl_stamp()
+        t0 = _pc_ns()
+        self._emit(batch)
+        st.push_ns_total += _pc_ns() - t0
+        if stamp is not None:
+            _tl_record("push", stamp)
+        self._pulled = _tl_stamp()
 
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,6 +156,7 @@ class _ItemizedSourceNode(SourceNode):
 
     def generate(self):
         dtype = self.schema.dtype()
+        shipper = Shipper(None, self.emit, stats=self.stats)
         rows = []
         alive = True
         while alive:
@@ -133,7 +164,7 @@ class _ItemizedSourceNode(SourceNode):
             alive = (self.fn(row, self.ctx) if self.rich else self.fn(row))
             rows.append(row)
             if len(rows) >= self.chunk or not alive:
-                self.emit(np.stack(rows))
+                shipper._push(np.stack(rows))
                 rows = []
 
 
@@ -148,7 +179,8 @@ class _LoopSourceNode(SourceNode):
         self.chunk = chunk
 
     def generate(self):
-        shipper = Shipper(self.schema, self.emit, self.chunk)
+        shipper = Shipper(self.schema, self.emit, self.chunk,
+                          stats=self.stats)
         if self.rich:
             self.fn(shipper, self.ctx)
         else:
@@ -164,8 +196,9 @@ class _BatchSourceNode(SourceNode):
         self.batches = batches
 
     def generate(self):
+        shipper = Shipper(None, self.emit, stats=self.stats)
         for b in self.batches:
-            self.emit(b)
+            shipper._push(b)
 
 
 class Source(_Pattern):

@@ -103,9 +103,11 @@ def _ship_loop(core_ref, ship_q, shard):
     device_put / dispatch / harvest overlap on the wire (a single thread
     would serialize all shards' transfers — the r1 bottleneck).  Resolves
     the core weakref per token so the thread never pins the core's
-    lifetime (a dead core ends the loop)."""
+    lifetime (a dead core ends the loop).  ``ship_wait`` is the thread's
+    waiting for work (no ship phase: kept from the trace bridge)."""
     while True:
-        tok = ship_q.get()
+        with profile.span("ship_wait", bridge=False):
+            tok = ship_q.get()
         if tok is None:
             return
         core = core_ref()

@@ -13,7 +13,11 @@ and those emissions are seen by stage i+1 *before* its own ``eosnotify``.
 
 from __future__ import annotations
 
+from time import perf_counter_ns as _pc_ns
+
 from .node import Node, SourceNode
+from ..utils.profile import timeline_record as _tl_record
+from ..utils.profile import timeline_stamp as _tl_stamp
 
 
 class _SyncOut:
@@ -33,10 +37,86 @@ class _SyncOut:
         pass
 
 
+class _TimedSyncOut(_SyncOut):
+    """The synchronous edge into stage `i` of a Comb whose node keeps
+    operator states: the call goes through the Comb's stage clock."""
+
+    __slots__ = ("clock", "i")
+
+    def __init__(self, dst: Node, clock, i: int):
+        super().__init__(dst)
+        self.clock = clock
+        self.i = i
+
+    def put(self, src, batch):
+        self.clock.call(self.i, batch, self.channel)
+
+
+class _StageClock:
+    """Each fused stage's exclusive service time: a stage's ``svc`` less
+    the next stage's ``svc`` that it runs (through its synchronous edge)
+    and, for the last stage, less its puts into real inboxes.  The stages'
+    exclusive times plus those puts are the Comb's service time.  Kept
+    only when the node keeps operator states (``NodeStats.states``); one
+    thread calls it."""
+
+    __slots__ = ("stages", "outputs", "incl", "excl", "tuples", "batches",
+                 "_inner")
+
+    def __init__(self, stages: list[Node], outputs):
+        n = len(stages)
+        self.stages = stages
+        self.outputs = outputs          # the Comb's real output channels
+        self.incl = [0] * n
+        self.excl = [0] * n
+        self.tuples = [0] * n
+        self.batches = [0] * n
+        self._inner = 0                 # ns of timed calls made inside
+
+    def _put_ns(self) -> int:
+        return sum(inbox._put_ns[slot] for inbox, slot in self.outputs
+                   if getattr(inbox, "_put_ns", None) is not None)
+
+    def call(self, i: int, batch, channel: int):
+        stage = self.stages[i]
+        last = i == len(self.stages) - 1
+        outer, self._inner = self._inner, 0
+        put0 = self._put_ns() if last else 0
+        stamp = _tl_stamp()
+        t0 = _pc_ns()
+        try:
+            stage.svc(batch, channel)
+        finally:
+            dt = _pc_ns() - t0
+            if stamp is not None:
+                _tl_record("svc:" + stage.name, stamp)
+            inner = self._inner + (self._put_ns() - put0 if last else 0)
+            self.incl[i] += dt
+            self.excl[i] += dt - inner
+            self.tuples[i] += len(batch)
+            self.batches[i] += 1
+            self._inner = outer + dt
+
+    def stage_times(self, push_ns=None) -> dict:
+        """{stage name: [exclusive ns, tuples, batches]}; a fused source's
+        stage is its push time less the next stage's service."""
+        out = {}
+        for i, s in enumerate(self.stages):
+            excl = self.excl[i]
+            if i == 0 and push_ns is not None:
+                excl = push_ns - (self.incl[1] if len(self.stages) > 1
+                                  else self._put_ns())
+            out[s.name] = [excl, self.tuples[i], self.batches[i]]
+        return out
+
+
 class Comb(Node):
     """Run `stages` fused in one thread: stage i's emit() calls stage i+1's
     svc() directly; the last stage's emissions leave through the Comb's own
     output channels."""
+
+    #: the stages' clock, while the node keeps operator states (svc_init)
+    _clock = None
 
     def __init__(self, stages: list[Node], name: str = None):
         if not stages:
@@ -136,6 +216,11 @@ class Comb(Node):
                     first._trace_wrap = False
         for s in self.stages[1:]:
             s.n_input_channels = 1
+        self._clock = None
+        if self.stats is not None and self.stats.states:
+            self._clock = _StageClock(self.stages, self._outputs)
+            for i, (a, b) in enumerate(zip(self.stages, self.stages[1:])):
+                a._outputs = [(_TimedSyncOut(b, self._clock, i + 1), 0)]
         for s in self.stages:
             s.stats = self.stats
             # the engine stamps the observability registry on the Comb's
@@ -145,7 +230,10 @@ class Comb(Node):
             s.svc_init()
 
     def svc(self, batch, channel: int = 0):
-        self.stages[0].svc(batch, channel)
+        if self._clock is None:
+            self.stages[0].svc(batch, channel)
+        else:
+            self._clock.call(0, batch, channel)
 
     def on_channel_eos(self, channel: int):
         self.stages[0].on_channel_eos(channel)
@@ -161,6 +249,9 @@ class Comb(Node):
     def svc_end(self):
         for s in self.stages:
             s.svc_end()
+        if self._clock is not None:
+            self.stats.stages = self._clock.stage_times(
+                self.stats.push_ns_total)
 
 
 class SourceComb(Comb, SourceNode):

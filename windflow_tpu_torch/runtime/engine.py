@@ -19,6 +19,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+from collections import defaultdict
 from time import monotonic as _monotonic
 from time import perf_counter_ns as _pc_ns
 from time import sleep as _sleep
@@ -26,6 +27,8 @@ from time import sleep as _sleep
 from .node import Node, RuntimeContext, SnapshotUnsupported, SourceNode
 from .overload import DeadLetter, OverloadError, OverloadPolicy
 from ..recovery.epoch import EpochMarker, Tagged, is_ctrl_payload
+from ..utils.profile import timeline_record as _tl_record
+from ..utils.profile import timeline_stamp as _tl_stamp
 
 _EOS = object()
 
@@ -64,6 +67,11 @@ class Inbox:
         #: concurrent put, a fine trade for a telemetry-only value.
         self.hwm = 0
         self._track = False
+        #: ns each source slot spent inside put (blocked on this inbox
+        #: when it is full), kept only when the dataflow writes node logs
+        #: (trace_dir): the engine sets it, and the producer's NodeStats
+        #: sums its slots when it ends.  None = one dead branch a put.
+        self._put_ns = None
 
     def register_source(self) -> int:
         slot = self.n_sources
@@ -86,6 +94,10 @@ class Inbox:
         return self._failed is not None and self._failed.is_set()
 
     def put(self, src: int, item):
+        put_ns = self._put_ns
+        if put_ns is not None:
+            stamp = _tl_stamp()
+            t0 = _pc_ns()
         pol = self._policy
         if pol is None:
             self._blocking(lambda: self._q.put((src, item), timeout=0.05))
@@ -116,6 +128,10 @@ class Inbox:
             depth = self._q.qsize()
             if depth > self.hwm:
                 self.hwm = depth
+        if put_ns is not None:
+            put_ns[src] += _pc_ns() - t0
+            if stamp is not None:
+                _tl_record("put_wait", stamp)
 
     def depth(self) -> int:
         """Current occupancy (items incl. queued EOS frames) — sampled
@@ -209,6 +225,7 @@ class NativeInbox:
         self._shed_lock = threading.Lock()
         self.hwm = 0         # see Inbox: observed-dataflow occupancy mark
         self._track = False
+        self._put_ns = None  # see Inbox: per-slot ns inside put
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -241,6 +258,10 @@ class NativeInbox:
             self.shed += 1
 
     def put(self, src: int, item):
+        put_ns = self._put_ns
+        if put_ns is not None:
+            stamp = _tl_stamp()
+            t0 = _pc_ns()
         pol = self._policy
         if pol is None:
             self._push(src, item)
@@ -279,6 +300,10 @@ class NativeInbox:
             depth = len(self._items)
             if depth > self.hwm:
                 self.hwm = depth
+        if put_ns is not None:
+            put_ns[src] += _pc_ns() - t0
+            if stamp is not None:
+                _tl_record("put_wait", stamp)
 
     def depth(self) -> int:
         """Occupancy proxy: the payload side table holds exactly the
@@ -599,6 +624,8 @@ class Dataflow:
                             self._inbox_policy(node))
         if self.metrics is not None or self.sample_period is not None:
             inbox._track = True  # maintain the occupancy high-water mark
+        if self.trace_dir:
+            inbox._put_ns = defaultdict(int)   # the producers' put waits
         self._inboxes[id(node)] = inbox
         return node
 
@@ -691,7 +718,9 @@ class Dataflow:
             if self.trace_dir or self.metrics is not None \
                     or self.sample_period is not None:
                 from ..utils.tracing import NodeStats
-                node.stats = NodeStats(node._hop_id)
+                # operator states only for the node logs, their reader
+                node.stats = NodeStats(node._hop_id,
+                                       states=bool(self.trace_dir))
             if tracer is not None:
                 # span-sampling hooks (obs/trace.py): sources make the
                 # sampling/adoption decision at emit; every node wraps
@@ -716,16 +745,25 @@ class Dataflow:
                     # (recovery/epoch.py); sources are not restartable —
                     # a generate() failure propagates exactly as today
                     node._recov.begin(len(node._outputs), 0, 0)
-                node.generate()
+                if node.stats is None or not node.stats.states:
+                    node.generate()
+                else:
+                    t0 = _pc_ns()
+                    node.generate()
+                    node.stats.generate_ns_total = _pc_ns() - t0
             elif supervised:
                 self._run_supervised(node, events)
             else:
                 inbox = self._inboxes[id(node)]
                 live = inbox.n_sources
                 stats = node.stats
+                states = stats is not None and stats.states
                 budget = self._error_budget_of(node)
                 while live > 0:
-                    src, item = inbox.get()
+                    if not states:
+                        src, item = inbox.get()
+                    else:
+                        src, item = self._timed_get(inbox, stats)
                     if item is _EOS:
                         live -= 1
                         if tracer is not None:
@@ -760,11 +798,14 @@ class Dataflow:
                         # the next error fails fast exactly like default
                         try:
                             if timed:
+                                stamp = _tl_stamp()
                                 t0 = _pc_ns()
                                 node.svc(item, src)
                                 dt = _pc_ns() - t0
                                 if stats is not None:
                                     stats.record_svc(len(item), dt)
+                                if stamp is not None:
+                                    _tl_record("svc:" + node.name, stamp)
                             else:
                                 node.svc(item, src)
                         except OverloadError:
@@ -777,11 +818,14 @@ class Dataflow:
                             self._quarantine(node, item, src, e)
                             continue    # no span: the batch died here
                     elif timed:
+                        stamp = _tl_stamp()
                         t0 = _pc_ns()
                         node.svc(item, src)
                         dt = _pc_ns() - t0
                         if stats is not None:
                             stats.record_svc(len(item), dt)
+                        if stamp is not None:
+                            _tl_record("svc:" + node.name, stamp)
                     else:
                         node.svc(item, src)
                     if ctx is not None:
@@ -799,6 +843,10 @@ class Dataflow:
                 node.eosnotify()
             node.svc_end()
             if node.stats is not None:
+                if node.stats.states:
+                    node.stats.put_wait_ns_total = sum(
+                        inbox._put_ns[slot] for inbox, slot in node._outputs
+                        if getattr(inbox, "_put_ns", None) is not None)
                 shed = getattr(self._inboxes[id(node)], "shed", 0)
                 if shed:
                     node.stats.record_shed(shed)
@@ -857,6 +905,7 @@ class Dataflow:
         # have a restore point (state fresh out of svc_init)
         self._checkpoint_node(node, rec, events, 0)
         restoring = False
+        states = node.stats is not None and node.stats.states
         while True:
             try:
                 if restoring:
@@ -866,7 +915,10 @@ class Dataflow:
                     restoring = False
                     self._restore_and_replay(node, rec, events)
                 while rec.live > 0:
-                    src, item = inbox.get()
+                    if not states:
+                        src, item = inbox.get()
+                    else:
+                        src, item = self._timed_get(inbox, node.stats)
                     if self._dispatch_supervised(node, rec, events, src,
                                                  item):
                         self._complete_barriers(node, rec, events)
@@ -891,6 +943,17 @@ class Dataflow:
                 if not self._supervisor.authorize_restart(node, rec, e):
                     raise
                 restoring = True
+
+    @staticmethod
+    def _timed_get(inbox, stats):
+        """inbox.get(), its time added to the node's idle wait for input."""
+        stamp = _tl_stamp()
+        t0 = _pc_ns()
+        got = inbox.get()
+        stats.wait_in_ns_total += _pc_ns() - t0
+        if stamp is not None:
+            _tl_record("wait_in", stamp)
+        return got
 
     def _dispatch_supervised(self, node: Node, rec, events, src, item,
                              lvl: int = None) -> bool:
@@ -999,11 +1062,14 @@ class Dataflow:
         if rec.budget > 0:
             try:
                 if timed:
+                    stamp = _tl_stamp()
                     t0 = _pc_ns()
                     node.svc(payload, src)
                     dt = _pc_ns() - t0
                     if stats is not None:
                         stats.record_svc(len(payload), dt)
+                    if stamp is not None:
+                        _tl_record("svc:" + node.name, stamp)
                 else:
                     node.svc(payload, src)
             except OverloadError:
@@ -1021,11 +1087,14 @@ class Dataflow:
                     self._quarantine(node, payload, src, e)
                 return      # no span: the batch died here
         elif timed:
+            stamp = _tl_stamp()
             t0 = _pc_ns()
             node.svc(payload, src)
             dt = _pc_ns() - t0
             if stats is not None:
                 stats.record_svc(len(payload), dt)
+            if stamp is not None:
+                _tl_record("svc:" + node.name, stamp)
         else:
             node.svc(payload, src)
         if ctx is not None:

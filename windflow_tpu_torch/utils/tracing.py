@@ -41,9 +41,11 @@ class NodeStats:
 
     __slots__ = ("name", "rcv_batches", "rcv_tuples", "svc_time_ns_total",
                  "avg_ts_us", "ewma_ts_us", "departures", "last_dep_ns",
-                 "avg_td_us", "counters", "started_ns")
+                 "avg_td_us", "counters", "started_ns", "wait_in_ns_total",
+                 "put_wait_ns_total", "generate_ns_total", "push_ns_total",
+                 "stages", "states")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, states: bool = False):
         self.name = name
         self.rcv_batches = 0
         self.rcv_tuples = 0
@@ -55,6 +57,21 @@ class NodeStats:
         self.avg_td_us = 0.0      # running mean inter-departure time
         self.counters = {}        # node-specific extras (windows_fired, ...)
         self.started_ns = time.perf_counter_ns()
+        # operator states (engine.py), kept only where `states` (the node
+        # logs, their one reader, are written): idle waiting for input,
+        # blocked on the next operator's full inbox (its inbox puts, summed
+        # when the node ends)
+        self.states = states
+        self.wait_in_ns_total = 0
+        self.put_wait_ns_total = 0
+        # sources: the wall time of generate(), and the part of it spent
+        # pushing batches into the stages fused after the source (None
+        # where the source has no pushing shell, patterns/basic.py)
+        self.generate_ns_total = None
+        self.push_ns_total = None
+        # fused nodes (comb.py): {stage name: [exclusive ns, tuples,
+        # batches]}
+        self.stages = None
 
     # -- recording (hot path: branch-free beyond attribute math) -----------
 
@@ -94,7 +111,7 @@ class NodeStats:
 
     def snapshot(self) -> dict:
         alive_s = (time.perf_counter_ns() - self.started_ns) / 1e9
-        return {
+        snap = {
             "node": self.name,
             "rcv_batches": self.rcv_batches,
             "rcv_tuples": self.rcv_tuples,
@@ -105,6 +122,28 @@ class NodeStats:
             "alive_sec": round(alive_s, 3),
             **self.counters,
         }
+        if not self.states:
+            return snap
+        snap["wait_in_ms_total"] = round(self.wait_in_ns_total / 1e6, 3)
+        snap["put_wait_ms_total"] = round(self.put_wait_ns_total / 1e6, 3)
+        snap.update(self._source_fields())
+        if self.stages is not None:
+            snap["stages"] = {
+                k: {"svc_ms_total": round(ns / 1e6, 3), "rcv_tuples": n,
+                    "rcv_batches": b}
+                for k, (ns, n, b) in self.stages.items()}
+        return snap
+
+    def _source_fields(self) -> dict:
+        if self.generate_ns_total is None:
+            return {}
+        out = {"generate_ms_total": round(self.generate_ns_total / 1e6, 3)}
+        if self.push_ns_total is not None:
+            # the generator's own time (making or pulling its batches)
+            out["push_ms_total"] = round(self.push_ns_total / 1e6, 3)
+            out["pull_ms_total"] = round(
+                (self.generate_ns_total - self.push_ns_total) / 1e6, 3)
+        return out
 
     def write(self, trace_dir: str):
         os.makedirs(trace_dir, exist_ok=True)
