@@ -363,3 +363,63 @@ def test_live_metrics_alone_keep_no_operator_states(monkeypatch):
         assert snap["rcv_batches"] == (0 if n is nodes[0] else 5)
         assert not {"wait_in_ms_total", "put_wait_ms_total", "stages",
                     "generate_ms_total"} & set(snap)
+
+
+def ysb_chunks(n=5, chunk=3000):
+    """`n` YSB chunks, event time 2 s apart (the warm-up's fake clock)."""
+    from windflow_tpu_torch.apps import ysb
+    tick = iter(range(10 ** 6))
+    return list(ysb.event_batches(2.0 * n + 1.0, chunk,
+                                  ysb.CampaignGenerator(),
+                                  time_fn=lambda: 2.0 * next(tick)))
+
+
+@pytest.mark.filterwarnings(
+    "ignore:resident device path accumulates:UserWarning")
+@pytest.mark.parametrize("variant", ["kf", "kf-gpu"])
+def test_ysb_node_log_counts_every_row_move_by_bytes(tmp_path, monkeypatch,
+                                                     variant):
+    """With node logs, the source's fused node counts each Filter and
+    Join batch as moved by bytes (patterns/basic.py's row moves)."""
+    from windflow_tpu_torch.apps import ysb
+    monkeypatch.setenv("WF_LOG_DIR", str(tmp_path))
+    chunks = ysb_chunks()
+    pipe, _sink, sent = ysb.build_pipeline(variant, 0, 1, 4, batches=chunks,
+                                           device="cpu")
+    pipe.run_and_wait_end()
+    assert sent[0] == 5 * 3000
+    (node,) = [v for v in logs(str(tmp_path)).values()
+               if "batches_by_bytes" in v]
+    stages = ("ysb_filter.0", "ysb_join.0")
+    assert node["batches_by_bytes"] == dict.fromkeys(stages, len(chunks))
+    assert node["batches_by_fields"] == dict.fromkeys(stages, 0)
+    assert [node["stages"][s]["rcv_batches"] for s in stages] \
+        == [len(chunks)] * 2
+
+
+@pytest.mark.parametrize("knob", ["metrics", "none"])
+def test_no_row_move_counter_without_node_logs(monkeypatch, knob):
+    """Live metrics alone, or no knob: the Filter and the out-schema Map
+    keep no counter and the snapshot has none."""
+    monkeypatch.delenv("WF_LOG_DIR", raising=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # WF207: no trace_dir to write
+        df = Dataflow("m", capacity=2, metrics=(knob == "metrics") or None)
+    (flt,) = Filter(lambda b: b["value"] >= 0, vectorized=True).replicas()
+    (mp,) = Map(lambda b, o: None, vectorized=True,
+                output_schema=Schema(other=np.int32)).replicas()
+    nodes = [Emit(4), flt, mp, Sleepy(0, "z")]
+    for n in nodes:
+        df.add(n)
+    for a, b in zip(nodes, nodes[1:]):
+        df.connect(a, b)
+    df.run_and_wait_end(timeout=60)
+    assert flt._moves is None and mp._moves is None
+    if knob == "none":
+        assert flt.stats is None and mp.stats is None
+        return
+    for n in (flt, mp):
+        assert n.stats.rcv_batches == 4
+        assert n.stats.moves is None
+        assert not {"batches_by_bytes", "batches_by_fields"} \
+            & set(n.stats.snapshot())

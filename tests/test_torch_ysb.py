@@ -19,6 +19,7 @@ from windflow_tpu.core.windows import WinType as JWinType
 from windflow_tpu.patterns import win_seq_tpu as jw
 from windflow_tpu_torch.apps import ysb
 from windflow_tpu_torch.core.windows import WindowSpec, WinType
+from windflow_tpu_torch.patterns import basic
 from windflow_tpu_torch.patterns import win_seq_gpu as pw
 
 from test_ysb import WIN_SEC, WIN_US, fixed_batches
@@ -90,6 +91,22 @@ def test_device_variant_matches_jax_and_oracle(port_variant, jax_variant):
 @pytest.mark.parametrize("variant", ["kf-gpu", "wmr-gpu"])
 def test_device_variant_matches_port_host_kf(variant):
     assert run(ysb, variant, device="cpu") == run(ysb, "kf")
+
+
+@pytest.mark.parametrize("path", ["bytes", "fields"])
+@pytest.mark.parametrize("port_variant,jax_variant",
+                         [("kf", "kf"), ("kf-gpu", "kf-tpu")])
+def test_row_moves_match_jax_and_oracle(port_variant, jax_variant, path,
+                                        monkeypatch):
+    """The source thread's Filter and Join move rows as whole rows of
+    bytes (patterns/basic.py), or field by field where forced: both give
+    JAX's windows and the oracle's."""
+    if path == "fields":
+        monkeypatch.setattr(basic, "_row_type", lambda dt: None)
+        monkeypatch.setattr(basic, "_header_types", lambda a, b: None)
+    got = run(ysb, port_variant, device="cpu")
+    assert got == run(jysb, jax_variant)
+    assert got == oracle_rows(N_EVENTS)
 
 
 def test_host_variants_match_jax():

@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import os
 import sys
+from functools import lru_cache
 from time import perf_counter_ns as _pc_ns
 
 import numpy as np
 
-from ..core.tuples import MARKER_FIELD, Schema
+from ..core.tuples import INFO_FIELDS, MARKER_FIELD, Schema
 from ..runtime.emitters import Collector, StandardEmitter, default_routing
 from ..runtime.node import Node, RuntimeContext, SourceNode
 from ..utils.profile import timeline_record as _tl_record
@@ -139,6 +140,65 @@ class _Pattern:
         raise NotImplementedError
 
 
+# ----------------------------------------------------------------- Row moves
+#
+# numpy copies a structured array field by field; the Filter and the
+# out-schema Map move their rows as whole rows of bytes instead, where the
+# dtypes show that the bytes are exactly the fields.  Each plan is worked
+# out on a dtype's first batch and cached.
+
+#: the header every Schema's rows start with, in this order (core/tuples.py)
+_HEADER = INFO_FIELDS + (MARKER_FIELD,)
+
+
+def _gapless(dt: np.dtype) -> bool:
+    """Every byte of `dt` belongs to exactly one field (recursively): no
+    padding, no overlap, no object."""
+    if dt.subdtype is not None:
+        return _gapless(dt.subdtype[0])
+    if dt.names is None:
+        return not dt.hasobject
+    end = 0
+    for fd, off in sorted((dt.fields[n][:2] for n in dt.names),
+                          key=lambda f: f[1]):
+        if off != end or not _gapless(fd):
+            return False
+        end = off + fd.itemsize
+    return end == dt.itemsize
+
+
+@lru_cache(maxsize=64)
+def _row_type(dt: np.dtype):
+    """The void dtype of one row of `dt`, where copying a row's bytes is
+    copying its fields; None where not (no fields, padding, objects)."""
+    if dt.names is None or not _gapless(dt):
+        return None
+    return np.dtype((np.void, dt.itemsize))
+
+
+@lru_cache(maxsize=64)
+def _header_types(src: np.dtype, dst: np.dtype):
+    """(source view, output view): dtypes of one field ``h``, the bytes of
+    the Schema header (key, id, ts, marker) at the start of a row of `src`
+    and of `dst`, a Schema's dtype.  None unless `src` gives the header
+    fields the types and offsets `dst` gives them, and neither holds
+    objects."""
+    if src.names is None or src.hasobject or dst.hasobject or any(
+            src.fields.get(f, (None,))[:2] != dst.fields[f][:2]
+            for f in _HEADER):
+        return None
+    head = (np.void, sum(dst.fields[f][0].itemsize for f in _HEADER))
+    return tuple(np.dtype({"names": ["h"], "formats": [head], "offsets": [0],
+                           "itemsize": dt.itemsize}) for dt in (src, dst))
+
+
+def _moves_of(node):
+    """The node's ``[by bytes, by fields]`` counter in its node log, or
+    None where no node log is written."""
+    st = node.stats
+    return st.moves_of(node.name) if st is not None and st.states else None
+
+
 # --------------------------------------------------------------------- Source
 
 class _ItemizedSourceNode(SourceNode):
@@ -247,12 +307,43 @@ class _MapNode(Node):
     #: array, or (elided path) an input batch that was itself handed off
     yields_fresh = True
 
+    #: the output dtype and the input dtype last seen, with its header
+    #: plan (``_header_types``)
+    _out_dtype = _seen = _plan = None
+    #: [batches by bytes, by fields] where the node log is written
+    _moves = None
+
     def __init__(self, fn, name, rich, vectorized, out_schema):
         super().__init__(name)
         self.fn = fn
         self.rich = rich
         self.vectorized = vectorized
         self.out_schema = out_schema  # None => in-place
+
+    def svc_init(self):
+        if self.out_schema is not None:
+            self._moves = _moves_of(self)
+
+    def _new_rows(self, batch):
+        """The output batch: zeros, but for the header copied from
+        `batch`'s rows, as one block of bytes a row where the dtypes
+        allow it (``_header_types``)."""
+        odt = self._out_dtype
+        if odt is None:
+            odt = self._out_dtype = self.out_schema.dtype()
+        if batch.dtype is not self._seen:
+            self._seen = batch.dtype
+            self._plan = _header_types(batch.dtype, odt)
+        out = np.zeros(len(batch), dtype=odt)
+        plan = self._plan
+        if plan is None:
+            for f in _HEADER:
+                out[f] = batch[f]
+        else:
+            out.view(plan[1])["h"] = batch.view(plan[0])["h"]
+        if self._moves is not None:
+            self._moves[plan is None] += 1
+        return out
 
     def svc(self, batch, channel=0):
         args = (self.ctx,) if self.rich else ()
@@ -268,9 +359,7 @@ class _MapNode(Node):
                 for row in out:
                     self.fn(row, *args)
         else:
-            out = np.zeros(len(batch), dtype=self.out_schema.dtype())
-            for f in ("key", "id", "ts", MARKER_FIELD):
-                out[f] = batch[f]
+            out = self._new_rows(batch)
             if self.vectorized:
                 self.fn(batch, out, *args)
             else:
@@ -309,12 +398,19 @@ class _FilterNode(Node):
     recoverable = True  # stateless: supervised restart needs no snapshot
     #: the surviving-rows gather is a fresh allocation every time
     yields_fresh = True
+    #: the input dtype last seen and its row type (``_row_type``)
+    _seen = _rows = None
+    #: [batches by bytes, by fields] where the node log is written
+    _moves = None
 
     def __init__(self, fn, name, rich, vectorized):
         super().__init__(name)
         self.fn = fn
         self.rich = rich
         self.vectorized = vectorized
+
+    def svc_init(self):
+        self._moves = _moves_of(self)
 
     def svc(self, batch, channel=0):
         args = (self.ctx,) if self.rich else ()
@@ -323,7 +419,22 @@ class _FilterNode(Node):
         else:
             mask = np.fromiter((bool(self.fn(row, *args)) for row in batch),
                                dtype=bool, count=len(batch))
-        out = batch[mask]
+        if batch.dtype is not self._seen:
+            self._seen = batch.dtype
+            self._rows = _row_type(batch.dtype)
+        rows = self._rows
+        # an ndarray subclass keeps its type, a mask of another shape its
+        # IndexError, on the field path
+        if rows is None or type(batch) is not np.ndarray \
+                or mask.shape != batch.shape:
+            rows = None
+            out = batch[mask]
+        else:
+            # the survivors' bytes, a row at a time
+            out = batch.view(rows).take(np.flatnonzero(mask)).view(
+                batch.dtype)
+        if self._moves is not None:
+            self._moves[rows is None] += 1
         if len(out):
             self.emit(out)
 

@@ -43,7 +43,7 @@ class NodeStats:
                  "avg_ts_us", "ewma_ts_us", "departures", "last_dep_ns",
                  "avg_td_us", "counters", "started_ns", "wait_in_ns_total",
                  "put_wait_ns_total", "generate_ns_total", "push_ns_total",
-                 "stages", "states")
+                 "stages", "moves", "states")
 
     def __init__(self, name: str, states: bool = False):
         self.name = name
@@ -72,6 +72,10 @@ class NodeStats:
         # fused nodes (comb.py): {stage name: [exclusive ns, tuples,
         # batches]}
         self.stages = None
+        # Filters and out-schema Maps (patterns/basic.py): {node or stage
+        # name: [batches moved as whole rows of bytes, batches moved field
+        # by field]}
+        self.moves = None
 
     # -- recording (hot path: branch-free beyond attribute math) -----------
 
@@ -92,6 +96,14 @@ class NodeStats:
             self.departures += 1
             self.avg_td_us += (td_us - self.avg_td_us) / self.departures
         self.last_dep_ns = now
+
+    def moves_of(self, name: str) -> list:
+        """The ``[by bytes, by fields]`` batch counts of the Filter or Map
+        `name`, which it increments itself; kept only with the operator
+        states (``states``)."""
+        if self.moves is None:
+            self.moves = {}
+        return self.moves.setdefault(name, [0, 0])
 
     def bump(self, counter: str, n: int = 1):
         self.counters[counter] = self.counters.get(counter, 0) + n
@@ -132,6 +144,11 @@ class NodeStats:
                 k: {"svc_ms_total": round(ns / 1e6, 3), "rcv_tuples": n,
                     "rcv_batches": b}
                 for k, (ns, n, b) in self.stages.items()}
+        if self.moves is not None:
+            snap["batches_by_bytes"] = {k: v[0]
+                                        for k, v in self.moves.items()}
+            snap["batches_by_fields"] = {k: v[1]
+                                         for k, v in self.moves.items()}
         return snap
 
     def _source_fields(self) -> dict:
