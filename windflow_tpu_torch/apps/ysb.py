@@ -25,8 +25,8 @@ Differences, per the framework's batch idiom:
   ``device_aggregate`` (the kf-gpu stage — count/max are monoids).
 
 The device variants are ``kf-gpu`` (``KeyFarmGPU`` over the native core's
-per-field rings: the revenue ring on the card, appended and summed over
-the TB windows by one ``ring_append_eval`` launch a dispatch) and
+revenue ring on the card, appended and summed over the TB windows by one
+``ring_append_eval`` launch a dispatch) and
 ``wmr-gpu``
 (``WinMapReduceGPU``: the MAP stage on the card, REDUCE on the host) —
 the JAX package's ``kf-tpu`` and ``wmr-tpu``.  They run on the card unless
@@ -141,9 +141,10 @@ def device_aggregate(rich: bool = False):
     work), so this routes to the resident device path: the C++ core
     answers COUNT and MAX(ts) from its archive (the pos-extrema split,
     win_seq_gpu.split_pos_max) and ships only the revenue column, once,
-    into a per-field ring on the card (ops/resident.py:
-    MultiFieldResidentExecutor), whose windows one ``windowed_reduce``
-    launch a dispatch sums.  Event timestamps are relative microseconds
+    into a ring on the card (ops/resident.py: ResidentWindowExecutor, the
+    one device stat left after the split), which one ``ring_append_eval``
+    launch a dispatch (kernel ``append_eval_kernel``) appends and sums
+    over the dispatch's windows.  Event timestamps are relative microseconds
     (event_batches), so the declared value_range proves an int32 MAX exact
     for runs under ~35 minutes.  Revenue keeps the host variants' int64
     result dtype (one shared result schema across kf/kf-gpu/wmr/wmr-gpu)

@@ -129,7 +129,11 @@ class WFCollectorNode(Node):
     one buffer; the releasable contiguous id-run per key is a segmented
     prefix test over a (key, id) lexsort, and each svc emits at most ONE
     batch (per-key tiny emits would turn 10^5 keys into 10^5 downstream
-    svc calls)."""
+    svc calls).
+
+    Where the node keeps operator states (node logs), its log counts
+    ``reorder_released`` (rows released in order) and ``reorder_held_max``
+    (the most rows held back at once)."""
 
     quarantine_exempt = True    # framework shell: errors here fail fast
     recoverable = True          # reorder state is plain numpy data
@@ -141,6 +145,13 @@ class WFCollectorNode(Node):
         self._next = np.zeros(0, dtype=np.int64)   # slot -> next expected id
         self._pend_rows = None                     # structured array
         self._pend_slots = np.zeros(0, dtype=np.int64)
+        self._counts = None    # the node log's counters, only with logs
+
+    def svc_init(self):
+        st = self.stats
+        if st is not None and st.states:
+            self._counts = st.counters
+            self._counts.update(reorder_released=0, reorder_held_max=0)
 
     def state_snapshot(self):
         return {
@@ -204,8 +215,19 @@ class WFCollectorNode(Node):
             held_slots = slots[order[keep]] if keep.any() else None
             self._stash(held, held_slots)
             self.emit(out)
+            released = len(out)
         else:
             self._stash(rows[order], s)
+            released = 0
+        if self._counts is not None:
+            self._count(released)
+
+    def _count(self, released: int):
+        c = self._counts
+        c["reorder_released"] += released
+        held = 0 if self._pend_rows is None else len(self._pend_rows)
+        if held > c["reorder_held_max"]:
+            c["reorder_held_max"] = held
 
     def _stash(self, held, held_slots):
         """Park unreleased rows, joining any untouched pending buffer."""
@@ -250,6 +272,7 @@ class _OrderedWorkerNode(WinSeqNode):
                                if k != "ordering"})
 
     def svc_init(self):
+        super().svc_init()
         if self.n_input_channels != self.ordering.n_channels:
             raise RuntimeError(
                 f"{self.name}: wired with {self.n_input_channels} input "

@@ -28,11 +28,13 @@ assignment is identical.
 
 from __future__ import annotations
 
+from time import perf_counter_ns as _pc_ns
+
 import numpy as np
 
 from ..core.windows import PatternConfig, Role, WindowSpec, WinType
 from ..runtime.emitters import KeyedStreamState
-from ..runtime.node import Node, RuntimeContext
+from ..runtime.node import Node, RuntimeContext, blocked_put_ns
 from .basic import _Pattern
 from .win_farm import WFCollectorNode, WinFarm
 from .win_seq import WinSeq, WinSeqNode
@@ -41,7 +43,12 @@ _NEG_INF = np.int64(-(2 ** 62))
 
 
 class WinMapEmitterNode(Node):
-    """Per-key round-robin partitioner (wm_nodes.hpp:40-133)."""
+    """Per-key round-robin partitioner (wm_nodes.hpp:40-133).
+
+    Where the node keeps operator states (node logs), it times its two
+    parts into its log: ``wm_assign_ms_total``, the sort by key and the
+    per-key round-robin bases; ``wm_scatter_ms_total``, the per-replica
+    mask passes and emits, less the time blocked in their puts."""
 
     quarantine_exempt = True    # framework shell: errors here fail fast
     shed_safe = True            # farm head: shedding drops raw stream rows
@@ -52,15 +59,35 @@ class WinMapEmitterNode(Node):
         self.pos_field = "id" if win_type is WinType.CB else "ts"
         self._state = KeyedStreamState(self.pos_field)
         self._next_dst = {}  # key -> next round-robin destination
+        self._ns = None      # [assign, scatter] ns, only with node logs
+
+    def svc_init(self):
+        st = self.stats
+        if st is not None and st.states:
+            self._ns = [0, 0]
 
     def svc(self, batch, channel=0):
-        n = self.map_degree
         # marker absorption + ooo drop shared with WF emitter
         # (wm_nodes.hpp:87-104 mirrors wf_nodes.hpp:104-121)
         batch = self._state.filter(batch)
         if len(batch) == 0:
             return
-        keys = batch["key"]
+        ns = self._ns
+        if ns is None:
+            self._scatter(batch, self._destinations(batch["key"]))
+            return
+        t0 = _pc_ns()
+        dest = self._destinations(batch["key"])
+        t1 = _pc_ns()
+        put0 = blocked_put_ns(self._outputs)
+        self._scatter(batch, dest)
+        ns[0] += t1 - t0
+        ns[1] += _pc_ns() - t1 - (blocked_put_ns(self._outputs) - put0)
+
+    def _destinations(self, keys):
+        """Each row's replica: its key's rows go round-robin from the key's
+        next destination (``key % map_degree`` at first), in row order."""
+        n = self.map_degree
         # sort-by-key + segmented arange: O(n log n + K) instead of a
         # full-batch mask per distinct key (collapses at 1e5 keys)
         from ..core.tuples import group_by_key
@@ -77,12 +104,21 @@ class WinMapEmitterNode(Node):
             base[i] = b
             nd[k] = (b + int(counts[i])) % n
         rank = np.arange(len(sk), dtype=np.int64) - np.repeat(starts, counts)
-        dest = np.empty(len(batch), dtype=np.int64)
+        dest = np.empty(len(keys), dtype=np.int64)
         dest[order] = (np.repeat(base, counts) + rank) % n
-        for d in range(n):
+        return dest
+
+    def _scatter(self, batch, dest):
+        for d in range(self.map_degree):
             sub = batch[dest == d]
             if len(sub):
                 self.emit_to(d, sub)
+
+    def svc_end(self):
+        if self._ns is not None:
+            self.stats.counters.update(
+                wm_assign_ms_total=round(self._ns[0] / 1e6, 3),
+                wm_scatter_ms_total=round(self._ns[1] / 1e6, 3))
 
     def eosnotify(self):
         markers = self._state.marker_batch()

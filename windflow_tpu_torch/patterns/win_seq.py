@@ -12,7 +12,12 @@ from .basic import _Pattern
 
 
 class WinSeqNode(Node):
-    """Runtime node driving a WinSeqCore."""
+    """Runtime node driving a WinSeqCore.
+
+    A REDUCE core's node (Win_MapReduce's second stage) counts into its
+    node log, where it keeps operator states, ``reduce_windows`` (every
+    window it fired) and ``reduce_eos_windows`` (those fired only by the
+    end-of-stream flush)."""
 
     #: svc folds rows into per-key window/ordering state BEFORE any
     #: raise, so a quarantined batch would leave that state partially
@@ -29,6 +34,20 @@ class WinSeqNode(Node):
     def __init__(self, core: WinSeqCore, name="win_seq"):
         super().__init__(name)
         self.core = core
+        self._reduce_counts = None   # the node log's counters (REDUCE)
+
+    def svc_init(self):
+        st = self.stats
+        if (st is not None and st.states
+                and getattr(self.core, "role", None) is Role.REDUCE):
+            self._reduce_counts = st.counters
+            st.counters.update(reduce_windows=0, reduce_eos_windows=0)
+
+    def _count_reduced(self, n: int, eos: bool = False):
+        c = self._reduce_counts
+        c["reduce_windows"] += n
+        if eos:
+            c["reduce_eos_windows"] += n
 
     def checkpoint_prepare(self):
         """Device cores buffer fired windows in an async launch queue;
@@ -84,6 +103,8 @@ class WinSeqNode(Node):
             if self.stats is not None:
                 self.stats.bump("windows_fired", len(out))
                 self.stats.bump("triggering_batches")
+                if self._reduce_counts is not None:
+                    self._count_reduced(len(out))
             self.emit(out)
         elif self.stats is not None:
             self.stats.bump("non_triggering_batches")
@@ -97,6 +118,8 @@ class WinSeqNode(Node):
         if self.stats is not None:
             if fired:
                 self.stats.bump("windows_fired", fired)
+                if self._reduce_counts is not None:
+                    self._count_reduced(fired, eos=not triggering)
                 if triggering:
                     self.stats.bump("triggering_batches")
             elif triggering:
@@ -112,6 +135,8 @@ class WinSeqNode(Node):
         if len(out):
             if self.stats is not None:
                 self.stats.bump("windows_fired", len(out))
+                if self._reduce_counts is not None:
+                    self._count_reduced(len(out), eos=True)
             self.emit(out)
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from time import perf_counter_ns as _pc_ns
 
-from .node import Node, SourceNode
+from .node import Node, SourceNode, blocked_put_ns
 from ..utils.profile import timeline_record as _tl_record
 from ..utils.profile import timeline_stamp as _tl_stamp
 
@@ -73,15 +73,11 @@ class _StageClock:
         self.batches = [0] * n
         self._inner = 0                 # ns of timed calls made inside
 
-    def _put_ns(self) -> int:
-        return sum(inbox._put_ns[slot] for inbox, slot in self.outputs
-                   if getattr(inbox, "_put_ns", None) is not None)
-
     def call(self, i: int, batch, channel: int):
         stage = self.stages[i]
         last = i == len(self.stages) - 1
         outer, self._inner = self._inner, 0
-        put0 = self._put_ns() if last else 0
+        put0 = blocked_put_ns(self.outputs) if last else 0
         stamp = _tl_stamp()
         t0 = _pc_ns()
         try:
@@ -90,7 +86,8 @@ class _StageClock:
             dt = _pc_ns() - t0
             if stamp is not None:
                 _tl_record("svc:" + stage.name, stamp)
-            inner = self._inner + (self._put_ns() - put0 if last else 0)
+            inner = self._inner + (
+                blocked_put_ns(self.outputs) - put0 if last else 0)
             self.incl[i] += dt
             self.excl[i] += dt - inner
             self.tuples[i] += len(batch)
@@ -105,7 +102,7 @@ class _StageClock:
             excl = self.excl[i]
             if i == 0 and push_ns is not None:
                 excl = push_ns - (self.incl[1] if len(self.stages) > 1
-                                  else self._put_ns())
+                                  else blocked_put_ns(self.outputs))
             out[s.name] = [excl, self.tuples[i], self.batches[i]]
         return out
 

@@ -24,7 +24,8 @@ from time import monotonic as _monotonic
 from time import perf_counter_ns as _pc_ns
 from time import sleep as _sleep
 
-from .node import Node, RuntimeContext, SnapshotUnsupported, SourceNode
+from .node import (Node, RuntimeContext, SnapshotUnsupported, SourceNode,
+                   blocked_put_ns)
 from .overload import DeadLetter, OverloadError, OverloadPolicy
 from ..recovery.epoch import EpochMarker, Tagged, is_ctrl_payload
 from ..utils.profile import timeline_record as _tl_record
@@ -844,9 +845,8 @@ class Dataflow:
             node.svc_end()
             if node.stats is not None:
                 if node.stats.states:
-                    node.stats.put_wait_ns_total = sum(
-                        inbox._put_ns[slot] for inbox, slot in node._outputs
-                        if getattr(inbox, "_put_ns", None) is not None)
+                    node.stats.put_wait_ns_total = blocked_put_ns(
+                        node._outputs)
                 shed = getattr(self._inboxes[id(node)], "shed", 0)
                 if shed:
                     node.stats.record_shed(shed)

@@ -18,6 +18,14 @@ Differences from the reference, by design:
 from __future__ import annotations
 
 
+def blocked_put_ns(outputs) -> int:
+    """Nanoseconds spent inside puts into the inboxes of `outputs` (a
+    node's ``(inbox, slot)`` list), which each inbox keeps per source slot
+    only where the dataflow writes node logs; 0 elsewhere."""
+    return sum(inbox._put_ns[slot] for inbox, slot in outputs
+               if getattr(inbox, "_put_ns", None) is not None)
+
+
 class SnapshotUnsupported(RuntimeError):
     """This node cannot produce a state snapshot in its current
     configuration (e.g. state held in native-library tables with no
